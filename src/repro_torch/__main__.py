@@ -1,0 +1,7 @@
+"""``python -m repro_torch verify PATHS...`` (see :mod:`repro_torch.compiler.cli`)."""
+import sys
+
+from repro_torch.compiler.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""Serializable mapping artifacts, read side (port of
+``repro/compiler/artifact.py``).
+
+A :class:`CompileResult` is the JSON form of one compile (schema
+``repro.compiler/artifact@1``..``@5``, written by the JAX package's
+``compile()``): the headline numbers, the full placement/routing
+mapping(s) with their DFG, and, from ``@5`` on, the lowered
+``compiled_sim`` forms bound to the mappings by ``mappings_sha256``.
+:meth:`CompileResult.simulate` re-verifies the stored mapping(s) on the
+card without re-running place & route.
+"""
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from repro_torch.compiler.fsio import sha256_of_json
+from repro_torch.mapping.mapping import Mapping, normalize_record
+
+ARTIFACT_SCHEMA = "repro.compiler/artifact@5"
+SUPPORTED_SCHEMAS = ("repro.compiler/artifact@1", "repro.compiler/artifact@2",
+                     "repro.compiler/artifact@3", "repro.compiler/artifact@4",
+                     ARTIFACT_SCHEMA)
+
+
+@dataclass
+class CompileResult:
+    """One loaded artifact (see the JAX package's module docstring for the
+    on-disk schema)."""
+
+    arch: str
+    mapper: str
+    seed: int
+    budget: Optional[int] = None
+    workload: Dict[str, object] = field(default_factory=dict)
+    ii: Optional[int] = None
+    cycles: Optional[int] = None
+    makespan: Optional[int] = None
+    timings: Dict[str, float] = field(default_factory=dict)
+    motifs: Optional[Dict[str, int]] = None
+    mappings: List[Dict[str, object]] = field(default_factory=list)
+    spatial: Optional[Dict[str, object]] = None
+    #: lowered ``repro.sim/compiled@1`` forms of ``mappings``, bound to
+    #: them by ``mappings_sha256``; a mismatch means "lower freshly"
+    compiled_sim: Optional[Dict[str, object]] = None
+    verified: Optional[bool] = None
+    degraded: Optional[Dict[str, object]] = None
+    provenance: Dict[str, object] = field(default_factory=dict)
+    route_cache: Optional[Dict[str, object]] = None
+    pass_stats: Optional[List[Dict[str, object]]] = None
+
+    @property
+    def key(self) -> str:
+        """Workload key as used by the collect cache / golden files."""
+        w = self.workload
+        if "name" in w and "unroll" in w:
+            return f"{w['name']}_u{w['unroll']}"
+        return str(w.get("dfg_name", "dfg"))
+
+    @classmethod
+    def from_json(cls, data: Dict[str, object]) -> "CompileResult":
+        schema = data.get("schema")
+        if schema not in SUPPORTED_SCHEMAS:
+            raise ValueError(
+                f"unsupported artifact schema {schema!r} "
+                f"(supported: {', '.join(SUPPORTED_SCHEMAS)})"
+            )
+        mappings = [normalize_record(rec) for rec in data.get("mappings", [])]
+        return cls(
+            arch=data["arch"],
+            mapper=data["mapper"],
+            seed=int(data["seed"]),
+            budget=data.get("budget"),
+            workload=data.get("workload") or {},
+            ii=data.get("ii"),
+            cycles=data.get("cycles"),
+            makespan=data.get("makespan"),
+            timings=data.get("timings") or {},
+            motifs=data.get("motifs"),
+            mappings=mappings,
+            spatial=data.get("spatial"),
+            compiled_sim=data.get("compiled_sim"),
+            verified=data.get("verified"),
+            degraded=data.get("degraded"),
+            provenance=data.get("provenance") or {},
+            route_cache=data.get("route_cache"),
+            pass_stats=data.get("pass_stats"),
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "CompileResult":
+        with open(path) as f:
+            return cls.from_json(json.load(f))
+
+    # -- re-verification (no P&R) ------------------------------------------
+    def rebuild_mappings(self) -> List[Mapping]:
+        """Live :class:`Mapping` objects for every stored record (one per
+        spatial segment; exactly one for modulo mappers)."""
+        return [Mapping.from_record(rec) for rec in self.mappings]
+
+    def _stored_prepared(self, iterations: int, device):
+        """Rebuild a :class:`~repro_torch.sim.batch.PreparedBatch` for
+        ``device`` from the artifact's ``compiled_sim`` forms, or ``None``
+        when they are absent, lowered for a different trip count,
+        malformed, or no longer bound to the mapping content
+        (``mappings_sha256`` mismatch) — every ``None`` means "lower
+        freshly"."""
+        cs = self.compiled_sim
+        if not isinstance(cs, dict) or not self.mappings:
+            return None
+        if cs.get("iterations") != iterations:
+            return None
+        forms_json = cs.get("forms")
+        if not isinstance(forms_json, list) \
+                or len(forms_json) != len(self.mappings):
+            return None
+        if cs.get("mappings_sha256") != sha256_of_json(self.mappings):
+            return None
+        from repro_torch.sim.batch import PreparedBatch, pack_bucket
+        from repro_torch.sim.lower import CompiledSim
+
+        scalar_idx: List[int] = []
+        batch_idx: List[int] = []
+        forms = []
+        try:
+            for i, fj in enumerate(forms_json):
+                if fj is None:
+                    scalar_idx.append(i)
+                else:
+                    batch_idx.append(i)
+                    forms.append(CompiledSim.from_json(fj))
+        except (KeyError, TypeError, ValueError):
+            return None
+        return PreparedBatch(
+            iterations=iterations, n_mappings=len(self.mappings),
+            scalar_idx=scalar_idx, batch_idx=batch_idx, forms=forms,
+            packed=pack_bucket(forms, device) if forms else None)
+
+    def simulate(self, iterations: int = 3, device=None
+                 ) -> List[Dict[Tuple[int, int], float]]:
+        """Cycle-accurately execute the stored mapping(s) against the DFG
+        reference oracle on ``device`` (default ``cuda``); returns the
+        per-(node, iteration) value dict of each mapping.  Raises
+        ``ValueError`` if no routed mapping was stored (mapper failure, or
+        the spatial analytic fallback).
+
+        Every mapping goes through the batched path
+        (:func:`~repro_torch.sim.batch.verify_mappings`), reusing the
+        stored ``compiled_sim`` forms when they bind.  A disproven mapping
+        raises ``AssertionError``; a device fault propagates — it never
+        degrades to the scalar oracle, which would hide the kernel."""
+        from repro_torch.device import resolve_device
+        from repro_torch.sim.batch import verify_mappings
+
+        if not self.mappings:
+            raise ValueError(
+                f"artifact {self.key}/{self.mapper} holds no routed mapping "
+                "to simulate"
+            )
+        device = resolve_device(device)
+        rebuilt = self.rebuild_mappings()
+        return verify_mappings(rebuilt, iterations=iterations, device=device,
+                               prepared=self._stored_prepared(iterations,
+                                                              device))

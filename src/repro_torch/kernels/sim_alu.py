@@ -1,0 +1,79 @@
+"""The batched simulator's ALU stage as a hand-written CUDA kernel.
+
+Replaces the Pallas kernel ``repro/kernels/sim_alu.py::sim_alu``: per
+(mapping, node) lane of one simulated cycle, apply the node's opcode to
+its three gathered operands and its leaf value.  The source is
+``csrc/sim_alu.cu`` (design, bound and semantics are documented there);
+it is built with ``nvcc --fmad=false`` at first use
+(:mod:`repro_torch.kernels._build`) and launched through ``ctypes`` on
+PyTorch's current stream.
+
+:func:`sim_alu` is the wrapper the cycle loop calls: a CPU tensor takes
+the plain version (:func:`repro_torch.kernels.ref.sim_alu`), a CUDA
+tensor launches the kernel or raises — never a fallback.  Importing this
+module needs no ``nvcc`` and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("sim_alu")
+    lib.sim_alu_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.sim_alu_launch.restype = ctypes.c_int
+    lib.sim_alu_error_string.argtypes = [ctypes.c_int]
+    lib.sim_alu_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def sim_alu_cuda(opcode, a, b, c, leaf):
+    """Launch the CUDA kernel: ``opcode`` int32, ``a``/``b``/``c``/``leaf``
+    float32, all contiguous, of one shape, on one CUDA device.  Returns a
+    new float32 tensor.  Raises ``ValueError`` on any other input and
+    ``RuntimeError`` when the launch is refused."""
+    args = (opcode, a, b, c, leaf)
+    dev = opcode.device
+    if dev.type != "cuda":
+        raise ValueError(f"sim_alu_cuda needs CUDA tensors, got {dev}")
+    if opcode.dtype != torch.int32:
+        raise ValueError(f"opcode must be int32, got {opcode.dtype}")
+    for name, t in zip(("a", "b", "c", "leaf"), args[1:]):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    for t in args:
+        if t.device != dev or t.shape != opcode.shape:
+            raise ValueError("sim_alu_cuda operands must share one device "
+                             f"and shape; got {[tuple(x.shape) for x in args]}"
+                             f" on {[str(x.device) for x in args]}")
+        if not t.is_contiguous():
+            raise ValueError("sim_alu_cuda operands must be contiguous")
+    out = torch.empty_like(a)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sim_alu_launch(opcode.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                c.data_ptr(), leaf.data_ptr(), out.data_ptr(),
+                                opcode.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sim_alu launch failed: CUDA error {rc} "
+                           f"({lib.sim_alu_error_string(rc).decode()})")
+    sim_alu_cuda.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (``sim_alu_cuda.launches = 0``)
+sim_alu_cuda.launches = 0
+
+
+def sim_alu(opcode, a, b, c, leaf):
+    """Elementwise ALU over same-shape tensors: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    if opcode.device.type == "cpu":
+        return ref.sim_alu(opcode, a, b, c, leaf)
+    return sim_alu_cuda(opcode, a, b, c, leaf)

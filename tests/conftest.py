@@ -15,6 +15,8 @@ def pytest_addoption(parser):
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
     if config.getoption("--quick"):
         # Mappers read this at construction time (see _BaseMapper.__init__),
         # so setting it before test modules import repro is sufficient.

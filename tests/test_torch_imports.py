@@ -1,0 +1,79 @@
+"""The import boundary of the port: ``repro_torch`` and ``chip_smoke.py``
+import ``torch``, numpy and the standard library, never ``jax`` and never
+any module of the JAX package ``repro`` (not even one without JAX in it).
+"""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+PKG = os.path.join(SRC, "repro_torch")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _modules():
+    import repro_torch
+
+    return ["repro_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, importlib.util, sys\n"
+        f"for name in {_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
+        f"{os.path.join(ROOT, 'chip_smoke.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('loaded:', len(sys.modules), 'forbidden:', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "forbidden: []" in proc.stdout
+
+
+def test_module_list_covers_the_package():
+    mods = _modules()
+    for want in ("repro_torch.device", "repro_torch.__main__",
+                 "repro_torch.sim.step", "repro_torch.sim.batch",
+                 "repro_torch.kernels.sim_alu", "repro_torch.compiler.cli"):
+        assert want in mods
+
+
+@pytest.mark.parametrize(
+    "path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_repro_import_statement(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"

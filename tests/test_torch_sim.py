@@ -1,0 +1,260 @@
+"""``repro_torch.sim`` on the CPU vs the JAX package's ``repro.sim``.
+
+The same mappings (the ``KERNELS`` fixtures of ``test_sim_batch.py``:
+atax_u2, dwconv_u1 and jacobi_u1 on plaid2x2) go through both packages:
+
+* the port's ``lower_mapping`` equals the JAX one field for field, and its
+  JSON round-trip works;
+* the port's ``run_bucket`` on the CPU, given the same ``PackedBucket``,
+  matches ``run_bucket_jnp`` with and without Pallas and
+  ``run_bucket_numpy``: ``done``/``fail`` exactly, ``val`` within
+  ``F32_TOL``;
+* corrupted mappings get the same verdicts (and reasons) as the JAX
+  ``simulate_batch`` and ``scalar_verdict``;
+* warm ``prepared`` reruns equal the cold run, stale ones raise, and a
+  call without ``device`` raises on a host without CUDA;
+* within one cycle, no scatter index other than the dump slots repeats.
+"""
+import copy
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro.compiler.artifact import mapping_to_record
+from repro.core.mapper import HierarchicalMapper
+from repro.sim.batch import pack_bucket as jax_pack_bucket
+from repro.sim.batch import simulate_batch as jax_simulate_batch
+from repro.sim.check import scalar_verdict as jax_scalar_verdict
+from repro.sim.lower import CompiledSim as JaxCompiledSim
+from repro.sim.lower import lower_mapping as jax_lower_mapping
+from repro.sim.step import run_bucket_jnp, run_bucket_numpy
+from repro_torch.core.simulate import simulate
+from repro_torch.mapping.mapping import Mapping
+from repro_torch.mapping.mapping import mapping_to_record as port_to_record
+from repro_torch.sim.batch import (
+    pack_bucket,
+    prepare_batch,
+    simulate_batch,
+    verify_mappings,
+)
+from repro_torch.sim.check import F32_TOL, close_array, scalar_verdict
+from repro_torch.sim.lower import CompiledSim, lower_mapping
+from repro_torch.sim.step import PackedBucket, _cycle, _statics, run_bucket
+
+KERNELS = [("atax", 2), ("dwconv", 1), ("jacobi", 1)]
+FIELDS = (CompiledSim._INT_FIELDS + CompiledSim._BOOL_FIELDS
+          + CompiledSim._F64_FIELDS + ("op_kind",))
+
+
+@pytest.fixture(scope="module")
+def jax_mappings(workload_dfg, arch):
+    out = []
+    for name, unroll in KERNELS:
+        m = HierarchicalMapper(arch("plaid2x2"), seed=0).map(
+            workload_dfg(name, unroll))
+        assert m is not None, f"{name}_u{unroll} failed to map"
+        out.append(m)
+    return out
+
+
+def _port(m):
+    """The port's Mapping for a JAX mapping, through the artifact record."""
+    return Mapping.from_record(json.loads(json.dumps(mapping_to_record(m))))
+
+
+def _corrupted(good):
+    dropped = copy.deepcopy(good)
+    dropped.routes.pop(next(iter(dropped.routes)))
+    foreign = copy.deepcopy(good)
+    foreign.place[99999] = 0
+    shifted = copy.deepcopy(good)
+    nid = next(iter(shifted.time))
+    shifted.time[nid] += 1
+    return [good, dropped, foreign, shifted]
+
+
+def _assert_forms_equal(got, want):
+    assert (got.ii, got.horizon, got.iterations) == \
+        (want.ii, want.horizon, want.iterations)
+    assert got.node_ids == want.node_ids
+    assert got.fail_static == want.fail_static
+    for f in FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.shape == w.shape and g.dtype == w.dtype, f
+        assert (g == w).all(), f
+
+
+# -- mapping records and lowering --------------------------------------------
+
+
+@pytest.mark.parametrize("k", range(len(KERNELS)),
+                         ids=[f"{n}_u{u}" for n, u in KERNELS])
+def test_record_roundtrip_matches_jax(jax_mappings, k):
+    m = jax_mappings[k]
+    pm = _port(m)
+    assert port_to_record(pm) == mapping_to_record(m)
+    assert pm.makespan == m.makespan
+
+
+@pytest.mark.parametrize("k", range(len(KERNELS)),
+                         ids=[f"{n}_u{u}" for n, u in KERNELS])
+def test_lowering_matches_jax(jax_mappings, k):
+    m = jax_mappings[k]
+    got = lower_mapping(_port(m), iterations=3)
+    _assert_forms_equal(got, jax_lower_mapping(m, iterations=3))
+    # the port's JSON round-trip, through real JSON text, and across
+    # packages: the compiled@1 schema is shared
+    text = json.dumps(got.to_json())
+    _assert_forms_equal(CompiledSim.from_json(json.loads(text)), got)
+    _assert_forms_equal(
+        CompiledSim.from_json(jax_lower_mapping(m, iterations=3).to_json()),
+        got)
+    assert JaxCompiledSim.from_json(json.loads(text)).node_ids == \
+        got.node_ids
+    with pytest.raises(ValueError, match="compiled@1"):
+        CompiledSim.from_json({"schema": "something/else"})
+
+
+# -- the cycle loop ----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_bucket(jax_mappings):
+    batch = jax_mappings + _corrupted(jax_mappings[0])[1:]
+    return jax_pack_bucket([jax_lower_mapping(m, iterations=3)
+                            for m in batch])
+
+
+def _assert_run_matches(got, want):
+    val, done, fail = got
+    wval, wdone, wfail = want
+    assert val.dtype == np.float64 and val.shape == wval.shape
+    np.testing.assert_array_equal(done, wdone)
+    np.testing.assert_array_equal(fail, wfail)
+    assert close_array(val, wval, F32_TOL).all()
+
+
+@pytest.mark.parametrize("reference", ["jnp", "pallas", "numpy"])
+def test_run_bucket_matches_jax(jax_bucket, reference):
+    pb = PackedBucket.from_numpy(vars(jax_bucket), "cpu")
+    got = run_bucket(pb)
+    if reference == "numpy":
+        want = run_bucket_numpy(jax_bucket)
+    else:
+        want = run_bucket_jnp(jax_bucket, use_pallas=reference == "pallas")
+    _assert_run_matches(got, want)
+    # the corrupted members really exercise the read-failure path
+    assert got[2].any() and not got[2][:len(KERNELS)].any()
+
+
+def test_port_packing_matches_jax(jax_mappings):
+    forms = [lower_mapping(_port(m), iterations=3) for m in jax_mappings]
+    ours = pack_bucket(forms, "cpu")
+    theirs = jax_pack_bucket([jax_lower_mapping(m, iterations=3)
+                              for m in jax_mappings])
+    assert (ours.iterations, ours.hmax, ours.shape) == \
+        (theirs.iterations, theirs.hmax, theirs.shape)
+    for f in ("ii", "horizon", "opcode", "exec_mask", "issue", "compare",
+              "leaf", "ref", "op_kind", "op_src", "op_dist", "op_feed",
+              "op_steps", "step_src", "step_abs"):
+        np.testing.assert_array_equal(getattr(ours, f), getattr(theirs, f),
+                                      err_msg=f)
+
+
+def test_scatter_indices_repeat_only_at_dump_slots(jax_bucket):
+    pb = PackedBucket.from_numpy(vars(jax_bucket), "cpu")
+    B, N, K, M, S = pb.shape
+    I = pb.iterations
+    s = _statics(pb)
+    val = torch.zeros(B * (N + 2) * I)
+    done = torch.zeros(B * (N + 2) * I, dtype=torch.bool)
+    avail = torch.zeros(B * (S + 2) * I, dtype=torch.bool)
+    fail = torch.zeros(B, dtype=torch.bool)
+    n_writes = 0
+    for t in range(pb.hmax):
+        idx, widx = _cycle(s, t, val, done, avail, fail)
+        for ix, dump in ((idx, s["dump"]), (widx, s["wdump"])):
+            real = ix[ix != dump]
+            assert real.unique().numel() == real.numel(), t
+            n_writes += real.numel()
+    assert n_writes > 0
+    # row N (the read sentinel) is never written
+    assert not done.view(B, N + 2, I)[:, N, :].any()
+
+
+# -- verdicts ----------------------------------------------------------------
+
+
+def test_corrupted_mappings_match_jax_verdicts(jax_mappings):
+    batch = _corrupted(jax_mappings[0])
+    ours = simulate_batch([_port(m) for m in batch], iterations=3,
+                          device="cpu")
+    theirs = jax_simulate_batch(batch, iterations=3, backend="jnp")
+    for m, v, w in zip(batch, ours, theirs):
+        assert (v.ok, v.reason) == (w.ok, w.reason)
+        # the port's scalar oracle is the JAX one, reason for reason
+        ok, values, reason = scalar_verdict(_port(m), iterations=3)
+        assert (ok, reason) == jax_scalar_verdict(m, iterations=3)[::2]
+        assert ok == v.ok
+    assert ours[0].ok
+    assert "not present at read time" in ours[1].reason
+    assert "unknown node 99999" in ours[2].reason
+
+
+def test_values_match_scalar_oracle(jax_mappings):
+    ms = [_port(m) for m in jax_mappings]
+    res = simulate_batch(ms, iterations=3, device="cpu")
+    assert res.backend == "cpu" and res.n_buckets == 1
+    for m, v in zip(ms, res):
+        assert v.ok and v._values is None
+        want = simulate(m, iterations=3)
+        assert set(v.values) == set(want)
+        got = np.array([v.values[k] for k in want])
+        assert close_array(got, list(want.values()), F32_TOL).all()
+
+
+def test_prepared_batch_warm_rerun_matches_cold(jax_mappings):
+    ms = [_port(m) for m in jax_mappings] + [_port(_corrupted(
+        jax_mappings[0])[1])]
+    cold = simulate_batch(ms, iterations=3, device="cpu")
+    pb = prepare_batch(ms, iterations=3, device="cpu")
+    warm1 = simulate_batch(ms, iterations=3, device="cpu", prepared=pb)
+    warm2 = simulate_batch(ms, iterations=3, device="cpu", prepared=pb)
+    for c, w1, w2 in zip(cold, warm1, warm2):
+        assert c.ok == w1.ok == w2.ok
+        assert c.reason == w1.reason == w2.reason
+        assert w1.values == w2.values == c.values
+    with pytest.raises(ValueError, match="prepared batch"):
+        simulate_batch(ms[:-1], iterations=3, device="cpu", prepared=pb)
+    with pytest.raises(ValueError, match="prepared batch"):
+        simulate_batch(ms, iterations=4, device="cpu", prepared=pb)
+
+
+def test_verify_mappings_raises_on_disproof(jax_mappings):
+    ms = [_port(m) for m in jax_mappings]
+    values = verify_mappings(ms, iterations=3, device="cpu")
+    assert len(values) == len(ms) and all(values)
+    bad = _port(_corrupted(jax_mappings[0])[1])
+    with pytest.raises(AssertionError, match=r"mapping\[1\]"):
+        verify_mappings([ms[0], bad], iterations=3, device="cpu")
+
+
+def test_negative_distance_goes_to_scalar_oracle(jax_mappings):
+    mm = _port(jax_mappings[0])
+    mm.dfg.edges[next(iter(mm.routes))].distance = -1
+    res = simulate_batch([mm], iterations=3, device="cpu")
+    assert res.n_scalar_fallback == 1 and res[0].backend == "scalar"
+
+
+def test_default_device_is_cuda_and_never_falls_back(jax_mappings):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device would run")
+    ms = [_port(jax_mappings[0])]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate_batch(ms, iterations=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prepare_batch(ms, iterations=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        verify_mappings(ms, iterations=3)
