@@ -17,7 +17,21 @@ Phases, in order; any failure exits non-zero before the last line:
    ``fail`` on the card must equal a CPU run of the port; then a
    ``torch.profiler`` trace of one warm run (device busy share, top kernels);
 4. fail phase: a corrupted mapping (dropped route) must FAIL on the card
-   with the same reason as on the CPU.
+   with the same reason as on the CPU;
+5. LM kernel phase: ``rmsnorm``, ``fused_swiglu`` and ``flash_attention``
+   against their plain versions on the card, in float32 and bfloat16 on
+   the shapes of ``tests/test_kernels.py`` (under its ``TOL``) and in
+   bfloat16 at the serve path's shapes (under ``PATH_TOL``, with rmsnorm's
+   rows drawn at RMS from 0.1 to 10), with kernel, plain, bound and
+   library times there;
+6. serve phase: ``python -m repro_torch.launch.serve --arch llama3_2_3b
+   --batch 4 --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width
+   (the second main path, with the launch counters read just around it):
+   tokens (4, 32), cache length 531, finite logits, exactly 57 x 32 rmsnorm,
+   28 x 32 fused_swiglu and 28 flash_attention launches; a ``torch.profiler``
+   trace of one decode step; then, in float32 at full width and depth, 4
+   teacher-forced decode steps against a full forward (``DECODE_TOL``), and
+   the card against the CPU at full width and 2 layers (``PARITY_TOL``).
 
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -32,6 +46,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -42,8 +57,31 @@ FP32_OPS_PER_S = 67e12
 #: sim_alu moves one int32 opcode + four float32 operands in and one
 #: float32 result out per element
 SIM_ALU_BYTES_PER_ELEM = 24
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12
 SIM_ALU_SOURCE = "src/repro_torch/kernels/csrc/sim_alu.cu"
 SIM_ALU_REPLACES = "src/repro/kernels/sim_alu.py:53"
+#: the serve path's kernels: the TPU kernel each replaces
+LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
+               "fused_swiglu": "src/repro/kernels/fused_swiglu.py:39",
+               "flash_attention": "src/repro/kernels/flash_attention.py:70"}
+KERNELS = ["sim_alu", *LM_REPLACES]
+#: tests/test_kernels.py's tolerances
+TOL = {"float32": dict(rtol=2e-4, atol=2e-3),
+       "bfloat16": dict(rtol=3e-2, atol=3e-1)}
+#: the LM kernels against their plain versions at the serve path's bf16
+#: shapes.  Both compute in float32 and cast once, so they may differ by one
+#: bf16 ulp (at most 2**-7 of the value, under rtol) plus float32 sum-order
+#: noise near zero (under atol, a tenth of a typical flash output).
+PATH_TOL = dict(rtol=1e-2, atol=5e-3)
+#: teacher-forced decode against the full forward, float32 logits at full
+#: width and depth: measured 2.5e-4 at most on an H100; logits reach ~0.8
+#: and a typical one is ~0.12, which a wrong cache slot or mask moves
+DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
+#: the card (kernels) against the CPU (plain versions), float32 logits
+PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
+SERVE_ARGV = ["--arch", "llama3_2_3b", "--batch", "4", "--prompt-len", "500",
+              "--new-tokens", "32", "--device", "cuda"]
 
 
 class SmokeFailure(RuntimeError):
@@ -265,6 +303,383 @@ def fail_phase(mappings):
           f"{v_dev.reason}")
 
 
+def _randn(shape, dtype, seed: int, scale=1.0):
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(seed)
+    return torch.from_numpy((g.standard_normal(shape) * scale).astype(
+        np.float32)).to(device="cuda", dtype=dtype)
+
+
+def _close(name: str, got, want, tol):
+    """Hold ``got`` against ``want`` under ``tol``; returns the largest
+    absolute difference and the largest share of the tolerance used."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    limit = tol["atol"] + tol["rtol"] * want.float().abs()
+    share = (diff / limit).max().item()
+    require(share <= 1.0 and bool(torch.isfinite(got).all()),
+            f"{name}: {int((diff > limit).sum())} of {diff.numel()} elements "
+            f"outside rtol {tol['rtol']} atol {tol['atol']} (max abs diff "
+            f"{diff.max().item()}, {share:.3f} of the tolerance)")
+    return diff.max().item(), share
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time in ms of the CUDA kernels ``fn()`` launches, over
+    ``iters`` calls (``torch.profiler``; the host's dispatch is left out,
+    unlike :func:`cuda_ms`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def _bound(n_bytes: float, ops: float, ops_rate: float):
+    bounds = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+              "operations": ops / ops_rate * 1e3}
+    by = max(bounds, key=bounds.get)
+    return bounds[by], by
+
+
+def lm_kernel_cases():
+    """(name, label, kernel call, plain call, library call or None, bytes,
+    operations, operations rate, GEMM yardstick or None) at the serve
+    path's shapes, bfloat16:
+    M = B*T = 2000 rows in prefill and 4 in decode, D = 3072, F = 8192,
+    96 = 4 x 24 query heads over 32 kv heads, S = 500, d = 128.  rmsnorm's
+    rows have RMS from 0.1 to 10, so a missing or misplaced normalization
+    shows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    bf = torch.bfloat16
+    cases = []
+    for M in (2000, 4):
+        x = _randn((M, 3072), bf, 1, np.geomspace(0.1, 10.0, M)[:, None])
+        s = _randn((3072,), bf, 2)
+        cases.append((
+            "rmsnorm", f"({M},3072)", lambda x=x, s=s: rmsnorm_cuda(x, s),
+            lambda x=x, s=s: ref.rmsnorm(x, s),
+            lambda x=x, s=s: F.rms_norm(x, (3072,), s, 1e-6),
+            (2 * M * 3072 + 3072) * 2, 4 * M * 3072, FP32_OPS_PER_S, None))
+    for M in (2000, 4):
+        x = _randn((M, 3072), bf, 3)
+        w1, w3 = (_randn((3072, 8192), bf, i, 3072 ** -0.5) for i in (4, 5))
+        cases.append((
+            "fused_swiglu", f"({M},3072)x(3072,8192)",
+            lambda x=x, w1=w1, w3=w3: fused_swiglu_cuda(x, w1, w3),
+            lambda x=x, w1=w1, w3=w3: ref.fused_swiglu(x, w1, w3), None,
+            (M * 3072 + 2 * 3072 * 8192 + M * 8192) * 2,
+            4 * M * 3072 * 8192 + 5 * M * 8192, BF16_OPS_PER_S,
+            lambda x=x, w1=w1: x @ w1))
+    H, S, d, g = 96, 500, 128, 3
+    q = _randn((H, S, d), bf, 6)
+    k, v = (_randn((H // g, S, d), bf, i) for i in (7, 8))
+    pairs = H * S * (S + 1) // 2  # live (q, k) pairs of the causal band
+    cases.append((
+        "flash_attention", f"({H},{S},{d}) causal kv_group {g}",
+        lambda: flash_attention_cuda(q, k, v, causal=True, kv_group=g),
+        lambda: ref.flash_attention(q, k, v, causal=True, kv_group=g),
+        lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0],
+        (2 * H + 2 * H // g) * S * d * 2, 4 * d * pairs, BF16_OPS_PER_S,
+        None))
+    return cases
+
+
+def lm_kernel_phase():
+    """The serve path's kernels against their plain versions on the card;
+    returns each kernel's JSON record minus ``launches`` (times at the
+    prefill shape; both shapes under ``at``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    # tests/test_kernels.py's shapes, in both dtypes
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for M, D in [(128, 64), (256, 512), (64, 160)]:
+            x, s = _randn((M, D), dt, 10), _randn((D,), dt, 11)
+            _close(f"rmsnorm {dtype} ({M},{D})", rmsnorm_cuda(x, s),
+                   ref.rmsnorm(x, s), TOL[dtype])
+        for M, D, F in [(128, 128, 128), (256, 384, 128), (128, 256, 256)]:
+            x = _randn((M, D), dt, 12)
+            w1, w3 = _randn((D, F), dt, 13), _randn((D, F), dt, 14)
+            _close(f"fused_swiglu {dtype} ({M},{D},{F})",
+                   fused_swiglu_cuda(x, w1, w3), ref.fused_swiglu(x, w1, w3),
+                   TOL[dtype])
+        for H, S, d in [(2, 128, 64), (1, 256, 32)]:
+            q, k, v = (_randn((H, S, d), dt, i) for i in (15, 16, 17))
+            for kw in (dict(causal=True), dict(causal=True, window=64),
+                       dict(causal=False)):
+                _close(f"flash_attention {dtype} ({H},{S},{d}) {kw}",
+                       flash_attention_cuda(q, k, v, **kw),
+                       ref.flash_attention(q, k, v, **kw), TOL[dtype])
+        print(f"kernel rmsnorm, fused_swiglu, flash_attention {dtype}: equal "
+              f"to plain on tests/test_kernels.py's shapes and the three "
+              f"flash cases (rtol {TOL[dtype]['rtol']} atol "
+              f"{TOL[dtype]['atol']})")
+
+    records = {}
+    for (name, label, kern, plain, lib, n_bytes, ops, rate,
+         yardstick) in lm_kernel_cases():
+        err, share = _close(f"{name} bfloat16 {label}", kern(), plain(),
+                            PATH_TOL)
+        k_ms = cuda_ms(kern, 20)
+        k_dev = device_ms(kern, 20)
+        p_ms = cuda_ms(plain, 5)
+        l_ms = cuda_ms(lib, 20) if lib is not None else None
+        bound, by = _bound(n_bytes, ops, rate)
+        lib_txt = f"{l_ms:.6f} ms" if l_ms is not None else "none"
+        print(f"kernel {name} {label} bf16: {k_ms:.6f} ms ({k_dev:.6f} ms "
+              f"device time), plain {p_ms:.6f} ms, bound {bound:.6f} ms "
+              f"({by}), library {lib_txt}; max abs err {err:.6g}, "
+              f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
+              f"{PATH_TOL['atol']})")
+        at = {"shape": label, "ms": k_ms, "device_ms": k_dev,
+              "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+              "library_ms": l_ms, "max_abs_err": err}
+        if name not in records:
+            records[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": LM_REPLACES[name], **{k: at[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}, "at": []}
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        records[name]["at"].append(at)
+        if yardstick is not None:
+            print(f"yardstick: one torch.matmul x @ w1 at {label} bf16 "
+                  f"{cuda_ms(yardstick, 20):.6f} ms (cuBLAS; the port "
+                  f"does not call it)")
+    return records
+
+
+def lm_counts():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    return {"rmsnorm": rmsnorm_cuda.launches,
+            "fused_swiglu": fused_swiglu_cuda.launches,
+            "flash_attention": flash_attention_cuda.launches}
+
+
+def reset_lm_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    rmsnorm_cuda.launches = 0
+    fused_swiglu_cuda.launches = 0
+    flash_attention_cuda.launches = 0
+
+
+def teacher_forced(model, prompts, follow, steps: int):
+    """Logits of ``steps`` decode steps fed ``follow`` after a prefill of
+    ``prompts``, and the full forward's logits at the same positions."""
+    import torch
+
+    from repro_torch.serve.kvcache import grow_cache
+
+    T = prompts.shape[1]
+    with torch.inference_mode():
+        cache, _ = model.prefill({"tokens": prompts})
+        cache = grow_cache(cache, steps, window=model.cfg.sliding_window)
+        dec = []
+        for i in range(steps):
+            cache, logits = model.decode_step(cache, follow[:, i:i + 1])
+            dec.append(logits[:, 0])
+        h = model.forward({"tokens": torch.cat([prompts, follow[:, :steps]],
+                                               dim=1)})
+        full = (h[:, T:T + steps] @ model.emb.T).float()
+    return torch.stack(dec, dim=1), full
+
+
+def serve_phase():
+    """The second main path: the serving launcher at full width on the
+    card; returns the launch counts of its run."""
+    import torch
+
+    from repro_torch.launch.serve import run as serve_run
+
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = serve_run(SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    counts = lm_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for line in buf.getvalue().splitlines():
+        print(f"serve: {line}")
+    cfg, info, tokens = out["cfg"], out["info"], out["tokens"]
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+            == (28, 3072, 24, 8, 128, 8192, 128256),
+            f"not the full llama3_2_3b config: {cfg}")
+    require(tuple(tokens.shape) == (4, 32), f"tokens {tuple(tokens.shape)}")
+    require(info["cache_length"] == 531,
+            f"cache length {info['cache_length']}, want 500 + 31")
+    require(info["logits_finite"], "non-finite logits")
+    want = {"rmsnorm": 57 * 32, "fused_swiglu": 28 * 32,
+            "flash_attention": 28}
+    require(counts == want, f"launch counts {counts}, want {want}")
+    print(f"serve: full width ({sum(p.numel() for p in out['model'].parameters())}"
+          f" params, bf16); prefill {info['prefill_s'] * 1e3:.3f} ms, "
+          f"decode {info['decode_s'] / info['decode_steps'] * 1e3:.3f} ms "
+          f"per token; set-up {out['setup_s']:.3f} s; run {wall:.3f} s; "
+          f"peak device memory {peak:.3f} GiB; launches {counts}")
+
+    model, prompts = out["model"], out["prompts"]
+    with torch.inference_mode():
+        cache, _ = model.prefill({"tokens": prompts})
+    profile_decode(model, cache, tokens[:, :1])
+    del out, model, cache
+    torch.cuda.empty_cache()
+
+    # float32, where sum order is all that differs between the two routes
+    model = zoo_init(cfg, torch.float32)
+    dec, full = teacher_forced(model, prompts, tokens, 4)
+    err, share = _close("teacher-forced decode vs forward (f32, 28 layers)",
+                        dec, full, DECODE_TOL)
+    print(f"serve: 4 teacher-forced decode steps equal the full forward in "
+          f"float32 at full width and 28 layers (rtol {DECODE_TOL['rtol']} "
+          f"atol {DECODE_TOL['atol']}); max abs diff {err:.6g}, "
+          f"{share:.3f} of the tolerance; logits up to "
+          f"{full.abs().max().item():.6g}, mean |logit| "
+          f"{full.abs().mean().item():.6g}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zoo_init(cfg, dtype):
+    """The model at ``cfg`` with weights drawn on the card from ``SEED``."""
+    import torch
+
+    from repro_torch.models import zoo
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return zoo.init_model(cfg, gen, "cuda", dtype)
+
+
+def profile_decode(model, cache, tok) -> None:
+    """Device busy share and top kernels of one decode step at full width
+    (``torch.profiler``): device time of a profiled step against the wall
+    time of an unprofiled one, after a warm step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.kvcache import grow_cache
+
+    cache = grow_cache(cache, 3)  # a warm, a timed and a traced step
+    S = cache["k"].shape[2]
+    with torch.inference_mode():
+        model.decode_step(cache, tok)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_step(cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.decode_step(cache, tok)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print("profile: no device time in the trace (not measured)")
+        return
+    print(f"profile: one decode step (batch 4, cache {S} slots), device busy "
+          f"{busy_ms:.6f} ms of {wall_ms:.6f} ms unprofiled wall "
+          f"({100 * busy_ms / wall_ms:.2f}% busy; {traced_ms:.6f} ms wall "
+          f"while traced); {sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"profile:   {e.self_device_time_total / 1e3:9.6f} ms "
+              f"{e.count:5d}x {e.key[:90]}")
+
+
+def parity_phase() -> None:
+    """Full width, 2 layers, float32: the port on the card (kernels) against
+    the port on the CPU (plain versions), same weights and prompts: prefill
+    and 4 teacher-forced decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3_2_3b").replace(n_layers=2)
+    card = zoo_init(cfg, torch.float32)
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 132)).astype(
+        np.int32))
+    with torch.inference_mode():
+        got = [card.prefill({"tokens": toks[:, :128].cuda()})[1]]
+        want = [cpu.prefill({"tokens": toks[:, :128]})[1]]
+    dec_c, full_c = teacher_forced(card, toks[:, :128].cuda(),
+                                      toks[:, 128:].cuda(), 4)
+    dec_h, full_h = teacher_forced(cpu, toks[:, :128], toks[:, 128:], 4)
+    err = max(_close(f"card vs CPU {what} (f32, full width, 2 layers)",
+                     g.cpu(), w, PARITY_TOL)[0]
+              for what, g, w in (("prefill logits", got[0], want[0]),
+                                 ("decode logits", dec_c, dec_h),
+                                 ("forward logits", full_c, full_h)))
+    print(f"parity: full width, 2 layers, f32, batch 2, prompt 128, 4 "
+          f"teacher-forced steps: the card's kernels equal the CPU's plain "
+          f"versions (rtol {PARITY_TOL['rtol']} atol {PARITY_TOL['atol']}); "
+          f"max abs diff {err:.6g}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def build_all(root: str) -> None:
+    """Every kernel's nvcc build, one process each, all started together."""
+    from repro_torch.kernels import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return name, lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(one, KERNELS))
+    for name, lib, secs in built:
+        _build.load(name)
+        print(f"build: {name} {secs:.3f} s ({os.path.relpath(lib, root)})")
+        with open(f"{lib}.log") as f:
+            for line in f.read().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"build: {line.strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -272,7 +687,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import _build
+    # the plain versions' float32 products in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -280,23 +697,31 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
     print(smi)
     t0 = time.perf_counter()
-    lib = _build.build("sim_alu")
-    _build.load("sim_alu")
-    print(f"build: sim_alu {time.perf_counter() - t0:.3f} s "
-          f"({os.path.relpath(lib, ROOT)})")
-    with open(f"{lib}.log") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {line.strip()}")
+    build_all(ROOT)
+    print(f"phase: build {time.perf_counter() - t0:.3f} s")
 
+    t0 = time.perf_counter()
     mappings = corpus_mappings()
     from repro_torch.sim.batch import prepare_batch
     pb = prepare_batch(mappings, iterations=3, device="cpu").packed
     record = kernel_phase(pb.opcode.shape)
     record["launches"] = path_phase(mappings)
     fail_phase(mappings)
+    print(f"phase: verify path (sim_alu) {time.perf_counter() - t0:.3f} s")
 
-    print(json.dumps({"kernels": [record]}))
+    t0 = time.perf_counter()
+    records = lm_kernel_phase()
+    print(f"phase: LM kernels {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    counts = serve_phase()
+    print(f"phase: serve path {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    parity_phase()
+    print(f"phase: card vs CPU parity {time.perf_counter() - t0:.3f} s")
+    for name, rec in records.items():
+        rec["launches"] = counts[name]
+
+    print(json.dumps({"kernels": [record, *records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

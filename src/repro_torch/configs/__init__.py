@@ -1,0 +1,23 @@
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    ARCH_REGISTRY,
+    PORTED_ARCH_IDS,
+    SHAPES,
+    ModelConfig,
+    ShapeSpec,
+    get_config,
+    register,
+    smoke_config,
+)
+
+__all__ = [
+    "ARCH_IDS",
+    "ARCH_REGISTRY",
+    "PORTED_ARCH_IDS",
+    "SHAPES",
+    "ModelConfig",
+    "ShapeSpec",
+    "get_config",
+    "register",
+    "smoke_config",
+]

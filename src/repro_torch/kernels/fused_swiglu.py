@@ -1,0 +1,62 @@
+"""The fused SwiGLU gate as a hand-written CUDA kernel.
+
+Replaces the Pallas kernel ``repro/kernels/fused_swiglu.py::fused_swiglu``:
+``silu(x @ w1) * (x @ w3)`` for x (M, D) and w1, w3 (D, F), both products
+and the gate in float32, cast to the input type once.  The source is
+``csrc/fused_swiglu.cu`` (design and bound are documented there): the
+products are the kernel's own, with no cuBLAS and no ``torch.matmul``.
+
+:func:`fused_swiglu` is the wrapper the MLP calls: a CPU tensor takes the
+plain version (:func:`repro_torch.kernels.ref.fused_swiglu`), a CUDA tensor
+launches the kernel or raises.  Importing this module needs no ``nvcc`` and
+no card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _launch, ref
+
+#: x, w1, w3, out, M, D, F, dtype code
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_INT_MAX = 2 ** 31 - 1
+
+
+def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
+                      w3: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: ``x`` (M, D), ``w1`` and ``w3`` (D, F), all
+    float32 or all bfloat16, contiguous, on one CUDA device.  Returns a new
+    (M, F) tensor of ``x``'s dtype.  Raises ``ValueError`` on any other
+    input and ``RuntimeError`` when the launch is refused."""
+    code = _launch.check_operands("fused_swiglu",
+                                  {"x": x, "w1": w1, "w3": w3})
+    if x.dim() != 2 or w1.dim() != 2 or w1.shape[0] != x.shape[1] \
+            or w3.shape != w1.shape:
+        raise ValueError(f"fused_swiglu takes x (M, D), w1/w3 (D, F), got "
+                         f"{tuple(x.shape)}, {tuple(w1.shape)}, "
+                         f"{tuple(w3.shape)}")
+    (M, D), F = x.shape, w1.shape[1]
+    if max(M, D, F) > _INT_MAX:
+        raise ValueError(f"fused_swiglu: a dimension of {(M, D, F)} "
+                         "exceeds int32")
+    out = torch.empty((M, F), dtype=x.dtype, device=x.device)
+    _launch.launch("fused_swiglu", _ARGS, x.device, x.data_ptr(),
+                   w1.data_ptr(), w3.data_ptr(), out.data_ptr(), M, D, F,
+                   code)
+    fused_swiglu_cuda.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (``fused_swiglu_cuda.launches = 0``)
+fused_swiglu_cuda.launches = 0
+
+
+def fused_swiglu(x: torch.Tensor, w1: torch.Tensor,
+                 w3: torch.Tensor) -> torch.Tensor:
+    """``silu(x @ w1) * (x @ w3)``: the plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return ref.fused_swiglu(x, w1, w3)
+    return fused_swiglu_cuda(x, w1, w3)

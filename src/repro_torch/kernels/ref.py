@@ -8,6 +8,8 @@ them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.sim.lower import OPS
@@ -63,3 +65,46 @@ def sim_alu(opcode, a, b, c, leaf):
     for code in range(len(OPS)):
         out = torch.where(opcode == code, _alu(code, a, b, c, leaf), out)
     return out
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """``x * rsqrt(mean(x**2) + eps) * scale`` over the last axis of (M, D)
+    ``x``, in float32, cast to ``x.dtype`` once at the end
+    (``repro/kernels/ref.py::rmsnorm``)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def fused_swiglu(x, w1, w3):
+    """``silu(x @ w1) * (x @ w3)`` for x (M, D), w1/w3 (D, F): both products
+    and the gate in float32, cast to ``x.dtype`` once
+    (``repro/kernels/ref.py::fused_swiglu``)."""
+    a = x.float() @ w1.float()
+    b = x.float() @ w3.float()
+    return (torch.nn.functional.silu(a) * b).to(x.dtype)
+
+
+NEG = -1e30
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_group: int = 1):
+    """Masked softmax attention over q (H, S, d) and k/v (H // kv_group, S,
+    d) in float32, cast to ``q.dtype`` (``repro/kernels/ref.py::
+    flash_attention``).  Query head h reads kv head ``h // kv_group``;
+    ``kv_group=1`` is the reference's function.  Masked scores are -1e30."""
+    H, S, d = q.shape
+    k = k.float().repeat_interleave(kv_group, dim=0)
+    v = v.float().repeat_interleave(kv_group, dim=0)
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k) / math.sqrt(d)
+    pos = torch.arange(S, device=q.device)
+    qpos, kpos = pos[:, None], pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", p, v).to(q.dtype)

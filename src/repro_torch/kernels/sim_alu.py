@@ -19,17 +19,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _launch, ref
 
-
-def _library() -> ctypes.CDLL:
-    lib = _build.load("sim_alu")
-    lib.sim_alu_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_void_p]
-    lib.sim_alu_launch.restype = ctypes.c_int
-    lib.sim_alu_error_string.argtypes = [ctypes.c_int]
-    lib.sim_alu_error_string.restype = ctypes.c_char_p
-    return lib
+#: opcode, a, b, c, leaf, out, element count
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
 
 
 def sim_alu_cuda(opcode, a, b, c, leaf):
@@ -54,15 +47,9 @@ def sim_alu_cuda(opcode, a, b, c, leaf):
         if not t.is_contiguous():
             raise ValueError("sim_alu_cuda operands must be contiguous")
     out = torch.empty_like(a)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sim_alu_launch(opcode.data_ptr(), a.data_ptr(), b.data_ptr(),
-                                c.data_ptr(), leaf.data_ptr(), out.data_ptr(),
-                                opcode.numel(), stream)
-    if rc != 0:
-        raise RuntimeError(f"sim_alu launch failed: CUDA error {rc} "
-                           f"({lib.sim_alu_error_string(rc).decode()})")
+    _launch.launch("sim_alu", _ARGS, dev, opcode.data_ptr(), a.data_ptr(),
+                   b.data_ptr(), c.data_ptr(), leaf.data_ptr(),
+                   out.data_ptr(), opcode.numel())
     sim_alu_cuda.launches += 1
     return out
 

@@ -1,0 +1,227 @@
+"""Dense decoder-only LM (llama-style pre-norm GQA + SwiGLU), the port of
+``repro/models/dense.py``.
+
+Covers the dense archs (stablelm-12b, qwen3-14b, llama3.2-3b,
+h2o-danube-3-4b with SWA) and the VLM backbone (qwen2-vl-72b: token
+*embeddings* come in pre-computed, positions are 3-axis M-RoPE ids).
+
+:class:`DenseLM` holds the leaves of :func:`param_spec` as parameters, with
+the ``layers`` axis unstacked into a ``ModuleList`` (each layer's tensors
+are views of the stacked ones, so nothing is copied); ``lax.scan`` over
+layers becomes a Python loop.  The module serves only: its parameters do
+not require gradients.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.layers import Spec
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def _stack(spec_tree, n: int):
+    return L.spec_map(
+        lambda s: Spec((n,) + s.shape, ("layers",) + s.axes, s.dtype, s.init),
+        spec_tree)
+
+
+def layer_param_spec(cfg) -> Dict[str, Spec]:
+    return {
+        "attn": L.attention_param_spec(cfg),
+        "mlp": L.mlp_param_spec(cfg),
+        "ln1": Spec((cfg.d_model,), ("embed",), init="ones"),
+        "ln2": Spec((cfg.d_model,), ("embed",), init="ones"),
+    }
+
+
+def param_spec(cfg) -> Dict[str, Spec]:
+    return {
+        **L.embed_param_spec(cfg),
+        "layers": _stack(layer_param_spec(cfg), cfg.n_layers),
+        "ln_f": Spec((cfg.d_model,), ("embed",), init="ones"),
+    }
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: each tensor a parameter
+    (without gradient), each sub-dict a sub-module; ``tree["key"]`` reads
+    either."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+
+def _layer_slice(tree: Dict, i: int) -> Dict:
+    return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache layout
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg, seq_len: int) -> int:
+    return min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
+
+
+def cache_spec(cfg, batch: int, seq_len: int) -> Dict[str, Spec]:
+    S = cache_len(cfg, seq_len)
+    kvd = cfg.n_kv_heads * cfg.resolved_head_dim
+    # long-context decode has global_batch=1: shard the cache sequence dim
+    seq_axis = "cache_seq" if batch == 1 else None
+    return {
+        "k": Spec((cfg.n_layers, batch, S, kvd),
+                  ("layers", "batch", seq_axis, "kv_heads")),
+        "v": Spec((cfg.n_layers, batch, S, kvd),
+                  ("layers", "batch", seq_axis, "kv_heads")),
+        # absolute position held by each slot; -1 empty
+        "pos": Spec((batch, S), ("batch", seq_axis), torch.int32),
+        "length": Spec((batch,), ("batch",), torch.int32),
+    }
+
+
+class DenseLM(nn.Module):
+    """The dense / vlm family's model.  ``params`` is a tree shaped like
+    :func:`param_spec` (stacked ``layers``), e.g. from
+    :func:`repro_torch.models.layers.init_params` or
+    :func:`repro_torch.models.convert.params_from_numpy`."""
+
+    def __init__(self, cfg, params: Dict):
+        super().__init__()
+        self.cfg = cfg
+        self.emb = nn.Parameter(params["emb"], requires_grad=False)
+        self.ln_f = nn.Parameter(params["ln_f"], requires_grad=False)
+        self.layers = nn.ModuleList(
+            ParamTree(_layer_slice(params["layers"], i))
+            for i in range(cfg.n_layers))
+
+    # -- full-sequence passes -------------------------------------------
+
+    def _inputs(self, batch):
+        """(x, positions) of a full-sequence batch."""
+        if self.cfg.family == "vlm":
+            return batch["embeds"], batch["positions"]  # (B, 3, T)
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, T)
+        return L.embed_lookup(self.emb, tokens), positions
+
+    def _block(self, w, x, positions):
+        h, kv = L.attention_layer(self.cfg, w["attn"], L.rms_norm(x, w["ln1"]),
+                                  positions, attn_impl=self.cfg.attn_impl)
+        x = x + h
+        x = x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
+        return x, kv
+
+    def forward(self, batch) -> torch.Tensor:
+        """Final hidden states (B, T, D)."""
+        x, positions = self._inputs(batch)
+        for w in self.layers:
+            x, _ = self._block(w, x, positions)
+        return L.rms_norm(x, self.ln_f)
+
+    def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
+        """Run the full prompt; return (cache, last-token logits (B, 1, V)
+        in float32)."""
+        cfg = self.cfg
+        B, T = batch["tokens"].shape
+        S = cache_len(cfg, T)
+        ring = bool(cfg.sliding_window) and S == cfg.sliding_window
+        x, positions = self._inputs(batch)
+        ks, vs = [], []
+        for w in self.layers:
+            x, (k, v) = self._block(w, x, positions)
+            # keep the last S positions (ring-buffer layout: slot = pos % S)
+            kk = k.reshape(B, T, -1)[:, T - S:]
+            vv = v.reshape(B, T, -1)[:, T - S:]
+            if ring:
+                # roll so that slot index == abs_position % S
+                shift = (T - S) % S
+                kk = torch.roll(kk, shift, dims=1)
+                vv = torch.roll(vv, shift, dims=1)
+            ks.append(kk)
+            vs.append(vv)
+        x = L.rms_norm(x, self.ln_f)
+        logits = (x[:, -1:] @ self.emb.T).float()
+
+        slot_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        if ring:
+            pos = (T - S) + ((slot_pos - (T % S)) % S)  # abs pos per slot
+        else:
+            pos = slot_pos
+        cache = {
+            "k": torch.stack(ks),
+            "v": torch.stack(vs),
+            "pos": pos[None].expand(B, S).contiguous(),
+            "length": torch.full((B,), T, dtype=torch.int32,
+                                 device=x.device),
+        }
+        return cache, logits
+
+    def decode_step(self, cache: Dict, tokens: torch.Tensor
+                    ) -> Tuple[Dict, torch.Tensor]:
+        """One decode step: tokens (B, 1) -> (cache, logits (B, 1, V) in
+        float32).  Unlike the JAX package, which returns a new cache
+        (``.at[].set`` plus buffer donation), the step writes the new k/v
+        and slot position into ``cache`` in place and returns the same
+        dict with ``length`` advanced: ``grow_cache`` preallocated the
+        room."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        S = cache["k"].shape[2]
+        hd = cfg.resolved_head_dim
+        length = cache["length"]  # (B,)
+        positions = length[:, None]  # (B, 1)
+        if cfg.m_rope:
+            positions = positions[:, None, :].expand(B, 3, 1)
+
+        x = L.embed_lookup(self.emb, tokens)
+        slot = length % S  # (B,)
+        barange = torch.arange(B, device=tokens.device)
+
+        cache["pos"][barange, slot] = length
+        new_pos = cache["pos"]
+        if cfg.sliding_window:
+            valid = (new_pos >= 0) & ((length[:, None] - new_pos)
+                                      < cfg.sliding_window)
+        else:
+            valid = new_pos >= 0
+        valid &= new_pos <= length[:, None]
+
+        for i, w in enumerate(self.layers):
+            h = L.rms_norm(x, w["ln1"])
+            q, k, v = L.attention_qkv(cfg, w["attn"], h, positions)
+            kc, vc = cache["k"][i], cache["v"][i]
+            kc[barange, slot] = k.reshape(B, -1)
+            vc[barange, slot] = v.reshape(B, -1)
+            o = L.decode_attention(q, kc.view(B, S, cfg.n_kv_heads, hd),
+                                   vc.view(B, S, cfg.n_kv_heads, hd), valid)
+            x = x + o.reshape(B, 1, -1) @ w["attn"]["wo"]
+            x = x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
+        x = L.rms_norm(x, self.ln_f)
+        logits = (x @ self.emb.T).float()
+        cache["length"] = length + 1
+        return cache, logits
+
+
+#: the family's model class, as :mod:`repro_torch.models.zoo` builds it
+Model = DenseLM

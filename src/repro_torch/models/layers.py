@@ -1,0 +1,308 @@
+"""Shared model building blocks of the port (``repro/models/layers.py``).
+
+Conventions, kept from the JAX package so the tests compare like with like:
+
+* Params are nested dicts of tensors.  Every model module exposes
+  ``param_spec(cfg)`` returning a matching nested dict of :class:`Spec`
+  (shape, dtype, logical axes, init rule).  Weights are ``(in, out)`` and a
+  projection is ``x @ w``.
+* Activations are (B, T, ...) with heads before the head dim:
+  q is (B, T, Hq, hd), k and v are (B, T, Hkv, hd).
+
+Where the JAX package computes inline, the port calls its kernels:
+:func:`rms_norm` is the ``rmsnorm`` kernel, the gate of :func:`swiglu` is
+the ``fused_swiglu`` kernel and :func:`banded_attention` is the
+``flash_attention`` kernel.  They compute the kernels' function, which in
+bfloat16 rounds in other places than the JAX layers do (the JAX
+``rms_norm`` multiplies by the scale after its cast; the JAX ``swiglu``
+rounds ``x @ w1`` before the silu).  In float32 the two agree up to the
+order of sums.
+
+Training pieces (``chunked_xent``, ``remat_policy``) are not ported yet;
+``lax.scan`` over layers is a Python loop in the model modules.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_swiglu import fused_swiglu
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+NEG = -1e30
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: Any = torch.bfloat16
+    init: str = "normal"  # normal | zeros | ones
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def spec_map(fn, tree):
+    """Apply ``fn`` to every :class:`Spec` leaf of a nested dict."""
+    if isinstance(tree, Spec):
+        return fn(tree)
+    return {k: spec_map(fn, v) for k, v in tree.items()}
+
+
+def shapes_of(tree):
+    """Meta tensors of every leaf's shape and dtype (no memory), the
+    counterpart of ``jax.ShapeDtypeStruct``."""
+    return spec_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
+
+
+def axes_of(tree):
+    return spec_map(lambda s: s.axes, tree)
+
+
+def _leaves(tree, prefix=()):
+    """(path, Spec) pairs in ``jax.tree.flatten`` order (sorted keys)."""
+    if isinstance(tree, Spec):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out += _leaves(tree[k], prefix + (k,))
+    return out
+
+
+def init_params(spec_tree, generator: torch.Generator,
+                device: torch.device,
+                dtype: Optional[torch.dtype] = None):
+    """Materialize params on ``device``: the counterpart of ``init_of``
+    (layers.py:57-79), drawing normals from ``generator`` (which must live
+    on ``device``) leaf by leaf in the JAX package's flatten order.  The
+    rules the served families use (normal, zeros, ones) and the same
+    distributions: a normal weight is N(0, 1) /
+    sqrt(shape[0]), so a weight stacked over layers is scaled by the layer
+    count as in the JAX package.  ``jax.random`` cannot be reproduced, so
+    the values differ.  ``dtype`` overrides every spec's dtype."""
+    out: Dict[str, Any] = {}
+    for path, s in _leaves(spec_tree):
+        dt = dtype or s.dtype
+        if s.init == "zeros":
+            v = torch.zeros(s.shape, dtype=dt, device=device)
+        elif s.init == "ones":
+            v = torch.ones(s.shape, dtype=dt, device=device)
+        else:
+            fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[-1], 1)
+            v = torch.randn(s.shape, generator=generator, device=device,
+                            dtype=torch.float32)
+            v = v.div_(math.sqrt(fan_in)).to(dt)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis through the ``rmsnorm`` kernel (the scale
+    is applied in float32 before the one cast)."""
+    return rmsnorm(x.reshape(-1, x.shape[-1]), scale, eps).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (standard + M-RoPE)
+# ---------------------------------------------------------------------------
+
+
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def apply_rope(x: torch.Tensor,  # (B, T, H, hd)
+               positions: torch.Tensor,  # (B, T) or (B, 3, T) for m_rope
+               theta: float,
+               m_rope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    hd = x.shape[-1]
+    half = hd // 2
+    inv = _inv_freq(hd, theta, x.device)  # (half,)
+    if m_rope_sections is not None:
+        st, sh, sw = m_rope_sections
+        assert st + sh + sw == half, (m_rope_sections, half)
+        # section s of the frequency spectrum reads position axis s (t/h/w)
+        sec = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                    device=x.device)
+                         for i, n in enumerate((st, sh, sw))])
+        pos = positions.float()[:, sec, :]  # (B, half, T)
+        ang = torch.einsum("bft,f->btf", pos, inv)  # (B, T, half)
+    else:
+        ang = positions.float()[..., None] * inv  # (B, T, half)
+    cos = torch.cos(ang)[:, :, None, :]  # (B, T, 1, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def banded_attention(q: torch.Tensor,  # (B, T, Hq, hd)
+                     k: torch.Tensor,  # (B, T, Hkv, hd)
+                     v: torch.Tensor, *, causal: bool = True,
+                     window: int = 0) -> torch.Tensor:
+    """Causal / sliding-window attention through the ``flash_attention``
+    kernel, which skips the tiles off the band as the JAX blockwise walk
+    does.  Heads go to the front, (B * H, T, hd); grouped-query attention
+    is the kernel's ``kv_group``, so k and v are never repeated."""
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    heads_first = lambda t: t.permute(0, 2, 1, 3).reshape(-1, T, hd)
+    o = flash_attention(heads_first(q), heads_first(k), heads_first(v),
+                        causal=causal, window=window, kv_group=Hq // Hkv)
+    return o.view(B, Hq, T, hd).permute(0, 2, 1, 3)
+
+
+def naive_attention(q, k, v, *, causal=True, window: int = 0):
+    """Full masked attention (plain PyTorch, float32 inside)."""
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, T, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    s = s / math.sqrt(hd)
+    qpos = torch.arange(T, device=q.device)[:, None] + (S - T)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, T, Hq, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor,  # (B, 1, Hq, hd)
+                     k_cache: torch.Tensor,  # (B, S, Hkv, hd)
+                     v_cache: torch.Tensor,
+                     valid: torch.Tensor,  # (B, S) bool: live cache slots
+                     ) -> torch.Tensor:
+    """One query per sequence against its cache (plain PyTorch, float32
+    inside; the JAX package computes it outside any kernel too)."""
+    B, _, Hq, hd = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float())
+    s = s / math.sqrt(hd)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, Hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+def attention_param_spec(cfg) -> Dict[str, Spec]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {
+        "wq": Spec((d, cfg.n_heads * hd), ("embed", "heads")),
+        "wk": Spec((d, cfg.n_kv_heads * hd), ("embed", "kv_heads")),
+        "wv": Spec((d, cfg.n_kv_heads * hd), ("embed", "kv_heads")),
+        "wo": Spec((cfg.n_heads * hd, d), ("heads", "embed")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = Spec((hd,), (None,), init="ones")
+        p["k_norm"] = Spec((hd,), (None,), init="ones")
+    return p
+
+
+def attention_qkv(cfg, w, x, positions):
+    """Projections + qk-norm + RoPE.  Returns q (B,T,Hq,hd), k, v
+    (B,T,Hkv,hd)."""
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ w["wq"]).reshape(B, T, cfg.n_heads, hd)
+    k = (x @ w["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (x @ w["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"])
+        k = rms_norm(k, w["k_norm"])
+    sections = cfg.m_rope_sections if cfg.m_rope else None
+    q = apply_rope(q, positions, cfg.rope_theta, sections)
+    k = apply_rope(k, positions, cfg.rope_theta, sections)
+    return q, k, v
+
+
+def attention_layer(cfg, w, x, positions, *, causal=True,
+                    attn_impl="banded"):
+    """Self-attention over a full sequence (prefill).  Returns (out, (k,
+    v)) so prefill can build the cache.  Cross-attention (``cross_x``)
+    belongs to the encoder-decoder family and is not ported yet."""
+    B, T, _ = x.shape
+    q, k, v = attention_qkv(cfg, w, x, positions)
+    if attn_impl == "banded" and causal:
+        o = banded_attention(q, k, v, causal=causal,
+                             window=cfg.sliding_window)
+    else:
+        o = naive_attention(q, k, v, causal=causal,
+                            window=cfg.sliding_window)
+    out = o.reshape(B, T, -1) @ w["wo"]
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_param_spec(cfg, d_ff=None) -> Dict[str, Spec]:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    return {
+        "w1": Spec((d, f), ("embed", "mlp")),
+        "w3": Spec((d, f), ("embed", "mlp")),
+        "w2": Spec((f, d), ("mlp", "embed")),
+    }
+
+
+def swiglu(w, x):
+    """``fused_swiglu(x, w1, w3) @ w2``: the gate through the kernel, the
+    down projection a plain matrix product."""
+    d = x.shape[-1]
+    h = fused_swiglu(x.reshape(-1, d), w["w1"], w["w3"])
+    return (h @ w["w2"]).reshape(x.shape[:-1] + (w["w2"].shape[1],))
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def embed_param_spec(cfg) -> Dict[str, Spec]:
+    return {"emb": Spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}
+
+
+def embed_lookup(emb, tokens):
+    return emb[tokens]

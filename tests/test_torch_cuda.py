@@ -1,5 +1,8 @@
 """``repro_torch`` on the card: the CUDA ``sim_alu`` kernel against its
-plain version, and the cycle loop on ``cuda`` against the CPU run.
+plain version, and the cycle loop on ``cuda`` against the CPU run; the
+language-model kernels (``rmsnorm``, ``fused_swiglu``, ``flash_attention``)
+against their plain versions, and smoke-width serving on ``cuda`` against
+the CPU run.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -19,8 +22,19 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.sim_alu import sim_alu, sim_alu_cuda
 from repro_torch.sim.batch import prepare_batch, simulate_batch
 from repro_torch.sim.step import run_bucket
+from repro_torch.configs import smoke_config
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.fused_swiglu import fused_swiglu, fused_swiglu_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda
+from repro_torch.models import zoo
+from repro_torch.serve.loop import generate
 
 pytestmark = pytest.mark.cuda
+
+#: tests/test_kernels.py's tolerances
+TOL = {torch.float32: dict(rtol=2e-4, atol=2e-3),
+       torch.bfloat16: dict(rtol=3e-2, atol=3e-1)}
 
 
 @pytest.fixture
@@ -84,3 +98,108 @@ def test_verdicts_on_card_equal_cpu(cuda):
     assert [(v.ok, v.reason) for v in on_card] == \
         [(v.ok, v.reason) for v in on_cpu]
     assert not on_card[-1].ok and all(v.ok for v in on_card[:-1])
+
+
+@pytest.fixture(autouse=True)
+def _full_float32_matmul():
+    """The plain versions' float32 products in full float32, not TF32."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _randn(shape, dtype, device, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.standard_normal(shape).astype(np.float32)
+                            ).to(device=device, dtype=dtype)
+
+
+def _assert_close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D", [(128, 64), (64, 160), (100, 3072),
+                                 (4, 3072)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, M, D):
+    x, s = _randn((M, D), dtype, cuda, 0), _randn((D,), dtype, cuda, 1)
+    before = rmsnorm_cuda.launches
+    got = rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, D)
+    _assert_close(got, ref.rmsnorm(x, s), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(128, 128, 128), (256, 384, 128),
+                                   (100, 72, 136), (4, 256, 320)])
+def test_fused_swiglu_kernel_matches_plain(cuda, dtype, M, D, F):
+    x = _randn((M, D), dtype, cuda, 0)
+    w1, w3 = _randn((D, F), dtype, cuda, 1), _randn((D, F), dtype, cuda, 2)
+    before = fused_swiglu_cuda.launches
+    got = fused_swiglu(x, w1, w3)
+    torch.cuda.synchronize()
+    assert fused_swiglu_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, F)
+    _assert_close(got, ref.fused_swiglu(x, w1, w3), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=64),
+                                dict(causal=False)],
+                         ids=["causal", "window64", "full"])
+@pytest.mark.parametrize("H,S,d,g", [(2, 128, 64, 1), (1, 256, 32, 1),
+                                     (6, 100, 128, 3)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, kw, H, S, d, g):
+    q = _randn((H, S, d), dtype, cuda, 0)
+    k, v = (_randn((H // g, S, d), dtype, cuda, i) for i in (1, 2))
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, kv_group=g, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (H, S, d)
+    _assert_close(got, ref.flash_attention(q, k, v, kv_group=g, **kw), dtype)
+
+
+def test_lm_kernels_reject_bad_operands(cuda):
+    x = torch.zeros(8, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rmsnorm_cuda(x.half(), torch.ones(8, device=cuda).half())
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm_cuda(x.t()[:, :4], torch.ones(4, device=cuda))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_swiglu_cuda(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_swiglu_cuda(x, x.t(), x)
+    q = torch.zeros(2, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.double(), q.double(), q.double())
+
+
+def test_smoke_generate_on_card_equals_cpu(cuda):
+    """Two layers at smoke width, float32: the same weights and prompts give
+    the same greedy tokens through the kernels on the card as through the
+    plain versions on the CPU."""
+    cfg = smoke_config("llama3_2_3b").replace(n_layers=2)
+    cpu_model = zoo.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
+                               torch.float32)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    before = (rmsnorm_cuda.launches, fused_swiglu_cuda.launches,
+              flash_attention_cuda.launches)
+    on_card, info = generate(cfg, card_model, prompts.to(cuda),
+                             max_new_tokens=6)
+    after = (rmsnorm_cuda.launches, fused_swiglu_cuda.launches,
+             flash_attention_cuda.launches)
+    on_cpu, _ = generate(cfg, cpu_model, prompts, max_new_tokens=6)
+    assert info["logits_finite"] and info["cache_length"] == 16 + 5
+    np.testing.assert_array_equal(on_card.cpu().numpy(), on_cpu.numpy())
+    # per pass: ln1 + ln2 per layer and ln_f; one MLP per layer; attention
+    # through flash_attention in the prefill only
+    assert [a - b for a, b in zip(after, before)] == [5 * 6, 2 * 6, 2]

@@ -59,7 +59,19 @@ def test_module_list_covers_the_package():
     mods = _modules()
     for want in ("repro_torch.device", "repro_torch.__main__",
                  "repro_torch.sim.step", "repro_torch.sim.batch",
-                 "repro_torch.kernels.sim_alu", "repro_torch.compiler.cli"):
+                 "repro_torch.kernels.sim_alu", "repro_torch.compiler.cli",
+                 "repro_torch.configs.base", "repro_torch.configs.llama3_2_3b",
+                 "repro_torch.configs.h2o_danube_3_4b",
+                 "repro_torch.configs.qwen3_14b",
+                 "repro_torch.configs.stablelm_12b",
+                 "repro_torch.configs.qwen2_vl_72b",
+                 "repro_torch.kernels._launch", "repro_torch.kernels.rmsnorm",
+                 "repro_torch.kernels.fused_swiglu",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.models.layers", "repro_torch.models.dense",
+                 "repro_torch.models.zoo", "repro_torch.models.convert",
+                 "repro_torch.serve.kvcache", "repro_torch.serve.loop",
+                 "repro_torch.launch.serve"):
         assert want in mods
 
 

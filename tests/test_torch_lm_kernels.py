@@ -1,0 +1,142 @@
+"""The port's language-model kernels vs the JAX package, on the CPU.
+
+The plain PyTorch versions (``repro_torch.kernels.ref.rmsnorm``,
+``fused_swiglu``, ``flash_attention``) and the wrappers given CPU tensors
+must agree with the JAX oracles (``repro.kernels.ref``) and with the Pallas
+kernels run in interpret mode (``repro.kernels.ops``), on the shapes,
+dtypes and tolerances of ``tests/test_kernels.py``.  Ragged shapes, which
+the Pallas kernels refuse (their blocks must divide the shape), are held
+against the oracles only.  The CUDA kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); here their entries must
+refuse CPU tensors.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.fused_swiglu import fused_swiglu, fused_swiglu_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda
+
+#: tests/test_kernels.py's tolerances
+TOL = {"float32": dict(rtol=2e-4, atol=2e-3),
+       "bfloat16": dict(rtol=3e-2, atol=3e-1)}
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FLASH_KW = [dict(causal=True), dict(causal=True, window=64),
+            dict(causal=False)]
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a JAX array and a CPU tensor of ``dtype`` (drawn
+    in float32, rounded once to ``dtype`` on the JAX side and carried over
+    exactly)."""
+    a = jnp.asarray(rng.standard_normal(shape).astype(np.float32),
+                    JAX_DT[dtype])
+    t = torch.from_numpy(np.array(a, np.float32)).to(TORCH_DT[dtype])
+    return a, t
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("M,D,F", [(128, 128, 128), (256, 384, 128),
+                                   (128, 256, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_swiglu_matches_jax(M, D, F, dtype):
+    rng = np.random.default_rng(42)
+    (x, tx), (w1, tw1), (w3, tw3) = (_pair(rng, s, dtype)
+                                     for s in [(M, D), (D, F), (D, F)])
+    want_ref = jax_ref.fused_swiglu(x, w1, w3)
+    want_pallas = jax_ops.fused_swiglu(x, w1, w3)
+    for got in (ref.fused_swiglu(tx, tw1, tw3), fused_swiglu(tx, tw1, tw3)):
+        assert got.dtype == TORCH_DT[dtype] and got.shape == (M, F)
+        _close(got, want_ref, **TOL[dtype])
+        _close(got, want_pallas, **TOL[dtype])
+
+
+@pytest.mark.parametrize("M,D", [(128, 64), (256, 512), (64, 160)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax(M, D, dtype):
+    rng = np.random.default_rng(42)
+    (x, tx), (s, ts) = _pair(rng, (M, D), dtype), _pair(rng, (D,), dtype)
+    want_ref = jax_ref.rmsnorm(x, s)
+    want_pallas = jax_ops.rmsnorm(x, s, block_m=64)
+    for got in (ref.rmsnorm(tx, ts), rmsnorm(tx, ts)):
+        assert got.dtype == TORCH_DT[dtype] and got.shape == (M, D)
+        _close(got, want_ref, **TOL[dtype])
+        _close(got, want_pallas, **TOL[dtype])
+
+
+@pytest.mark.parametrize("H,S,d", [(2, 128, 64), (1, 256, 32)])
+@pytest.mark.parametrize("kw", FLASH_KW, ids=["causal", "window64", "full"])
+def test_flash_attention_matches_jax(H, S, d, kw):
+    rng = np.random.default_rng(42)
+    (q, tq), (k, tk), (v, tv) = (_pair(rng, (H, S, d), "float32")
+                                 for _ in range(3))
+    want_ref = jax_ref.flash_attention(q, k, v, **kw)
+    want_pallas = jax_ops.flash_attention(q, k, v, block_q=64, block_k=64,
+                                          **kw)
+    for got in (ref.flash_attention(tq, tk, tv, **kw),
+                flash_attention(tq, tk, tv, **kw)):
+        _close(got, want_ref, rtol=2e-4, atol=2e-3)
+        _close(got, want_pallas, rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_shapes_match_jax_oracles(dtype):
+    """M = 100 rows and S = 100 positions: no block of the Pallas kernels
+    divides them, the port's kernels mask the edge instead."""
+    rng = np.random.default_rng(7)
+    (x, tx), (s, ts) = _pair(rng, (100, 96), dtype), _pair(rng, (96,), dtype)
+    _close(rmsnorm(tx, ts), jax_ref.rmsnorm(x, s), **TOL[dtype])
+    (x, tx), (w1, tw1), (w3, tw3) = (_pair(rng, sh, dtype) for sh in
+                                     [(100, 72), (72, 136), (72, 136)])
+    _close(fused_swiglu(tx, tw1, tw3), jax_ref.fused_swiglu(x, w1, w3),
+           **TOL[dtype])
+    (q, tq), (k, tk), (v, tv) = (_pair(rng, (3, 100, 16), dtype)
+                                 for _ in range(3))
+    for kw in FLASH_KW:
+        _close(flash_attention(tq, tk, tv, **kw),
+               jax_ref.flash_attention(q, k, v, **kw), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kw", FLASH_KW, ids=["causal", "window64", "full"])
+def test_flash_attention_kv_group_is_repeated_heads(kw):
+    """``kv_group`` g: query head h reads kv head h // g, which is the
+    JAX oracle over k/v with each head repeated g times."""
+    rng = np.random.default_rng(3)
+    (q, tq) = _pair(rng, (6, 100, 32), "float32")
+    (k, tk), (v, tv) = (_pair(rng, (2, 100, 32), "float32") for _ in range(2))
+    want = jax_ref.flash_attention(q, jnp.repeat(k, 3, axis=0),
+                                   jnp.repeat(v, 3, axis=0), **kw)
+    _close(flash_attention(tq, tk, tv, kv_group=3, **kw), want,
+           rtol=2e-4, atol=2e-3)
+
+
+def test_wrappers_count_no_launch_on_the_cpu():
+    x = torch.ones(4, 8)
+    before = (rmsnorm_cuda.launches, fused_swiglu_cuda.launches,
+              flash_attention_cuda.launches)
+    rmsnorm(x, torch.ones(8))
+    fused_swiglu(x, torch.ones(8, 8), torch.ones(8, 8))
+    flash_attention(x[None], x[None], x[None])
+    assert (rmsnorm_cuda.launches, fused_swiglu_cuda.launches,
+            flash_attention_cuda.launches) == before
+
+
+def test_cuda_entries_refuse_cpu_tensors():
+    x = torch.ones(4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(x, torch.ones(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_swiglu_cuda(x, torch.ones(8, 8), torch.ones(8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(x[None], x[None], x[None])
