@@ -31,7 +31,20 @@ Phases, in order; any failure exits non-zero before the last line:
    28 x 32 fused_swiglu and 28 flash_attention launches; a ``torch.profiler``
    trace of one decode step; then, in float32 at full width and depth, 4
    teacher-forced decode steps against a full forward (``DECODE_TOL``), and
-   the card against the CPU at full width and 2 layers (``PARITY_TOL``).
+   the card against the CPU at full width and 2 layers (``PARITY_TOL``);
+7. motif phase: ``motif_pcu`` against its plain version on the card, bit
+   for bit in float32 on FANIN, FANOUT and UNICAST (inputs mixing NaN,
+   +-inf and +-0 in their first columns) and on three seeded random
+   64-step schedules, at N from 1 to 2**24, and at the largest table; in
+   bfloat16 at (3, 2048) under ``PATH_TOL``; kernel, device, plain and
+   bound times at (3, 1024) and (3, 2**24);
+8. Track-A tie: the card's table of each canonical schedule over 64
+   iterations equals ``DFG.eval``'s history of its DFG, built with
+   ``DFG.add``;
+9. ops path: ``repro_torch.kernels.ops`` on ``cuda`` at the shapes of the
+   kernel rows of ``benchmarks/run.py`` (the third main path, with the
+   launch counters read just around it): each row equal to its plain
+   version, each kernel launched exactly as often as its row was called.
 
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -65,7 +78,13 @@ SIM_ALU_REPLACES = "src/repro/kernels/sim_alu.py:53"
 LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
                "fused_swiglu": "src/repro/kernels/fused_swiglu.py:39",
                "flash_attention": "src/repro/kernels/flash_attention.py:70"}
-KERNELS = ["sim_alu", *LM_REPLACES]
+MOTIF_SOURCE = "src/repro_torch/kernels/csrc/motif_pcu.cu"
+MOTIF_REPLACES = "src/repro/kernels/motif_pcu.py:38"
+KERNELS = ["sim_alu", *LM_REPLACES, "motif_pcu"]
+#: the iteration counts the motif kernel is held at
+MOTIF_NS = (1, 256, 1000, 1024, 2048, 2 ** 24)
+#: timed calls of each ops-path row (after one checked and one warm call)
+OPS_REPS = 20
 #: tests/test_kernels.py's tolerances
 TOL = {"float32": dict(rtol=2e-4, atol=2e-3),
        "bfloat16": dict(rtol=3e-2, atol=3e-1)}
@@ -185,18 +204,20 @@ def path_phase(mappings):
 
     from repro_torch import CORPUS_DIR
     from repro_torch.compiler.cli import main as cli_main
-    from repro_torch.kernels.sim_alu import sim_alu_cuda
     from repro_torch.sim.batch import prepare_batch
     from repro_torch.sim.step import run_bucket
 
     with open(os.path.join(CORPUS_DIR, "MANIFEST.json")) as f:
         manifest = json.load(f)
     buf = io.StringIO()
-    sim_alu_cuda.launches = 0
+    reset_counts()
     with contextlib.redirect_stdout(buf):
         rc = cli_main(["verify", CORPUS_DIR, "--device", "cuda"])
-    launches = sim_alu_cuda.launches
+    launched = read_counts()
     text = buf.getvalue()
+    launches = launched["sim_alu"]
+    require(sum(launched.values()) == launches,
+            f"verify launched other kernels than sim_alu: {launched}")
     require(rc == manifest["verify_exit_code"],
             f"verify exited {rc}, manifest says "
             f"{manifest['verify_exit_code']}; its output ends:\n"
@@ -328,10 +349,11 @@ def _close(name: str, got, want, tol):
     return diff.max().item(), share
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int):
     """Mean device time in ms of the CUDA kernels ``fn()`` launches, over
     ``iters`` calls (``torch.profiler``; the host's dispatch is left out,
-    unlike :func:`cuda_ms`)."""
+    unlike :func:`cuda_ms`), or None when the trace holds no device time
+    (the profiler can drop a window's kernel events: not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -342,8 +364,15 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters if total else None
+
+
+def _device_txt(k_dev) -> str:
+    if k_dev is None:
+        return "device time not measured: no kernel in the trace"
+    return f"{k_dev:.6f} ms device time"
 
 
 def _bound(n_bytes: float, ops: float, ops_rate: float):
@@ -452,8 +481,9 @@ def lm_kernel_phase():
         l_ms = cuda_ms(lib, 20) if lib is not None else None
         bound, by = _bound(n_bytes, ops, rate)
         lib_txt = f"{l_ms:.6f} ms" if l_ms is not None else "none"
-        print(f"kernel {name} {label} bf16: {k_ms:.6f} ms ({k_dev:.6f} ms "
-              f"device time), plain {p_ms:.6f} ms, bound {bound:.6f} ms "
+        print(f"kernel {name} {label} bf16: {k_ms:.6f} ms "
+              f"({_device_txt(k_dev)}), plain {p_ms:.6f} ms, bound "
+              f"{bound:.6f} ms "
               f"({by}), library {lib_txt}; max abs err {err:.6g}, "
               f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
               f"{PATH_TOL['atol']})")
@@ -476,24 +506,27 @@ def lm_kernel_phase():
     return records
 
 
-def lm_counts():
+def kernel_entries():
+    """Each kernel's launching entry, which carries its ``launches``."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
+    from repro_torch.kernels.motif_pcu import motif_pcu_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.sim_alu import sim_alu_cuda
 
-    return {"rmsnorm": rmsnorm_cuda.launches,
-            "fused_swiglu": fused_swiglu_cuda.launches,
-            "flash_attention": flash_attention_cuda.launches}
+    return {"sim_alu": sim_alu_cuda, "rmsnorm": rmsnorm_cuda,
+            "fused_swiglu": fused_swiglu_cuda,
+            "flash_attention": flash_attention_cuda,
+            "motif_pcu": motif_pcu_cuda}
 
 
-def reset_lm_counts() -> None:
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_entries().items()}
 
-    rmsnorm_cuda.launches = 0
-    fused_swiglu_cuda.launches = 0
-    flash_attention_cuda.launches = 0
+
+def reset_counts() -> None:
+    for fn in kernel_entries().values():
+        fn.launches = 0
 
 
 def teacher_forced(model, prompts, follow, steps: int):
@@ -526,12 +559,12 @@ def serve_phase():
 
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
-    reset_lm_counts()
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         out = serve_run(SERVE_ARGV)
     wall = time.perf_counter() - t0
-    counts = lm_counts()
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for line in buf.getvalue().splitlines():
         print(f"serve: {line}")
@@ -544,8 +577,8 @@ def serve_phase():
     require(info["cache_length"] == 531,
             f"cache length {info['cache_length']}, want 500 + 31")
     require(info["logits_finite"], "non-finite logits")
-    want = {"rmsnorm": 57 * 32, "fused_swiglu": 28 * 32,
-            "flash_attention": 28}
+    want = {"sim_alu": 0, "rmsnorm": 57 * 32, "fused_swiglu": 28 * 32,
+            "flash_attention": 28, "motif_pcu": 0}
     require(counts == want, f"launch counts {counts}, want {want}")
     print(f"serve: full width ({sum(p.numel() for p in out['model'].parameters())}"
           f" params, bf16); prefill {info['prefill_s'] * 1e3:.3f} ms, "
@@ -660,6 +693,180 @@ def parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
+def _motif_inputs(N: int, seed: int, special: bool):
+    """(3, N) float32 on the card, uniform in [-100, 100] (the range
+    ``random_schedule`` is drawn for); with ``special``, the first columns
+    take every mix of NaN, +-inf, +-0 and 1 (for schedules of add, sub,
+    mul, max and min only)."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -100, 100, (3, N)).astype(np.float32)).cuda()
+    if special:
+        vals = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                             -0.0, 1.0], device="cuda")
+        grid = torch.cartesian_prod(vals, vals, vals).T[:, :N]
+        x[:, :grid.shape[1]] = grid
+    return x
+
+
+def motif_phase():
+    """motif_pcu against its plain version on the card; returns its JSON
+    record minus ``launches`` (times at the ops path's (3, 1024); both
+    shapes under ``at``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.motif_pcu import (FANIN, FANOUT, MAX_SLOTS,
+                                               UNICAST, motif_pcu_cuda,
+                                               random_schedule)
+
+    def bitwise(label, sched, x):
+        got = motif_pcu_cuda(sched, 3, x)
+        want = ref.motif_pcu(sched, 3, x)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"motif_pcu differs from its plain version: {label}")
+
+    canonical = {"FANIN": FANIN, "FANOUT": FANOUT, "UNICAST": UNICAST}
+    cases = [(name, s, True) for name, s in canonical.items()] + [
+        (f"random seed {s}", random_schedule(s), False) for s in range(3)]
+    for name, sched, special in cases:
+        for N in MOTIF_NS:
+            bitwise(f"{name} at N = {N}", sched, _motif_inputs(N, N, special))
+        ops = sorted({op for _, op, _, _ in sched})
+        print(f"kernel motif_pcu {name} ({len(sched)} steps: "
+              f"{', '.join(ops)}): bitwise equal to plain at N = "
+              f"{', '.join(map(str, MOTIF_NS))}"
+              f"{' with NaN/+-inf/+-0 columns' if special else ''} "
+              "(tolerance 0)")
+    sched = random_schedule(7, steps=MAX_SLOTS - 3)
+    bitwise("the largest table", sched, _motif_inputs(4099, 7, False))
+    print(f"kernel motif_pcu {MAX_SLOTS} slots (the largest table, "
+          f"{MAX_SLOTS * 256 * 4 + len(sched) * 16} bytes of shared memory):"
+          " bitwise equal at N = 4099")
+
+    max_err = 0.0
+    for name, sched in canonical.items():
+        x = _randn((3, 2048), torch.bfloat16, 20)
+        err, share = _close(f"motif_pcu bfloat16 {name} (3,2048)",
+                            motif_pcu_cuda(sched, 3, x),
+                            ref.motif_pcu(sched, 3, x), PATH_TOL)
+        max_err = max(max_err, err)
+        print(f"kernel motif_pcu {name} (3,2048) bf16: max abs err {err:.6g}"
+              f", {share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} "
+              f"atol {PATH_TOL['atol']})")
+
+    at = []
+    for N, iters in ((1024, 2000), (2 ** 24, 50)):
+        x = _randn((3, N), torch.float32, 21)
+        kern = lambda: motif_pcu_cuda(FANIN, 3, x)  # noqa: E731
+        k_ms = cuda_ms(kern, iters)
+        k_dev = device_ms(kern, min(iters, 200))
+        p_ms = cuda_ms(lambda: ref.motif_pcu(FANIN, 3, x), iters // 10)
+        # each input read once, each of the 6 slots written once, 4 bytes;
+        # one float32 operation per step and iteration
+        bound, by = _bound((3 + 6) * N * 4, 3 * N, FP32_OPS_PER_S)
+        share = "" if k_dev is None else \
+            f"; {100 * bound / k_dev:.1f}% of the bound in device time"
+        print(f"kernel motif_pcu FANIN (3,{N}) f32: {k_ms:.6f} ms "
+              f"({_device_txt(k_dev)}), plain {p_ms:.6f} ms, bound "
+              f"{bound:.6f} ms ({by}), library none (no single PyTorch "
+              f"call computes a schedule){share}")
+        at.append({"shape": f"(3,{N})", "ms": k_ms, "device_ms": k_dev,
+                   "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": None})
+    return {"name": "motif_pcu", "route": "cuda", "source": MOTIF_SOURCE,
+            "replaces": MOTIF_REPLACES, "max_abs_err": max_err,
+            **{k: at[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}, "at": at}
+
+
+def track_a_phase() -> None:
+    """The card's table of each canonical schedule against the Track-A
+    interpreter: its DFG (three inputs, one node per step, built with
+    ``DFG.add``) evaluated over 64 iterations, each with its own inputs
+    (``DFG.eval``'s default leaves ``it + 1 + nid % 5``)."""
+    import torch
+
+    from repro_torch.core.dfg import DFG
+    from repro_torch.kernels.motif_pcu import (FANIN, FANOUT, UNICAST,
+                                               motif_pcu_cuda)
+
+    iters = 64
+    x = torch.tensor([[float(it + 1 + i % 5) for it in range(iters)]
+                      for i in range(3)], device="cuda")
+    for name, sched in (("FANIN", FANIN), ("FANOUT", FANOUT),
+                        ("UNICAST", UNICAST)):
+        g = DFG(name)
+        for _ in range(3):
+            g.add("input")
+        for dst, op, a, b in sched:
+            require(g.add(op, inputs=[a, b]) == dst,
+                    f"{name}: DFG node ids do not follow the slots")
+        hist = g.eval({}, iterations=iters)
+        table = motif_pcu_cuda(sched, 3, x).cpu()
+        for nid in g.nodes:
+            require(table[nid].tolist() == hist[nid],
+                    f"{name}: slot {nid} on the card differs from DFG.eval")
+    print(f"track-a: FANIN, FANOUT, UNICAST tables on the card equal "
+          f"DFG.eval over {iters} iterations exactly")
+
+
+def ops_phase() -> int:
+    """The third main path: ``repro_torch.kernels.ops`` on ``cuda`` at the
+    shapes of ``benchmarks/run.py``'s kernel rows, in float32.  Each row is
+    called once and checked against its plain version, then timed over
+    ``OPS_REPS`` calls after a warm one; returns motif_pcu's launches."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.motif_pcu import FANIN
+
+    f32 = torch.float32
+    x = _randn((128, 256), f32, 30)
+    w1, w3 = _randn((256, 128), f32, 31), _randn((256, 128), f32, 32)
+    s = _randn((256,), f32, 33)
+    q = _randn((2, 128, 64), f32, 34)
+    m = _randn((3, 1024), f32, 35)
+    rows = [
+        ("fused_swiglu", lambda: ops.fused_swiglu(x, w1, w3),
+         lambda: ref.fused_swiglu(x, w1, w3)),
+        ("rmsnorm", lambda: ops.rmsnorm(x, s), lambda: ref.rmsnorm(x, s)),
+        ("flash_attention",
+         lambda: ops.flash_attention(q, q, q, block_q=64, block_k=64),
+         lambda: ref.flash_attention(q, q, q)),
+        ("motif_pcu", lambda: ops.motif_pcu(m, schedule=FANIN, n_inputs=3),
+         lambda: ref.motif_pcu(FANIN, 3, m)),
+    ]
+    reset_counts()
+    outs, times = {}, {}
+    for name, call, _ in rows:
+        outs[name] = call()
+        times[name] = cuda_ms(call, OPS_REPS) * 1e3
+    counts = read_counts()
+    for name, _, plain in rows:
+        if name == "motif_pcu":
+            want = plain()
+            torch.cuda.synchronize()
+            require(torch.equal(outs[name].view(torch.int32),
+                                want.view(torch.int32)),
+                    "ops.motif_pcu differs from its plain version")
+            err, txt = 0.0, "bitwise equal"
+        else:
+            err, share = _close(f"ops.{name}", outs[name], plain(),
+                                TOL["float32"])
+            txt = f"{share:.3f} of rtol {TOL['float32']['rtol']} atol " \
+                  f"{TOL['float32']['atol']}"
+        print(f"ops: kernel_{name} {times[name]:.3f} us max_abs_err="
+              f"{err:.2e} ({txt}); launches {counts[name]}")
+    want = {n: 0 for n in counts}
+    want.update({name: OPS_REPS + 2 for name, _, _ in rows})
+    require(counts == want, f"ops path launch counts {counts}, want {want}")
+    return counts["motif_pcu"]
+
+
 def build_all(root: str) -> None:
     """Every kernel's nvcc build, one process each, all started together."""
     from repro_torch.kernels import _build
@@ -721,7 +928,16 @@ def main() -> int:
     for name, rec in records.items():
         rec["launches"] = counts[name]
 
-    print(json.dumps({"kernels": [record, *records.values()]}))
+    t0 = time.perf_counter()
+    motif = motif_phase()
+    track_a_phase()
+    print(f"phase: motif kernel and Track-A tie "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    motif["launches"] = ops_phase()
+    print(f"phase: ops path {time.perf_counter() - t0:.3f} s")
+
+    print(json.dumps({"kernels": [record, *records.values(), motif]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """Dataflow-graph IR (port of the parts of ``repro/core/dfg.py`` that
-verification needs: the JSON form, the topological order and the reference
-interpreter).
+verification and the Track-A tie of the PCU kernel need: construction, the
+JSON form, the topological order and the reference interpreter).
 
 A DFG node is one operation of the loop body (compute, load, store, or
 constant); edges are data dependencies.  Recurrence edges carry an
@@ -9,7 +9,15 @@ inter-iteration ``distance`` (loop-carried dependency).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
+
+COMPUTE_OPS = {
+    "add", "sub", "mul", "shl", "shr", "and", "or", "xor", "not",
+    "min", "max", "abs", "cmp", "select", "mac",
+}
+MEMORY_OPS = {"load", "store"}
+MISC_OPS = {"const", "input", "output"}
+ALL_OPS = COMPUTE_OPS | MEMORY_OPS | MISC_OPS
 
 
 @dataclass
@@ -32,6 +40,21 @@ class DFG:
         self.name = name
         self.nodes: Dict[int, Node] = {}
         self.edges: List[Edge] = []
+        self._next = 0
+
+    # -- construction -----------------------------------------------------
+    def add(self, op: str, name: str = "", inputs: Iterable[int] = ()) -> int:
+        """A new node of ``op`` fed by ``inputs`` (operand slots 0, 1, ...
+        in order); returns its id.  Ids count up from 0, or from one past
+        the largest id of a graph read by :meth:`from_json`."""
+        if op not in ALL_OPS:
+            raise ValueError(f"unknown DFG op {op!r}")
+        nid = self._next
+        self._next += 1
+        self.nodes[nid] = Node(nid, op, name or f"{op}{nid}")
+        for slot, src in enumerate(inputs):
+            self.connect(src, nid, operand=slot)
+        return nid
 
     def connect(self, src: int, dst: int, distance: int = 0, operand: int = 0):
         assert src in self.nodes and dst in self.nodes
@@ -53,6 +76,7 @@ class DFG:
         g = cls(data["name"])
         for nid, op, name in data["nodes"]:
             g.nodes[int(nid)] = Node(int(nid), op, name)
+        g._next = 1 + max(g.nodes, default=-1)
         for src, dst, distance, operand in data["edges"]:
             g.connect(int(src), int(dst), int(distance), int(operand))
         return g

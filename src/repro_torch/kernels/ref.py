@@ -9,6 +9,7 @@ them.
 from __future__ import annotations
 
 import math
+from typing import Sequence, Tuple
 
 import torch
 
@@ -108,3 +109,50 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(mask, s, torch.full_like(s, NEG))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hqk,hkd->hqd", p, v).to(q.dtype)
+
+
+def _int_op(fn):
+    """A bitwise op of the PCU: both operands truncated toward zero to
+    int32, the result converted back."""
+    return lambda a, b: fn(a.to(torch.int32), b.to(torch.int32)).to(a.dtype)
+
+
+#: the ops of the Plaid PCU (``repro/kernels/ref.py::PCU_OPS``); their order
+#: numbers the opcodes of ``csrc/motif_pcu.cu``.  max/min propagate NaN.
+PCU_OPS = {
+    "add": lambda a, b: a + b,
+    "sub": lambda a, b: a - b,
+    "mul": lambda a, b: a * b,
+    "max": torch.maximum,
+    "min": torch.minimum,
+    "and": _int_op(torch.bitwise_and),
+    "or": _int_op(torch.bitwise_or),
+    "xor": _int_op(torch.bitwise_xor),
+    "shl": lambda a, b: a * 2.0,
+    "shr": lambda a, b: a / 2.0,
+}
+
+#: a PCU schedule: steps ``(dst_slot, op, src_a, src_b)`` over a value table
+#: whose first ``n_inputs`` slots hold the inputs
+PcuSchedule = Sequence[Tuple[int, str, int, int]]
+
+
+def motif_pcu(schedule: PcuSchedule, n_inputs: int, inputs):
+    """Run ``schedule`` over inputs (n_inputs, N), the N loop iterations
+    side by side; returns the value table (n_inputs + len(schedule), N).
+
+    This is the function of the Pallas kernel ``repro/kernels/motif_pcu.py``:
+    the inputs are cast to float32, every step runs in a float32 table whose
+    slots start at zero (a slot read before it is written gives 0), and the
+    whole table is cast to the inputs' dtype once at the end.  The JAX
+    oracle ``repro/kernels/ref.py::motif_pcu`` computes in the inputs'
+    dtype: the same in float32, but it rounds every step in bfloat16.
+    No schedule checks here (:func:`repro_torch.kernels.motif_pcu.
+    check_schedule` makes them)."""
+    n_slots = n_inputs + len(schedule)
+    table = torch.zeros((n_slots, inputs.shape[1]), dtype=torch.float32,
+                        device=inputs.device)
+    table[:n_inputs] = inputs.float()
+    for dst, op, a, b in schedule:
+        table[dst] = PCU_OPS[op](table[a], table[b])
+    return table.to(inputs.dtype)

@@ -2,7 +2,8 @@
 plain version, and the cycle loop on ``cuda`` against the CPU run; the
 language-model kernels (``rmsnorm``, ``fused_swiglu``, ``flash_attention``)
 against their plain versions, and smoke-width serving on ``cuda`` against
-the CPU run.
+the CPU run; the PCU kernel ``motif_pcu`` against its plain version, bit
+for bit in float32, and the ``ops`` dispatchers through the kernels.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -25,7 +26,11 @@ from repro_torch.sim.step import run_bucket
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda)
+from repro_torch.kernels import ops
 from repro_torch.kernels.fused_swiglu import fused_swiglu, fused_swiglu_cuda
+from repro_torch.kernels.motif_pcu import (FANIN, FANOUT, MAX_SLOTS, UNICAST,
+                                           motif_pcu, motif_pcu_cuda,
+                                           random_schedule)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda
 from repro_torch.models import zoo
 from repro_torch.serve.loop import generate
@@ -203,3 +208,94 @@ def test_smoke_generate_on_card_equals_cpu(cuda):
     # per pass: ln1 + ln2 per layer and ln_f; one MLP per layer; attention
     # through flash_attention in the prefill only
     assert [a - b for a, b in zip(after, before)] == [5 * 6, 2 * 6, 2]
+
+
+MOTIF_SCHEDULES = {"fanin": FANIN, "fanout": FANOUT, "unicast": UNICAST,
+                   **{f"random{s}": random_schedule(s) for s in range(3)}}
+
+
+def _motif_inputs(shape, seed, device):
+    """Uniform in [-100, 100], the range ``random_schedule`` is drawn for."""
+    x = np.random.default_rng(seed).uniform(-100, 100, shape).astype(
+        np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def _bits_equal(got, want):
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", MOTIF_SCHEDULES)
+@pytest.mark.parametrize("N", [1, 1000, 4099])
+def test_motif_pcu_kernel_bitwise_equals_plain(cuda, name, N):
+    sched = MOTIF_SCHEDULES[name]
+    x = _motif_inputs((3, N), N, cuda)
+    if not name.startswith("random"):
+        # the canonical schedules use add, sub, mul and max only: their
+        # first columns take every mix of NaN, +-inf, +-0 and 1
+        special = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                0.0, -0.0, 1.0], device=cuda)
+        grid = torch.cartesian_prod(special, special, special).T[:, :N]
+        x[:, :grid.shape[1]] = grid
+    before = motif_pcu_cuda.launches
+    got = motif_pcu(sched, 3, x)
+    torch.cuda.synchronize()
+    assert motif_pcu_cuda.launches == before + 1
+    assert got.shape == (3 + len(sched), N) and got.dtype == torch.float32
+    assert _bits_equal(got, ref.motif_pcu(sched, 3, x))
+
+
+@pytest.mark.parametrize("name", ["fanin", "fanout", "unicast"])
+def test_motif_pcu_kernel_bfloat16_within_one_ulp(cuda, name):
+    sched = MOTIF_SCHEDULES[name]
+    x = _randn((3, 2048), torch.bfloat16, cuda, 3)
+    got = motif_pcu(sched, 3, x)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.motif_pcu(sched, 3, x).float(),
+                               rtol=1e-2, atol=5e-3)
+
+
+def test_motif_pcu_kernel_at_the_largest_table(cuda):
+    """MAX_SLOTS slots (over 48 KB of shared memory) launch; one more is
+    refused before the launch."""
+    sched = random_schedule(7, steps=MAX_SLOTS - 3)
+    x = _motif_inputs((3, 777), 7, cuda)
+    assert _bits_equal(motif_pcu_cuda(sched, 3, x), ref.motif_pcu(sched, 3, x))
+    longer = sched + ((MAX_SLOTS, "add", 0, 1),)
+    with pytest.raises(ValueError, match="exceed"):
+        motif_pcu_cuda(longer, 3, x)
+
+
+def test_motif_pcu_kernel_rejects_bad_operands(cuda):
+    x = torch.zeros(3, 8, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        motif_pcu_cuda(FANIN, 3, x.cpu())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        motif_pcu_cuda(FANIN, 3, x.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        motif_pcu_cuda(FANIN, 3, torch.zeros(8, 3, device=cuda).t())
+    with pytest.raises(ValueError, match="a, b < dst"):
+        motif_pcu_cuda(((3, "add", 3, 0),), 3, x)
+
+
+def test_ops_dispatch_to_the_kernels(cuda):
+    """``repro_torch.kernels.ops`` on CUDA tensors at ``benchmarks/run.py``'s
+    shapes: one launch of each kernel, equal to the plain versions."""
+    x = _randn((128, 256), torch.float32, cuda, 0)
+    w1, w3 = (_randn((256, 128), torch.float32, cuda, i) for i in (1, 2))
+    s = _randn((256,), torch.float32, cuda, 3)
+    q = _randn((2, 128, 64), torch.float32, cuda, 4)
+    m = _randn((3, 1024), torch.float32, cuda, 5)
+    counters = (fused_swiglu_cuda, rmsnorm_cuda, flash_attention_cuda,
+                motif_pcu_cuda)
+    before = [c.launches for c in counters]
+    got = (ops.fused_swiglu(x, w1, w3), ops.rmsnorm(x, s),
+           ops.flash_attention(q, q, q, block_q=64, block_k=64),
+           ops.motif_pcu(m, schedule=FANIN, n_inputs=3))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    want = (ref.fused_swiglu(x, w1, w3), ref.rmsnorm(x, s),
+            ref.flash_attention(q, q, q), ref.motif_pcu(FANIN, 3, m))
+    for g, w in zip(got[:3], want[:3]):
+        _assert_close(g, w, torch.float32)
+    assert _bits_equal(got[3], want[3])

@@ -68,6 +68,7 @@ def test_module_list_covers_the_package():
                  "repro_torch.kernels._launch", "repro_torch.kernels.rmsnorm",
                  "repro_torch.kernels.fused_swiglu",
                  "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.motif_pcu", "repro_torch.kernels.ops",
                  "repro_torch.models.layers", "repro_torch.models.dense",
                  "repro_torch.models.zoo", "repro_torch.models.convert",
                  "repro_torch.serve.kvcache", "repro_torch.serve.loop",
