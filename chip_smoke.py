@@ -20,10 +20,15 @@ Phases, in order; any failure exits non-zero before the last line:
    with the same reason as on the CPU;
 5. LM kernel phase: ``rmsnorm``, ``fused_swiglu`` and ``flash_attention``
    against their plain versions on the card, in float32 and bfloat16 on
-   the shapes of ``tests/test_kernels.py`` (under its ``TOL``) and in
-   bfloat16 at the serve path's shapes (under ``PATH_TOL``, with rmsnorm's
-   rows drawn at RMS from 0.1 to 10), with kernel, plain, bound and
-   library times there;
+   the shapes of ``tests/test_kernels.py`` (under its ``TOL``); the bf16
+   tensor-core flash kernel on every head dim in (32, 64, 80, 128), S in
+   (1, 17, 64, 65, 500), kv_group 1 and 3, causal, window 64 and full
+   (under ``TOL``); and in bfloat16 at the serve path's shapes (under
+   ``PATH_TOL``, with rmsnorm's rows drawn at RMS from 0.1 to 10), with
+   kernel, plain, bound and library times there (kernel and library timed
+   in turns: kernel, library, kernel, library); flash and SDPA at a
+   2000-token prefill; then the host time of one ``rmsnorm_cuda`` call at
+   (4, 3072), part by part;
 6. serve phase: ``python -m repro_torch.launch.serve --arch llama3_2_3b
    --batch 4 --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width
    (the second main path, with the launch counters read just around it):
@@ -469,24 +474,39 @@ def lm_kernel_phase():
               f"to plain on tests/test_kernels.py's shapes and the three "
               f"flash cases (rtol {TOL[dtype]['rtol']} atol "
               f"{TOL[dtype]['atol']})")
+    flash_tc_checks()
 
     records = {}
     for (name, label, kern, plain, lib, n_bytes, ops, rate,
          yardstick) in lm_kernel_cases():
         err, share = _close(f"{name} bfloat16 {label}", kern(), plain(),
                             PATH_TOL)
-        k_ms = cuda_ms(kern, 20)
-        k_dev = device_ms(kern, 20)
+        # kernel and library call in turns, so both see the same card state;
+        # each turn about 5 ms of calls (20 at least), so the host's jitter
+        # averages out of the small shapes' dispatch-bound times
+        reps = max(20, min(500, int(5.0 / cuda_ms(kern, 5))))
+        k_turns, k_devs, l_turns, l_devs = [], [], [], []
+        for _ in range(2):
+            k_turns.append(cuda_ms(kern, reps))
+            k_devs.append(device_ms(kern, 20))
+            if lib is not None:
+                l_turns.append(cuda_ms(lib, reps))
+                l_devs.append(device_ms(lib, 20))
+        k_ms, k_dev = _mean(k_turns), _mean(k_devs)
+        l_ms = _mean(l_turns) if lib is not None else None
         p_ms = cuda_ms(plain, 5)
-        l_ms = cuda_ms(lib, 20) if lib is not None else None
         bound, by = _bound(n_bytes, ops, rate)
-        lib_txt = f"{l_ms:.6f} ms" if l_ms is not None else "none"
-        print(f"kernel {name} {label} bf16: {k_ms:.6f} ms "
-              f"({_device_txt(k_dev)}), plain {p_ms:.6f} ms, bound "
-              f"{bound:.6f} ms "
-              f"({by}), library {lib_txt}; max abs err {err:.6g}, "
-              f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
-              f"{PATH_TOL['atol']})")
+        lib_txt = "none" if lib is None else (
+            f"{l_ms:.6f} ms (turns {_turns_txt(l_turns)}; device "
+            f"{_turns_txt(l_devs)})")
+        share_txt = "" if k_dev is None else \
+            f", {100 * bound / k_dev:.1f}% of the bound in device time"
+        print(f"kernel {name} {label} bf16: {k_ms:.6f} ms (turns "
+              f"{_turns_txt(k_turns)}; {_device_txt(k_dev)}, turns "
+              f"{_turns_txt(k_devs)}), plain {p_ms:.6f} ms, bound "
+              f"{bound:.6f} ms ({by}){share_txt}, library {lib_txt}; max abs "
+              f"err {err:.6g}, {share:.3f} of the tolerance (rtol "
+              f"{PATH_TOL['rtol']} atol {PATH_TOL['atol']})")
         at = {"shape": label, "ms": k_ms, "device_ms": k_dev,
               "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
               "library_ms": l_ms, "max_abs_err": err}
@@ -503,7 +523,155 @@ def lm_kernel_phase():
             print(f"yardstick: one torch.matmul x @ w1 at {label} bf16 "
                   f"{cuda_ms(yardstick, 20):.6f} ms (cuBLAS; the port "
                   f"does not call it)")
+    flash_long_prefill()
+    dispatch_breakdown()
     return records
+
+
+def flash_long_prefill() -> None:
+    """The bf16 flash kernel and SDPA at a 2000-token prefill, (96, 2000,
+    128) causal, kv_group 3, device times in turns, with the kernel SDPA
+    runs (its yardstick's name; the port never calls it): how both scale
+    past the serve shape's 500 tokens."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    H, S, d, g = 96, 2000, 128, 3
+    q = _randn((H, S, d), torch.bfloat16, 50)
+    k, v = (_randn((H // g, S, d), torch.bfloat16, i) for i in (51, 52))
+    kern = lambda: flash_attention_cuda(q, k, v, causal=True,  # noqa: E731
+                                        kv_group=g)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0]
+    _close(f"flash_attention bf16 ({H},{S},{d}) causal kv_group {g}",
+           kern(), ref.flash_attention(q, k, v, causal=True, kv_group=g),
+           TOL["bfloat16"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lib()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    k_devs, l_devs = [], []
+    for _ in range(2):
+        k_devs.append(device_ms(kern, 20))
+        l_devs.append(device_ms(lib, 20))
+    flop = 4 * d * H * S * (S + 1) // 2
+    rate = lambda ms: "not measured" if ms is None else \
+        f"{flop / ms / 1e9:.1f} TFLOP/s"  # noqa: E731
+    print(f"kernel flash_attention ({H},{S},{d}) causal kv_group {g} bf16: "
+          f"device {_turns_txt(k_devs)} ms ({rate(_mean(k_devs))} over the "
+          f"live pairs), library device {_turns_txt(l_devs)} ms "
+          f"({rate(_mean(l_devs))}); within rtol {TOL['bfloat16']['rtol']} "
+          f"atol {TOL['bfloat16']['atol']} of plain; SDPA runs "
+          f"{', '.join(n[:100] for n in names)}")
+
+
+def _mean(values):
+    """The mean of ``values``, or None if any is None (not measured)."""
+    if any(v is None for v in values):
+        return None
+    return sum(values) / len(values)
+
+
+def _turns_txt(values) -> str:
+    return " / ".join("not measured" if v is None else f"{v:.6f}"
+                      for v in values)
+
+
+def flash_tc_checks() -> None:
+    """The bf16 tensor-core flash kernel against its plain version on every
+    head dim it pads (32, 64, 80 -> 128, 128), on ragged and one-row
+    sequences, with and without grouped kv heads and in every mask mode,
+    under ``TOL``; one launch per call."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    bf = torch.bfloat16
+    n, worst, path_worst = 0, 0.0, 0.0
+    for d in (32, 64, 80, 128):
+        for S in (1, 17, 64, 65, 500):
+            for g in (1, 3):
+                H = 2 * g
+                q = _randn((H, S, d), bf, 40 + d + S)
+                k, v = (_randn((H // g, S, d), bf, 41 + i + d + S)
+                        for i in (1, 2))
+                for kw in (dict(causal=True), dict(causal=True, window=64),
+                           dict(causal=False)):
+                    before = flash_attention_cuda.launches
+                    got = flash_attention_cuda(q, k, v, kv_group=g, **kw)
+                    require(flash_attention_cuda.launches == before + 1,
+                            "flash_attention_cuda did not count its launch")
+                    want = ref.flash_attention(q, k, v, kv_group=g, **kw)
+                    label = f"flash_attention bf16 ({H},{S},{d}) kv_group " \
+                            f"{g} {kw}"
+                    worst = max(worst, _close(label, got, want,
+                                              TOL["bfloat16"])[1])
+                    diff = (got.float() - want.float()).abs()
+                    path_worst = max(path_worst, (diff / (
+                        PATH_TOL["atol"] + PATH_TOL["rtol"]
+                        * want.float().abs())).max().item())
+                    n += 1
+    print(f"kernel flash_attention bf16 tensor cores: {n} cases (d 32, 64, "
+          f"80, 128; S 1, 17, 64, 65, 500; kv_group 1, 3; causal, window "
+          f"64, full) equal to plain within rtol {TOL['bfloat16']['rtol']} "
+          f"atol {TOL['bfloat16']['atol']} ({worst:.3f} of it at most; "
+          f"{path_worst:.3f} of PATH_TOL, not held)")
+
+
+def dispatch_breakdown() -> None:
+    """Host time of one ``rmsnorm_cuda`` call at (4, 3072) bf16, part by
+    part: each part over 1000 calls after a synchronize
+    (``time.perf_counter``; the device runs behind, only enqueueing is
+    timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels import rmsnorm as rn
+
+    x = _randn((4, 3072), torch.bfloat16, 1)
+    s = _randn((3072,), torch.bfloat16, 2)
+    dev, index = x.device, x.get_device()
+    fn, err = _launch.entry("rmsnorm", rn._ARGS)
+    out = torch.empty_like(x)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    parts = [
+        ("bare ctypes call rmsnorm_error_string(0)", lambda: err(0)),
+        ("torch.empty_like(x)", lambda: torch.empty_like(x)),
+        ("check_operands (x, scale)",
+         lambda: _launch.check_operands("rmsnorm", rn._NAMES, x, s)),
+        ("stream: torch._C._cuda_getCurrentRawStream(index) (the port's)",
+         lambda: torch._C._cuda_getCurrentRawStream(index)),
+        ("stream: torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("the C entry refusing dtype code 2 (ctypes alone, no CUDA call)",
+         lambda: fn(x.data_ptr(), s.data_ptr(), out.data_ptr(), 4, 3072,
+                    1e-6, 2, index, stream)),
+        ("the C entry called directly (ctypes + kernel enqueue)",
+         lambda: fn(x.data_ptr(), s.data_ptr(), out.data_ptr(), 4, 3072,
+                    1e-6, 1, index, stream)),
+        ("the whole wrapper rmsnorm_cuda(x, scale)",
+         lambda: rn.rmsnorm_cuda(x, s)),
+        ("F.rms_norm(x, (3072,), scale, 1e-6), for comparison",
+         lambda: F.rms_norm(x, (3072,), s, 1e-6)),
+    ]
+    for label, call in parts:
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            call()
+        us = (time.perf_counter() - t0) / 1000 * 1e6
+        torch.cuda.synchronize()
+        print(f"dispatch: rmsnorm (4,3072) bf16, {label}: {us:.3f} us a call "
+              "(host, mean of 1000)")
 
 
 def kernel_entries():

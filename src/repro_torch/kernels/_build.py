@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, then loaded with ``ctypes`` —
 no PyTorch headers and no ``ninja``, so a build takes seconds.  Libraries
 go to ``build/repro_torch/`` at the root of the checkout, named by a hash
-of the source and the flags, so an edited source is never served a stale
-library.  A failed build raises; nothing falls back.
+of the source, the shared headers and the flags, so an edited source is
+never served a stale library.  A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -43,15 +43,25 @@ def nvcc_path() -> str:
                        "built")
 
 
+def library_path(name: str, csrc: str = CSRC,
+                 build_dir: str = BUILD_DIR) -> str:
+    """Where the library of ``<csrc>/<name>.cu`` goes: named by a hash of
+    the source, every shared header (``*.cuh``) of ``csrc`` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in [f"{name}.cu", *sorted(f for f in os.listdir(csrc)
+                                     if f.endswith(".cuh"))]:
+        with open(os.path.join(csrc, fn), "rb") as f:
+            digest.update(fn.encode() + b"\0" + f.read())
+    return os.path.join(build_dir, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
     library path.  nvcc's output (registers, shared memory and spills from
     ``-Xptxas=-v``) is kept beside it as ``<library>.log``.  Raises
     ``RuntimeError`` with that output on failure."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    lib = library_path(name)
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)

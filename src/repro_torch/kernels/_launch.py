@@ -1,17 +1,21 @@
-"""What every kernel wrapper of the port shares: loading a library with its
-C signature, launching on PyTorch's current stream and raising on a refused
-launch; and, for the language-model kernels, checking operands.
+"""What every kernel wrapper of the port shares: binding a library's C
+entry once, launching on PyTorch's current stream and raising on a refused
+launch; and, for the language-model kernels and ``motif_pcu``, checking
+operands.
 
-A kernel's C entry is ``<name>_launch(..., void* stream)`` and returns
-``cudaGetLastError()``; ``<name>_error_string(code)`` names the error.  The
-language-model kernels take float32 or bfloat16, named by a dtype code
-(:data:`DTYPE_CODES`) just before the stream.  Importing this module needs
-no ``nvcc`` and no card.
+A kernel's C entry is ``<name>_launch(..., int device, void* stream)``: it
+makes ``device`` current for the launch (``csrc/device_guard.cuh``) and
+returns ``cudaGetLastError()``; ``<name>_error_string(code)`` names the
+error.  The language-model kernels take float32 or bfloat16, named by a
+dtype code (:data:`DTYPE_CODES`) just before the device.  The host path of
+a launch is lean: the entry is resolved once, the checks build nothing per
+call, and the stream is PyTorch's current raw stream for the device index.
+Importing this module needs no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -20,53 +24,61 @@ from repro_torch.kernels import _build
 #: the dtype code of the C entries
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_ready: Dict[str, ctypes.CDLL] = {}
+#: each kernel's bound C entry and its error-string function
+_entries: Dict[str, Tuple[Callable[..., int], Callable[[int], bytes]]] = {}
 
 
-def library(name: str, argtypes: Sequence) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` with its entry's signature
-    (``argtypes`` excludes the trailing stream)."""
-    if name in _ready:
-        return _ready[name]
-    lib = _build.load(name)
-    entry = getattr(lib, f"{name}_launch")
-    entry.argtypes = list(argtypes) + [ctypes.c_void_p]
-    entry.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    _ready[name] = lib
-    return lib
+def entry(name: str, argtypes: Sequence):
+    """The C entry ``<name>_launch`` of ``csrc/<name>.cu`` and its
+    ``<name>_error_string``, with their signatures set (``argtypes``
+    excludes the trailing device and stream); built, loaded and bound at
+    first use, then cached."""
+    bound = _entries.get(name)
+    if bound is None:
+        lib = _build.load(name)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        bound = _entries[name] = (fn, err)
+    return bound
 
 
-def check_operands(name: str, operands: Dict[str, torch.Tensor]) -> int:
-    """Raise ``ValueError`` unless every operand lies on one CUDA device,
-    is contiguous and has one dtype the kernel takes; returns its code."""
-    first = next(iter(operands.values()))
-    dev, dtype = first.device, first.dtype
-    if dev.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
-    if dtype not in DTYPE_CODES:
+def check_operands(name: str, names: Sequence[str],
+                   *tensors) -> Tuple[int, int]:
+    """Raise ``ValueError`` unless every tensor (called ``names[i]`` in the
+    messages) lies on the first one's CUDA device, has its dtype, one the
+    kernel takes, and is contiguous.  Per tensor, in order: device, dtype,
+    contiguity.  Returns (dtype code, device index)."""
+    first = tensors[0]
+    if not first.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors, got {first.device}")
+    dtype = first.dtype
+    code = DTYPE_CODES.get(dtype)
+    if code is None:
         raise ValueError(f"{name} takes float32 or bfloat16, got {dtype}")
-    for arg, t in operands.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} lies on {t.device}, not {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, not {dtype}")
+    index = first.get_device()
+    for i, t in enumerate(tensors):
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"{name}: {names[i]} lies on {t.device}, not "
+                             f"{first.device}")
+        if t.dtype is not dtype:
+            raise ValueError(f"{name}: {names[i]} is {t.dtype}, not {dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-    return DTYPE_CODES[dtype]
+            raise ValueError(f"{name}: {names[i]} must be contiguous")
+    return code, index
 
 
-def launch(name: str, argtypes: Sequence, device: torch.device,
-           *args) -> None:
-    """Call ``<name>_launch(*args, stream)`` (C signature ``argtypes`` plus
-    the stream) on ``device``'s current stream; raise ``RuntimeError`` if
-    the launch was refused."""
-    lib = library(name, argtypes)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"{name}_launch")(*args, stream)
+def launch(name: str, argtypes: Sequence, index: int, *args) -> None:
+    """Call ``<name>_launch(*args, index, stream)`` (C signature
+    ``argtypes`` plus the device and the stream) on CUDA device ``index``'s
+    current stream; raise ``RuntimeError`` if the launch was refused.  The
+    stream is the lookup PyTorch's own Triton launcher makes: a raw handle,
+    no ``torch.cuda.Stream`` object."""
+    fn, err = _entries.get(name) or entry(name, argtypes)
+    rc = fn(*args, index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")

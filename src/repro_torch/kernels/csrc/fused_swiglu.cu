@@ -28,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -138,18 +140,21 @@ int launch_for(const void* x, const void* w1, const void* w3, void* out,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a dtype code other than 0 or 1 or a grid the
-// card cannot take.
+// Launches on `stream` with `device` current; returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for a dtype code other than 0 or 1
+// or a grid the card cannot take.
 extern "C" int fused_swiglu_launch(const void* x, const void* w1,
                                    const void* w3, void* out, int M, int D,
-                                   int F, int dtype, void* stream) {
+                                   int F, int dtype, int device,
+                                   void* stream) {
   if (M <= 0 || F <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_for<float>(x, w1, w3, out, M, D, F, s);
-  if (dtype == 1)
-    return launch_for<__nv_bfloat16>(x, w1, w3, out, M, D, F, s);
-  return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    return dtype == 0
+               ? launch_for<float>(x, w1, w3, out, M, D, F, s)
+               : launch_for<__nv_bfloat16>(x, w1, w3, out, M, D, F, s);
+  });
 }
 
 extern "C" const char* fused_swiglu_error_string(int code) {

@@ -47,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -136,22 +138,23 @@ int launch(const void* in, const void* sched, void* out, int steps,
 
 }  // namespace
 
-// Launches on `stream`; `sched` is a device array of `steps` int32 rows
-// (dst, opcode, a, b).  Returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a dtype code other than 0 or 1, negative counts,
-// or more than 223 slots.
+// Launches on `stream` with `device` current; `sched` is a device array of
+// `steps` int32 rows (dst, opcode, a, b).  Returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for a dtype code other than 0 or 1,
+// negative counts, or more than 223 slots.
 extern "C" int motif_pcu_launch(const void* in, const void* sched, void* out,
                                 int steps, int n_inputs, long long N,
-                                int dtype, void* stream) {
-  if (steps < 0 || n_inputs < 0 || n_inputs + steps > kMaxSlots)
+                                int dtype, int device, void* stream) {
+  if (steps < 0 || n_inputs < 0 || n_inputs + steps > kMaxSlots ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(in, sched, out, steps, n_inputs, N, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(in, sched, out, steps, n_inputs, N, s);
-  return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    return dtype == 0
+               ? launch<float>(in, sched, out, steps, n_inputs, N, s)
+               : launch<__nv_bfloat16>(in, sched, out, steps, n_inputs, N, s);
+  });
 }
 
 extern "C" const char* motif_pcu_error_string(int code) {

@@ -21,6 +21,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -65,25 +67,25 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a dtype code other than 0 or 1.
+// Launches on `stream` with `device` current; returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for a dtype code other than 0 or 1.
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
                               long long M, int D, float eps, int dtype,
-                              void* stream) {
+                              int device, void* stream) {
   if (M <= 0 || D <= 0) return 0;
-  if (M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    rmsnorm_kernel<float><<<(unsigned)M, kThreads, 0, s>>>(
-        (const float*)x, (const float*)scale, (float*)out, D, eps);
-  } else if (dtype == 1) {
-    rmsnorm_kernel<__nv_bfloat16><<<(unsigned)M, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)scale,
-        (__nv_bfloat16*)out, D, eps);
-  } else {
+  if (M > 0x7fffffffLL || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return on_device(device, [&] {
+    if (dtype == 0)
+      rmsnorm_kernel<float><<<(unsigned)M, kThreads, 0, s>>>(
+          (const float*)x, (const float*)scale, (float*)out, D, eps);
+    else
+      rmsnorm_kernel<__nv_bfloat16><<<(unsigned)M, kThreads, 0, s>>>(
+          (const __nv_bfloat16*)x, (const __nv_bfloat16*)scale,
+          (__nv_bfloat16*)out, D, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" const char* rmsnorm_error_string(int code) {

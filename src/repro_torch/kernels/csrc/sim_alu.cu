@@ -30,6 +30,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 __global__ void sim_alu_kernel(const int* __restrict__ opcode,
@@ -80,19 +82,22 @@ __global__ void sim_alu_kernel(const int* __restrict__ opcode,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` with `device` current and returns
+// cudaGetLastError() (0 on success).
 extern "C" int sim_alu_launch(const void* opcode, const void* a, const void* b,
                               const void* c, const void* leaf, void* out,
-                              long long n, void* stream) {
+                              long long n, int device, void* stream) {
   if (n <= 0) return 0;
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   const long long max_blocks = 132LL * 16;  // 16 resident blocks per SM
   if (blocks > max_blocks) blocks = max_blocks;
-  sim_alu_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)opcode, (const float*)a, (const float*)b, (const float*)c,
-      (const float*)leaf, (float*)out, n);
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    sim_alu_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int*)opcode, (const float*)a, (const float*)b, (const float*)c,
+        (const float*)leaf, (float*)out, n);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" const char* sim_alu_error_string(int code) {

@@ -7,7 +7,9 @@ and/or windowed, ``acc / max(l, 1e-30)``.  The port adds ``kv_group``: k and
 v hold ``H // kv_group`` heads and query head h reads kv head
 ``h // kv_group``, so grouped-query attention needs no repeated k/v
 (``kv_group=1`` is the TPU kernel's function).  The source is
-``csrc/flash_attention.cu`` (design and bound are documented there).
+``csrc/flash_attention.cu`` (design and bound are documented there): a
+bfloat16 kernel on tensor cores (``mma.sync``, the head dim padded to 32,
+64 or 128 on chip) and a float32 kernel without them, chosen by dtype.
 
 :func:`flash_attention` is the wrapper the attention layer calls: a CPU
 tensor takes the plain version (:func:`repro_torch.kernels.ref.
@@ -25,9 +27,11 @@ from repro_torch.kernels import _launch, ref
 
 #: the largest head dim the kernel takes
 MAX_HEAD_DIM = 128
-#: q, k, v, out, H, S, d, causal, window, kv_group, scale, dtype code
+#: q, k, v, out, H, S, d, causal, window, kv_group, scale, dtype code (then
+#: the device and the stream)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                       ctypes.c_int]
+_NAMES = ("q", "k", "v")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,8 +42,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA device.  Returns a new (H, S, d) tensor of ``q``'s dtype.  Raises
     ``ValueError`` on any other input and ``RuntimeError`` when the launch
     is refused."""
-    code = _launch.check_operands("flash_attention",
-                                  {"q": q, "k": k, "v": v})
+    code, dev = _launch.check_operands("flash_attention", _NAMES, q, k, v)
     if q.dim() != 3 or kv_group < 1 or q.shape[0] % kv_group:
         raise ValueError(f"flash_attention takes q (H, S, d) with H "
                          f"divisible by kv_group={kv_group}, got "
@@ -53,7 +56,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention takes head dims up to "
                          f"{MAX_HEAD_DIM}, got {d}")
     out = torch.empty_like(q)
-    _launch.launch("flash_attention", _ARGS, q.device, q.data_ptr(),
+    _launch.launch("flash_attention", _ARGS, dev, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), out.data_ptr(), H, S, d,
                    int(causal), int(window), kv_group, 1.0 / math.sqrt(d),
                    code)
@@ -71,7 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_group: int = 1) -> torch.Tensor:
     """Masked softmax attention over (H, S, d): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    kv_group=kv_group)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,

@@ -19,8 +19,9 @@ import torch
 
 from repro_torch.kernels import _launch, ref
 
-#: x, w1, w3, out, M, D, F, dtype code
+#: x, w1, w3, out, M, D, F, dtype code (then the device and the stream)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_NAMES = ("x", "w1", "w3")
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -30,8 +31,7 @@ def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
     float32 or all bfloat16, contiguous, on one CUDA device.  Returns a new
     (M, F) tensor of ``x``'s dtype.  Raises ``ValueError`` on any other
     input and ``RuntimeError`` when the launch is refused."""
-    code = _launch.check_operands("fused_swiglu",
-                                  {"x": x, "w1": w1, "w3": w3})
+    code, dev = _launch.check_operands("fused_swiglu", _NAMES, x, w1, w3)
     if x.dim() != 2 or w1.dim() != 2 or w1.shape[0] != x.shape[1] \
             or w3.shape != w1.shape:
         raise ValueError(f"fused_swiglu takes x (M, D), w1/w3 (D, F), got "
@@ -42,7 +42,7 @@ def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"fused_swiglu: a dimension of {(M, D, F)} "
                          "exceeds int32")
     out = torch.empty((M, F), dtype=x.dtype, device=x.device)
-    _launch.launch("fused_swiglu", _ARGS, x.device, x.data_ptr(),
+    _launch.launch("fused_swiglu", _ARGS, dev, x.data_ptr(),
                    w1.data_ptr(), w3.data_ptr(), out.data_ptr(), M, D, F,
                    code)
     fused_swiglu_cuda.launches += 1
@@ -57,6 +57,6 @@ def fused_swiglu(x: torch.Tensor, w1: torch.Tensor,
                  w3: torch.Tensor) -> torch.Tensor:
     """``silu(x @ w1) * (x @ w3)``: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ref.fused_swiglu(x, w1, w3)
     return fused_swiglu_cuda(x, w1, w3)

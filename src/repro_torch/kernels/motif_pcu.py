@@ -30,7 +30,8 @@ OPCODES = {name: code for code, name in enumerate(ref.PCU_OPS)}
 #: of shared memory hold at the kernel's 256 threads: 223 x 256 x 4 bytes of
 #: table plus 223 x 16 bytes of schedule is 231,920 bytes
 MAX_SLOTS = 223
-#: in, schedule, out, steps, n_inputs, N, dtype code
+#: in, schedule, out, steps, n_inputs, N, dtype code (then the device and
+#: the stream)
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong,
                                                       ctypes.c_int]
 
@@ -82,7 +83,7 @@ def motif_pcu_cuda(schedule: ref.PcuSchedule, n_inputs: int,
     len(schedule), N) tensor of the inputs' dtype.  Raises ``ValueError`` on
     any other input and ``RuntimeError`` when the launch is refused."""
     steps = check_schedule(schedule, n_inputs, inputs)
-    code = _launch.check_operands("motif_pcu", {"inputs": inputs})
+    code, dev = _launch.check_operands("motif_pcu", ("inputs",), inputs)
     n_slots = n_inputs + len(steps)
     if n_slots > MAX_SLOTS:
         raise ValueError(f"motif_pcu: {n_slots} slots exceed the kernel's "
@@ -90,7 +91,7 @@ def motif_pcu_cuda(schedule: ref.PcuSchedule, n_inputs: int,
     out = torch.empty((n_slots, inputs.shape[1]), dtype=inputs.dtype,
                       device=inputs.device)
     rows = _device_schedule(steps, inputs.device)
-    _launch.launch("motif_pcu", _ARGS, inputs.device, inputs.data_ptr(),
+    _launch.launch("motif_pcu", _ARGS, dev, inputs.data_ptr(),
                    rows.data_ptr(), out.data_ptr(), len(steps), n_inputs,
                    inputs.shape[1], code)
     motif_pcu_cuda.launches += 1
@@ -106,7 +107,7 @@ def motif_pcu(schedule: ref.PcuSchedule, n_inputs: int,
     """The value table (n_inputs + len(schedule), N) of ``schedule`` over
     inputs (n_inputs, N): the plain version for CPU tensors, the CUDA kernel
     for CUDA tensors.  Raises ``ValueError`` on a bad schedule either way."""
-    if inputs.device.type == "cpu":
+    if inputs.is_cpu:
         return ref.motif_pcu(check_schedule(schedule, n_inputs, inputs),
                              n_inputs, inputs)
     return motif_pcu_cuda(schedule, n_inputs, inputs)

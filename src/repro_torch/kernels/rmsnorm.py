@@ -19,9 +19,10 @@ import torch
 
 from repro_torch.kernels import _launch, ref
 
-#: x, scale, out, M, D, eps, dtype code
+#: x, scale, out, M, D, eps, dtype code (then the device and the stream)
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_int]
+_NAMES = ("x", "scale")
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -30,13 +31,14 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     both bfloat16, contiguous, on one CUDA device.  Returns a new (M, D)
     tensor of ``x``'s dtype.  Raises ``ValueError`` on any other input and
     ``RuntimeError`` when the launch is refused."""
-    code = _launch.check_operands("rmsnorm", {"x": x, "scale": scale})
+    code, dev = _launch.check_operands("rmsnorm", _NAMES, x, scale)
     if x.dim() != 2 or scale.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm takes x (M, D) and scale (D,), got "
                          f"{tuple(x.shape)} and {tuple(scale.shape)}")
     out = torch.empty_like(x)
-    _launch.launch("rmsnorm", _ARGS, x.device, x.data_ptr(), scale.data_ptr(),
-                   out.data_ptr(), x.shape[0], x.shape[1], eps, code)
+    M, D = x.shape
+    _launch.launch("rmsnorm", _ARGS, dev, x.data_ptr(), scale.data_ptr(),
+                   out.data_ptr(), M, D, eps, code)
     rmsnorm_cuda.launches += 1
     return out
 
@@ -49,6 +51,6 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of the rows of (M, D) ``x``: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ref.rmsnorm(x, scale, eps)
     return rmsnorm_cuda(x, scale, eps)

@@ -21,8 +21,10 @@ import torch
 
 from repro_torch.kernels import _launch, ref
 
-#: opcode, a, b, c, leaf, out, element count
+#: opcode, a, b, c, leaf, out, element count (then the device and the
+#: stream)
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+_NAMES = ("a", "b", "c", "leaf")
 
 
 def sim_alu_cuda(opcode, a, b, c, leaf):
@@ -30,17 +32,19 @@ def sim_alu_cuda(opcode, a, b, c, leaf):
     float32, all contiguous, of one shape, on one CUDA device.  Returns a
     new float32 tensor.  Raises ``ValueError`` on any other input and
     ``RuntimeError`` when the launch is refused."""
-    args = (opcode, a, b, c, leaf)
-    dev = opcode.device
-    if dev.type != "cuda":
-        raise ValueError(f"sim_alu_cuda needs CUDA tensors, got {dev}")
-    if opcode.dtype != torch.int32:
+    if not opcode.is_cuda:
+        raise ValueError(f"sim_alu_cuda needs CUDA tensors, got "
+                         f"{opcode.device}")
+    if opcode.dtype is not torch.int32:
         raise ValueError(f"opcode must be int32, got {opcode.dtype}")
-    for name, t in zip(("a", "b", "c", "leaf"), args[1:]):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-    for t in args:
-        if t.device != dev or t.shape != opcode.shape:
+    operands = (a, b, c, leaf)
+    for i, t in enumerate(operands):
+        if t.dtype is not torch.float32:
+            raise ValueError(f"{_NAMES[i]} must be float32, got {t.dtype}")
+    dev, shape = opcode.get_device(), opcode.shape
+    for t in (opcode, *operands):
+        if not t.is_cuda or t.get_device() != dev or t.shape != shape:
+            args = (opcode, *operands)
             raise ValueError("sim_alu_cuda operands must share one device "
                              f"and shape; got {[tuple(x.shape) for x in args]}"
                              f" on {[str(x.device) for x in args]}")
@@ -61,6 +65,6 @@ sim_alu_cuda.launches = 0
 def sim_alu(opcode, a, b, c, leaf):
     """Elementwise ALU over same-shape tensors: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
-    if opcode.device.type == "cpu":
+    if opcode.is_cpu:
         return ref.sim_alu(opcode, a, b, c, leaf)
     return sim_alu_cuda(opcode, a, b, c, leaf)

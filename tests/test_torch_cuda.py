@@ -1,8 +1,9 @@
 """``repro_torch`` on the card: the CUDA ``sim_alu`` kernel against its
 plain version, and the cycle loop on ``cuda`` against the CPU run; the
-language-model kernels (``rmsnorm``, ``fused_swiglu``, ``flash_attention``)
-against their plain versions, and smoke-width serving on ``cuda`` against
-the CPU run; the PCU kernel ``motif_pcu`` against its plain version, bit
+language-model kernels (``rmsnorm``, ``fused_swiglu``, ``flash_attention``
+in float32 and in bfloat16 on tensor cores) against their plain versions,
+on the caller's stream, and smoke-width serving on ``cuda`` against the CPU
+run; the PCU kernel ``motif_pcu`` against its plain version, bit
 for bit in float32, and the ``ops`` dispatchers through the kernels.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
@@ -167,6 +168,53 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, kw, H, S, d, g):
     assert flash_attention_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == (H, S, d)
     _assert_close(got, ref.flash_attention(q, k, v, kv_group=g, **kw), dtype)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=64),
+                                dict(causal=False)],
+                         ids=["causal", "window64", "full"])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 500])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_flash_attention_tensor_cores_match_plain(cuda, d, S, g, kw):
+    """The bf16 kernel on tensor cores: every padded head dim (80 runs in
+    128 columns), one row, ragged and exact tiles, grouped kv heads."""
+    H = 2 * g
+    q = _randn((H, S, d), torch.bfloat16, cuda, d + S)
+    k, v = (_randn((H // g, S, d), torch.bfloat16, cuda, d + S + i)
+            for i in (1, 2))
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, kv_group=g, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (H, S, d)
+    _assert_close(got, ref.flash_attention(q, k, v, kv_group=g, **kw),
+                  torch.bfloat16)
+
+
+def test_kernels_run_on_the_callers_stream(cuda):
+    """Launched under ``torch.cuda.stream(s)``, a kernel queues behind a
+    long op on ``s``: it reads inputs that ``s`` writes only after a spin
+    of the device, so on any other stream it would see zeros."""
+    s = torch.cuda.Stream()
+    x_new, scale = _randn((64, 3072), torch.bfloat16, cuda, 0), \
+        _randn((3072,), torch.bfloat16, cuda, 1)
+    q_new = _randn((6, 200, 128), torch.bfloat16, cuda, 2)
+    kv = _randn((2, 200, 128), torch.bfloat16, cuda, 3)
+    x, q = torch.zeros_like(x_new), torch.zeros_like(q_new)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(200_000_000)  # a spin of ~0.1 s on s
+        x.copy_(x_new)
+        q.copy_(q_new)
+        got_x = rmsnorm_cuda(x, scale)
+        got_q = flash_attention_cuda(q, kv, kv, kv_group=3)
+    s.synchronize()
+    _assert_close(got_x, ref.rmsnorm(x_new, scale), torch.bfloat16)
+    _assert_close(got_q, ref.flash_attention(q_new, kv, kv, kv_group=3),
+                  torch.bfloat16)
+    assert got_x.float().abs().max() > 0.5
 
 
 def test_lm_kernels_reject_bad_operands(cuda):
