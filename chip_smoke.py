@@ -23,12 +23,16 @@ Phases, in order; any failure exits non-zero before the last line:
    the shapes of ``tests/test_kernels.py`` (under its ``TOL``); the bf16
    tensor-core flash kernel on every head dim in (32, 64, 80, 128), S in
    (1, 17, 64, 65, 500), kv_group 1 and 3, causal, window 64 and full
+   (under ``TOL``); ``fused_swiglu`` on each of its three routes (stream,
+   tensor cores, SIMT) at 168 ragged shapes, M in (1, 4, 16, 17, 100, 129,
+   300), D in (72, 256, 1000), F in (130, 136, 320, 520), both dtypes
    (under ``TOL``); and in bfloat16 at the serve path's shapes (under
    ``PATH_TOL``, with rmsnorm's rows drawn at RMS from 0.1 to 10), with
    kernel, plain, bound and library times there (kernel and library timed
-   in turns: kernel, library, kernel, library); flash and SDPA at a
-   2000-token prefill; then the host time of one ``rmsnorm_cuda`` call at
-   (4, 3072), part by part;
+   in turns: kernel, library, kernel, library), fused_swiglu's route and
+   two cuBLAS yardsticks (``x @ w1``, and ``x @ [w1 | w3]``, the same
+   product work in one call); flash and SDPA at a 2000-token prefill; then
+   the host time of one ``rmsnorm_cuda`` call at (4, 3072), part by part;
 6. serve phase: ``python -m repro_torch.launch.serve --arch llama3_2_3b
    --batch 4 --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width
    (the second main path, with the launch counters read just around it):
@@ -389,8 +393,8 @@ def _bound(n_bytes: float, ops: float, ops_rate: float):
 
 def lm_kernel_cases():
     """(name, label, kernel call, plain call, library call or None, bytes,
-    operations, operations rate, GEMM yardstick or None) at the serve
-    path's shapes, bfloat16:
+    operations, operations rate, cuBLAS yardsticks as (label, call) pairs,
+    fused_swiglu's route or None) at the serve path's shapes, bfloat16:
     M = B*T = 2000 rows in prefill and 4 in decode, D = 3072, F = 8192,
     96 = 4 x 24 query heads over 32 kv heads, S = 500, d = 128.  rmsnorm's
     rows have RMS from 0.1 to 10, so a missing or misplaced normalization
@@ -401,7 +405,8 @@ def lm_kernel_cases():
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
+    from repro_torch.kernels.fused_swiglu import (ROUTE_NAMES,
+                                                  fused_swiglu_cuda, route)
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     bf = torch.bfloat16
@@ -413,17 +418,21 @@ def lm_kernel_cases():
             "rmsnorm", f"({M},3072)", lambda x=x, s=s: rmsnorm_cuda(x, s),
             lambda x=x, s=s: ref.rmsnorm(x, s),
             lambda x=x, s=s: F.rms_norm(x, (3072,), s, 1e-6),
-            (2 * M * 3072 + 3072) * 2, 4 * M * 3072, FP32_OPS_PER_S, None))
+            (2 * M * 3072 + 3072) * 2, 4 * M * 3072, FP32_OPS_PER_S, (),
+            None))
     for M in (2000, 4):
         x = _randn((M, 3072), bf, 3)
         w1, w3 = (_randn((3072, 8192), bf, i, 3072 ** -0.5) for i in (4, 5))
+        w13 = torch.cat([w1, w3], dim=1)  # (3072, 16384), yardstick only
         cases.append((
             "fused_swiglu", f"({M},3072)x(3072,8192)",
             lambda x=x, w1=w1, w3=w3: fused_swiglu_cuda(x, w1, w3),
             lambda x=x, w1=w1, w3=w3: ref.fused_swiglu(x, w1, w3), None,
             (M * 3072 + 2 * 3072 * 8192 + M * 8192) * 2,
             4 * M * 3072 * 8192 + 5 * M * 8192, BF16_OPS_PER_S,
-            lambda x=x, w1=w1: x @ w1))
+            (("x @ w1", lambda x=x, w1=w1: x @ w1),
+             ("x @ [w1 | w3]", lambda x=x, w13=w13: x @ w13)),
+            ROUTE_NAMES[route(M, 3072, 8192, bf)]))
     H, S, d, g = 96, 500, 128, 3
     q = _randn((H, S, d), bf, 6)
     k, v = (_randn((H // g, S, d), bf, i) for i in (7, 8))
@@ -435,7 +444,7 @@ def lm_kernel_cases():
         lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0],
         (2 * H + 2 * H // g) * S * d * 2, 4 * d * pairs, BF16_OPS_PER_S,
-        None))
+        (), None))
     return cases
 
 
@@ -475,10 +484,11 @@ def lm_kernel_phase():
               f"flash cases (rtol {TOL[dtype]['rtol']} atol "
               f"{TOL[dtype]['atol']})")
     flash_tc_checks()
+    swiglu_route_checks()
 
     records = {}
-    for (name, label, kern, plain, lib, n_bytes, ops, rate,
-         yardstick) in lm_kernel_cases():
+    for (name, label, kern, plain, lib, n_bytes, ops, rate, yardsticks,
+         swiglu_route) in lm_kernel_cases():
         err, share = _close(f"{name} bfloat16 {label}", kern(), plain(),
                             PATH_TOL)
         # kernel and library call in turns, so both see the same card state;
@@ -501,7 +511,8 @@ def lm_kernel_phase():
             f"{_turns_txt(l_devs)})")
         share_txt = "" if k_dev is None else \
             f", {100 * bound / k_dev:.1f}% of the bound in device time"
-        print(f"kernel {name} {label} bf16: {k_ms:.6f} ms (turns "
+        route_txt = "" if swiglu_route is None else f" route {swiglu_route}"
+        print(f"kernel {name} {label} bf16{route_txt}: {k_ms:.6f} ms (turns "
               f"{_turns_txt(k_turns)}; {_device_txt(k_dev)}, turns "
               f"{_turns_txt(k_devs)}), plain {p_ms:.6f} ms, bound "
               f"{bound:.6f} ms ({by}){share_txt}, library {lib_txt}; max abs "
@@ -510,6 +521,8 @@ def lm_kernel_phase():
         at = {"shape": label, "ms": k_ms, "device_ms": k_dev,
               "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
               "library_ms": l_ms, "max_abs_err": err}
+        if swiglu_route is not None:
+            at["route"] = swiglu_route
         if name not in records:
             records[name] = {
                 "name": name, "route": "cuda",
@@ -519,13 +532,53 @@ def lm_kernel_phase():
                     "library_ms")}, "at": []}
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
         records[name]["at"].append(at)
-        if yardstick is not None:
-            print(f"yardstick: one torch.matmul x @ w1 at {label} bf16 "
-                  f"{cuda_ms(yardstick, 20):.6f} ms (cuBLAS; the port "
-                  f"does not call it)")
+        for y_label, y_call in yardsticks:
+            y_dev = device_ms(y_call, 20)
+            at.setdefault("yardstick_device_ms", {})[y_label] = y_dev
+            print(f"yardstick: one torch.matmul {y_label} at {label} bf16 "
+                  f"{cuda_ms(y_call, 20):.6f} ms ({_device_txt(y_dev)}; "
+                  f"cuBLAS, the port does not call it)")
     flash_long_prefill()
     dispatch_breakdown()
     return records
+
+
+def swiglu_route_checks() -> None:
+    """fused_swiglu against its plain version under ``TOL`` on each route,
+    at ragged shapes: the stream route (M <= 16, both dtypes; F = 130 loads
+    its rows element by element), the tensor-core route (bf16 past 16 rows,
+    across 128-row and 128-column tiles and 64-deep K steps) and the SIMT
+    route (float32 past 16 rows, bf16 at F = 130); one launch per call."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_swiglu import (ROUTE_NAMES,
+                                                  fused_swiglu_cuda, route)
+
+    worst = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for M in (1, 4, 16, 17, 100, 129, 300):
+            for D in (72, 256, 1000):
+                for F in (130, 136, 320, 520):
+                    x = _randn((M, D), dt, M + D)
+                    w1, w3 = (_randn((D, F), dt, F + i) for i in (1, 2))
+                    name = ROUTE_NAMES[route(M, D, F, dt)]
+                    before = fused_swiglu_cuda.launches
+                    got = fused_swiglu_cuda(x, w1, w3)
+                    require(fused_swiglu_cuda.launches == before + 1,
+                            "fused_swiglu_cuda did not count its launch")
+                    share = _close(f"fused_swiglu {dtype} ({M},{D},{F}) "
+                                   f"route {name}", got,
+                                   ref.fused_swiglu(x, w1, w3),
+                                   TOL[dtype])[1]
+                    n, w = worst.get((dtype, name), (0, 0.0))
+                    worst[(dtype, name)] = (n + 1, max(w, share))
+    for (dtype, name), (n, w) in sorted(worst.items()):
+        print(f"kernel fused_swiglu {dtype} route {name}: {n} ragged shapes "
+              f"(M 1-300, D 72/256/1000, F 130/136/320/520) equal to plain "
+              f"within rtol {TOL[dtype]['rtol']} atol {TOL[dtype]['atol']} "
+              f"({w:.3f} of it at most)")
 
 
 def flash_long_prefill() -> None:

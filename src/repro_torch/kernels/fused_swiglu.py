@@ -6,6 +6,11 @@ and the gate in float32, cast to the input type once.  The source is
 ``csrc/fused_swiglu.cu`` (design and bound are documented there): the
 products are the kernel's own, with no cuBLAS and no ``torch.matmul``.
 
+The kernel has three routes, picked by :func:`route` from the shape and
+dtype alone: a byte-bound stream for decode (``STREAM``, M <= 16), a
+``wgmma`` + TMA GEMM for bf16 prefill (``TENSOR_CORES``) and the SIMT
+kernel for the rest (``SIMT``).
+
 :func:`fused_swiglu` is the wrapper the MLP calls: a CPU tensor takes the
 plain version (:func:`repro_torch.kernels.ref.fused_swiglu`), a CUDA tensor
 launches the kernel or raises.  Importing this module needs no ``nvcc`` and
@@ -19,18 +24,39 @@ import torch
 
 from repro_torch.kernels import _launch, ref
 
-#: x, w1, w3, out, M, D, F, dtype code (then the device and the stream)
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+#: x, w1, w3, out, M, D, F, dtype code, route code (then the device and the
+#: stream)
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
 _NAMES = ("x", "w1", "w3")
 _INT_MAX = 2 ** 31 - 1
+
+#: the route codes of the C entry
+STREAM, TENSOR_CORES, SIMT = 0, 1, 2
+ROUTE_NAMES = {STREAM: "stream", TENSOR_CORES: "tensor cores", SIMT: "SIMT"}
+#: the most rows of x the stream route takes
+STREAM_MAX_ROWS = 16
+
+
+def route(M: int, D: int, F: int, dtype: torch.dtype) -> int:
+    """The route for x (M, D) and w1, w3 (D, F) of ``dtype``: ``STREAM``
+    for at most 16 rows (decode; either dtype), ``TENSOR_CORES`` for more
+    rows in bfloat16 when D and F are multiples of 8 (TMA's 16-byte
+    strides), ``SIMT`` otherwise (float32 at M > 16, where TF32 products
+    would miss the float32 tolerance)."""
+    if M <= STREAM_MAX_ROWS:
+        return STREAM
+    if dtype == torch.bfloat16 and D > 0 and D % 8 == 0 and F % 8 == 0:
+        return TENSOR_CORES
+    return SIMT
 
 
 def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
                       w3: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: ``x`` (M, D), ``w1`` and ``w3`` (D, F), all
-    float32 or all bfloat16, contiguous, on one CUDA device.  Returns a new
-    (M, F) tensor of ``x``'s dtype.  Raises ``ValueError`` on any other
-    input and ``RuntimeError`` when the launch is refused."""
+    """Launch the kernel on its :func:`route`: ``x`` (M, D), ``w1`` and
+    ``w3`` (D, F), all float32 or all bfloat16, contiguous, on one CUDA
+    device.  Returns a new (M, F) tensor of ``x``'s dtype.  Raises
+    ``ValueError`` on any other input and ``RuntimeError`` when the launch
+    is refused."""
     code, dev = _launch.check_operands("fused_swiglu", _NAMES, x, w1, w3)
     if x.dim() != 2 or w1.dim() != 2 or w1.shape[0] != x.shape[1] \
             or w3.shape != w1.shape:
@@ -44,7 +70,7 @@ def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
     out = torch.empty((M, F), dtype=x.dtype, device=x.device)
     _launch.launch("fused_swiglu", _ARGS, dev, x.data_ptr(),
                    w1.data_ptr(), w3.data_ptr(), out.data_ptr(), M, D, F,
-                   code)
+                   code, route(M, D, F, x.dtype))
     fused_swiglu_cuda.launches += 1
     return out
 

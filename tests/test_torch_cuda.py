@@ -1,10 +1,11 @@
 """``repro_torch`` on the card: the CUDA ``sim_alu`` kernel against its
 plain version, and the cycle loop on ``cuda`` against the CPU run; the
-language-model kernels (``rmsnorm``, ``fused_swiglu``, ``flash_attention``
-in float32 and in bfloat16 on tensor cores) against their plain versions,
-on the caller's stream, and smoke-width serving on ``cuda`` against the CPU
-run; the PCU kernel ``motif_pcu`` against its plain version, bit
-for bit in float32, and the ``ops`` dispatchers through the kernels.
+language-model kernels (``rmsnorm``, ``fused_swiglu`` on each of its three
+routes, ``flash_attention`` in float32 and in bfloat16 on tensor cores)
+against their plain versions, on the caller's stream, and smoke-width
+serving on ``cuda`` against the CPU run; the PCU kernel ``motif_pcu``
+against its plain version, bit for bit in float32, and the ``ops``
+dispatchers through the kernels.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -27,7 +28,8 @@ from repro_torch.sim.step import run_bucket
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda)
-from repro_torch.kernels import ops
+from repro_torch.kernels import _launch, ops
+from repro_torch.kernels import fused_swiglu as fs
 from repro_torch.kernels.fused_swiglu import fused_swiglu, fused_swiglu_cuda
 from repro_torch.kernels.motif_pcu import (FANIN, FANOUT, MAX_SLOTS, UNICAST,
                                            motif_pcu, motif_pcu_cuda,
@@ -150,6 +152,73 @@ def test_fused_swiglu_kernel_matches_plain(cuda, dtype, M, D, F):
     assert fused_swiglu_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == (M, F)
     _assert_close(got, ref.fused_swiglu(x, w1, w3), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [130, 136, 320, 520])
+@pytest.mark.parametrize("D", [72, 256, 1000])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 100, 129, 300])
+def test_fused_swiglu_routes_match_plain(cuda, M, D, F, dtype):
+    """Every route at ragged shapes: the stream route on both sides of its
+    row groups (1, 4, 16) with F = 130's scalar tail, the tensor-core
+    route across 128-row and 128-column tiles and 64-deep K steps (D = 72,
+    1000), the SIMT route for float32 past 16 rows and bf16 at F = 130."""
+    x = _randn((M, D), dtype, cuda, M + D)
+    w1, w3 = (_randn((D, F), dtype, cuda, F + i) for i in (1, 2))
+    want_route = (fs.STREAM if M <= 16 else
+                  fs.TENSOR_CORES if dtype == torch.bfloat16 and F != 130
+                  else fs.SIMT)
+    assert fs.route(M, D, F, dtype) == want_route
+    before = fused_swiglu_cuda.launches
+    got = fused_swiglu(x, w1, w3)
+    torch.cuda.synchronize()
+    assert fused_swiglu_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, F)
+    _assert_close(got, ref.fused_swiglu(x, w1, w3), dtype)
+
+
+def test_fused_swiglu_tensor_cores_one_tile(cuda):
+    """One 128 x 128 tile over one 64-deep stage: the wgmma descriptors and
+    the TMA swizzle on their own."""
+    x = _randn((128, 64), torch.bfloat16, cuda, 0)
+    w1, w3 = (_randn((64, 128), torch.bfloat16, cuda, i) for i in (1, 2))
+    assert fs.route(128, 64, 128, torch.bfloat16) == fs.TENSOR_CORES
+    _assert_close(fused_swiglu_cuda(x, w1, w3), ref.fused_swiglu(x, w1, w3),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,want_route", [(2000, fs.TENSOR_CORES),
+                                          (4, fs.STREAM)])
+def test_fused_swiglu_serve_shapes_within_one_ulp(cuda, M, want_route):
+    """The serve path's shapes, bf16, weights at 1/sqrt(D): the routes sum
+    in another order than the plain version, nothing more, so they agree
+    within one bf16 ulp (chip_smoke.py's PATH_TOL)."""
+    x = _randn((M, 3072), torch.bfloat16, cuda, 3)
+    w1, w3 = (_randn((3072, 8192), torch.bfloat16, cuda, i) * 3072 ** -0.5
+              for i in (4, 5))
+    assert fs.route(M, 3072, 8192, torch.bfloat16) == want_route
+    torch.testing.assert_close(fused_swiglu_cuda(x, w1, w3).float(),
+                               ref.fused_swiglu(x, w1, w3).float(),
+                               rtol=1e-2, atol=5e-3)
+
+
+@pytest.mark.parametrize("M,D,F,dtype,route", [
+    (4, 64, 128, torch.float32, fs.TENSOR_CORES),    # float32
+    (32, 64, 130, torch.bfloat16, fs.TENSOR_CORES),  # F % 8
+    (32, 70, 128, torch.bfloat16, fs.TENSOR_CORES),  # D % 8
+    (17, 64, 128, torch.bfloat16, fs.STREAM),        # more than 16 rows
+    (4, 64, 128, torch.bfloat16, 3),                 # no such route
+])
+def test_fused_swiglu_entry_refuses_a_route_the_shape_cannot_take(
+        cuda, M, D, F, dtype, route):
+    x = torch.zeros((M, D), dtype=dtype, device=cuda)
+    w = torch.zeros((D, F), dtype=dtype, device=cuda)
+    out = torch.empty((M, F), dtype=dtype, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _launch.launch("fused_swiglu", fs._ARGS, x.get_device(),
+                       x.data_ptr(), w.data_ptr(), w.data_ptr(),
+                       out.data_ptr(), M, D, F,
+                       _launch.DTYPE_CODES[dtype], route)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

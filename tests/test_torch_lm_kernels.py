@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro_torch.kernels import fused_swiglu as fs
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda)
@@ -93,7 +94,11 @@ def test_flash_attention_matches_jax(H, S, d, kw):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ragged_shapes_match_jax_oracles(dtype):
     """M = 100 rows and S = 100 positions: no block of the Pallas kernels
-    divides them, the port's kernels mask the edge instead."""
+    divides them, the port's kernels mask the edge instead.  fused_swiglu
+    also at shapes that straddle the CUDA routes' tiles (1, 17 and 129
+    rows: both sides of the stream route's 16 and of a 128-row tensor-core
+    tile; F = 136 and 264 past 128-column tiles), where the Pallas kernel
+    in interpret mode runs one block of the whole shape."""
     rng = np.random.default_rng(7)
     (x, tx), (s, ts) = _pair(rng, (100, 96), dtype), _pair(rng, (96,), dtype)
     _close(rmsnorm(tx, ts), jax_ref.rmsnorm(x, s), **TOL[dtype])
@@ -101,6 +106,16 @@ def test_ragged_shapes_match_jax_oracles(dtype):
                                      [(100, 72), (72, 136), (72, 136)])
     _close(fused_swiglu(tx, tw1, tw3), jax_ref.fused_swiglu(x, w1, w3),
            **TOL[dtype])
+    for M in (1, 17, 129):
+        for F in (136, 264):
+            (x, tx), (w1, tw1), (w3, tw3) = (_pair(rng, sh, dtype) for sh in
+                                             [(M, 72), (72, F), (72, F)])
+            got = fused_swiglu(tx, tw1, tw3)
+            assert got.shape == (M, F) and got.dtype == TORCH_DT[dtype]
+            _close(got, jax_ref.fused_swiglu(x, w1, w3), **TOL[dtype])
+            _close(got, jax_ops.fused_swiglu(x, w1, w3, block_m=M,
+                                             block_f=F, block_k=72),
+                   **TOL[dtype])
     (q, tq), (k, tk), (v, tv) = (_pair(rng, (3, 100, 16), dtype)
                                  for _ in range(3))
     for kw in FLASH_KW:
@@ -119,6 +134,62 @@ def test_flash_attention_kv_group_is_repeated_heads(kw):
                                    jnp.repeat(v, 3, axis=0), **kw)
     _close(flash_attention(tq, tk, tv, kv_group=3, **kw), want,
            rtol=2e-4, atol=2e-3)
+
+
+ROUTES = [
+    # decode: at most 16 rows stream the weights, in either dtype
+    ((4, 3072, 8192), "float32", fs.STREAM),
+    ((4, 3072, 8192), "bfloat16", fs.STREAM),
+    ((16, 3072, 8192), "float32", fs.STREAM),
+    ((16, 3072, 8192), "bfloat16", fs.STREAM),
+    ((1, 72, 130), "bfloat16", fs.STREAM),
+    ((16, 1000, 130), "float32", fs.STREAM),
+    # prefill in bf16 with 16-byte strides: tensor cores
+    ((17, 3072, 8192), "bfloat16", fs.TENSOR_CORES),
+    ((2000, 3072, 8192), "bfloat16", fs.TENSOR_CORES),
+    ((129, 72, 136), "bfloat16", fs.TENSOR_CORES),
+    # float32 past 16 rows, and bf16 strides TMA cannot describe: SIMT
+    ((17, 3072, 8192), "float32", fs.SIMT),
+    ((2000, 3072, 8192), "float32", fs.SIMT),
+    ((100, 72, 130), "bfloat16", fs.SIMT),
+    ((100, 1000, 520), "float32", fs.SIMT),
+    ((300, 70, 136), "bfloat16", fs.SIMT),
+    ((17, 0, 136), "bfloat16", fs.SIMT),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,want", ROUTES,
+                         ids=[f"{s}-{d}" for s, d, _ in ROUTES])
+def test_fused_swiglu_route_by_shape_and_dtype(shape, dtype, want):
+    assert fs.route(*shape, TORCH_DT[dtype]) == want
+
+
+@pytest.mark.parametrize("shape,dtype,want", ROUTES[::3],
+                         ids=[f"{s}-{d}" for s, d, _ in ROUTES[::3]])
+def test_fused_swiglu_wrapper_passes_its_route(monkeypatch, shape, dtype,
+                                               want):
+    """What the wrapper hands the C entry: the pointers, M, D, F, the dtype
+    code and the route code, in ``_ARGS``' order; one launch counted."""
+    M, D, F = shape
+    x = torch.zeros((M, D), dtype=TORCH_DT[dtype])
+    w1, w3 = (torch.zeros((D, F), dtype=TORCH_DT[dtype]) for _ in range(2))
+    calls = []
+    monkeypatch.setattr(fs._launch, "check_operands",
+                        lambda *a: (fs._launch.DTYPE_CODES[x.dtype], 0))
+    monkeypatch.setattr(fs._launch, "launch",
+                        lambda name, argtypes, index, *args:
+                        calls.append((name, argtypes, index, args)))
+    before = fused_swiglu_cuda.launches
+    out = fused_swiglu_cuda(x, w1, w3)
+    assert fused_swiglu_cuda.launches == before + 1
+    (name, argtypes, index, args), = calls
+    assert (name, argtypes, index) == ("fused_swiglu", fs._ARGS, 0)
+    assert len(args) == len(fs._ARGS)
+    assert args[:4] == (x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+                        out.data_ptr())
+    assert args[4:] == (M, D, F, fs._launch.DTYPE_CODES[x.dtype], want)
+    assert out.shape == (M, F) and out.dtype == x.dtype
+    fused_swiglu_cuda.launches = before
 
 
 def test_wrappers_count_no_launch_on_the_cpu():
