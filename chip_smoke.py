@@ -7,40 +7,52 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``src/repro_torch/kernels/csrc/`` with ``nvcc``;
-2. kernel phase: each kernel against its plain PyTorch version on the
+2. kernel phase: sim_alu against its plain PyTorch version on the
    card, on every opcode, at (1,1), (7,129), the corpus bucket's (B,N) and
    (4096,4096) — results must be bitwise equal; kernel and plain times;
 3. path phase: ``python -m repro_torch verify`` over the whole TABLE2
    corpus on ``cuda`` (the main path, with the launch counters read just
-   around it).  Every artifact's verdict must equal the corpus manifest's
-   (the JAX package's own verdict), and the cycle loop's ``val``/``done``/
-   ``fail`` on the card must equal a CPU run of the port; then a
-   ``torch.profiler`` trace of one warm run (device busy share, top kernels);
-4. fail phase: a corrupted mapping (dropped route) must FAIL on the card
-   with the same reason as on the CPU;
+   around it): it launches ``sim_loop`` once per bucket in each of its cold
+   and warm runs and nothing else.  Every artifact's verdict must equal the
+   corpus manifest's (the JAX package's own verdict); the fused loop's
+   ``val``/``done``/``fail`` (one launch a run) must equal a CPU run of the
+   port, a second fused run and the eager loop on the card (the yardstick,
+   ``run_bucket_eager``, whose sim_alu launches, hmax, are read around it),
+   bit for bit; then each warm run's wall time and ``torch.profiler`` busy
+   share, fused and eager in turns, and sim_loop's own time, device time
+   per launch, byte bound and latency floor (the per-cycle time of one
+   node's dependent chain, timed on a one-node bucket, times hmax);
+4. fail phase: a corrupted mapping (dropped route) must FAIL through
+   ``sim_loop`` on the card with the same reason as on the CPU;
 5. LM kernel phase: ``rmsnorm``, ``fused_swiglu`` and ``flash_attention``
    against their plain versions on the card, in float32 and bfloat16 on
-   the shapes of ``tests/test_kernels.py`` (under its ``TOL``); the bf16
-   tensor-core flash kernel on every head dim in (32, 64, 80, 128), S in
-   (1, 17, 64, 65, 500), kv_group 1 and 3, causal, window 64 and full
-   (under ``TOL``); ``fused_swiglu`` on each of its three routes (stream,
-   tensor cores, SIMT) at 168 ragged shapes, M in (1, 4, 16, 17, 100, 129,
-   300), D in (72, 256, 1000), F in (130, 136, 320, 520), both dtypes
-   (under ``TOL``); and in bfloat16 at the serve path's shapes (under
-   ``PATH_TOL``, with rmsnorm's rows drawn at RMS from 0.1 to 10), with
-   kernel, plain, bound and library times there (kernel and library timed
-   in turns: kernel, library, kernel, library), fused_swiglu's route and
-   two cuBLAS yardsticks (``x @ w1``, and ``x @ [w1 | w3]``, the same
-   product work in one call); flash and SDPA at a 2000-token prefill; then
-   the host time of one ``rmsnorm_cuda`` call at (4, 3072), part by part;
-6. serve phase: ``python -m repro_torch.launch.serve --arch llama3_2_3b
-   --batch 4 --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width
-   (the second main path, with the launch counters read just around it):
-   tokens (4, 32), cache length 531, finite logits, exactly 57 x 32 rmsnorm,
-   28 x 32 fused_swiglu and 28 flash_attention launches; a ``torch.profiler``
-   trace of one decode step; then, in float32 at full width and depth, 4
-   teacher-forced decode steps against a full forward (``DECODE_TOL``), and
-   the card against the CPU at full width and 2 layers (``PARITY_TOL``);
+   the shapes of ``tests/test_kernels.py`` (under its ``TOL``), flash also
+   at head dims 160 and 256; the bf16 tensor-core flash kernel on every
+   head dim in (32, 64, 80, 128, 160, 192, 256), S in (1, 17, 64, 65, 500),
+   kv_group 1 and 3, causal, window 64 and full (under ``TOL``);
+   ``fused_swiglu`` on each of its three routes (stream, tensor cores,
+   SIMT) at 168 ragged shapes, M in (1, 4, 16, 17, 100, 129, 300), D in
+   (72, 256, 1000), F in (130, 136, 320, 520), both dtypes (under
+   ``TOL``), and on bf16 views 2 bytes past a 16-byte boundary at the
+   prefill shape (SIMT, under ``TOL``, timed beside the aligned tensor-core
+   call); and in bfloat16 at the serve
+   path's shapes of llama3_2_3b and stablelm_12b (under ``PATH_TOL``, with
+   rmsnorm's rows drawn at RMS from 0.1 to 10), with kernel, plain, bound
+   and library times there (kernel and library timed in turns: kernel,
+   library, kernel, library), fused_swiglu's route and two cuBLAS
+   yardsticks (``x @ w1``, and ``x @ [w1 | w3]``, the same product work in
+   one call); flash and SDPA at a 2000-token prefill; then the host time
+   of one ``rmsnorm_cuda`` call at (4, 3072), part by part;
+6. serve phase: ``python -m repro_torch.launch.serve --arch A --batch 4
+   --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width for A =
+   llama3_2_3b and stablelm_12b (the second main path, with the launch
+   counters read just around each run): tokens (4, 32), cache length 531,
+   finite logits, exactly (2 L + 1) x 32 rmsnorm, L x 32 fused_swiglu and
+   L flash_attention launches for L layers (1824 / 896 / 28 and 2592 /
+   1280 / 40); a ``torch.profiler`` trace of one decode step; for llama, in
+   float32 at full width and depth, 4 teacher-forced decode steps against a
+   full forward (``DECODE_TOL``); then for each model the card against the
+   CPU at full width and 2 layers (``PARITY_TOL``);
 7. motif phase: ``motif_pcu`` against its plain version on the card, bit
    for bit in float32 on FANIN, FANOUT and UNICAST (inputs mixing NaN,
    +-inf and +-0 in their first columns) and on three seeded random
@@ -82,6 +94,7 @@ SIM_ALU_BYTES_PER_ELEM = 24
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12
 SIM_ALU_SOURCE = "src/repro_torch/kernels/csrc/sim_alu.cu"
+SIM_LOOP_SOURCE = "src/repro_torch/kernels/csrc/sim_loop.cu"
 SIM_ALU_REPLACES = "src/repro/kernels/sim_alu.py:53"
 #: the serve path's kernels: the TPU kernel each replaces
 LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
@@ -89,7 +102,10 @@ LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
                "flash_attention": "src/repro/kernels/flash_attention.py:70"}
 MOTIF_SOURCE = "src/repro_torch/kernels/csrc/motif_pcu.cu"
 MOTIF_REPLACES = "src/repro/kernels/motif_pcu.py:38"
-KERNELS = ["sim_alu", *LM_REPLACES, "motif_pcu"]
+KERNELS = ["sim_alu", "sim_loop", *LM_REPLACES, "motif_pcu"]
+#: the head dims the bf16 tensor-core flash kernel is held at: each padded
+#: width (32, 64, 128, 160, 256) and two that pad (80, 192)
+FLASH_TC_DIMS = (32, 64, 80, 128, 160, 192, 256)
 #: the iteration counts the motif kernel is held at
 MOTIF_NS = (1, 256, 1000, 1024, 2048, 2 ** 24)
 #: timed calls of each ops-path row (after one checked and one warm call)
@@ -108,8 +124,13 @@ PATH_TOL = dict(rtol=1e-2, atol=5e-3)
 DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
 #: the card (kernels) against the CPU (plain versions), float32 logits
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
-SERVE_ARGV = ["--arch", "llama3_2_3b", "--batch", "4", "--prompt-len", "500",
-              "--new-tokens", "32", "--device", "cuda"]
+#: the served models at full width: (n_layers, d_model, n_heads, n_kv_heads,
+#: head_dim, d_ff, vocab) of each config, checked before the counts; each
+#: runs batch 4 x prompt 500 x 32 new tokens in bf16 from seed 0
+SERVED = {"llama3_2_3b": (28, 3072, 24, 8, 128, 8192, 128256),
+          "stablelm_12b": (40, 5120, 32, 8, 160, 13824, 100352)}
+SERVE_ARGS = ["--batch", "4", "--prompt-len", "500", "--new-tokens", "32",
+              "--device", "cuda"]
 
 
 class SmokeFailure(RuntimeError):
@@ -207,14 +228,111 @@ def kernel_phase(bucket_shape):
             "bound_by": by, "library_ms": None}
 
 
-def path_phase(mappings):
-    """The main path on the card; returns the sim_alu launch count."""
+def sim_loop_bytes(pb) -> int:
+    """The bytes the whole loop must move for this bucket's data: ``ii``
+    and ``horizon``; ``exec_mask`` and ``issue`` of every node (each cycle
+    tests them); ``opcode``, ``leaf`` and ``op_kind`` of each node that
+    executes, ``op_dist`` of its routed and broken operands, ``op_src`` and
+    the matched ``op_steps`` of its routed ones, ``op_feed`` of its feeds;
+    ``step_abs`` of every step and ``step_src`` of each real one; then
+    ``val``, ``done`` (node rows) and ``fail`` written once."""
     import numpy as np
+
+    from repro_torch.sim.lower import K_BROKEN, K_FEED, K_ROUTED
+    from repro_torch.sim.step import NEVER
+
+    B, N, K, M, S = pb.shape
+    ex = pb.exec_mask[:, :, None]
+    routed = int(((pb.op_kind == K_ROUTED) & ex).sum())
+    broken = int(((pb.op_kind == K_BROKEN) & ex).sum())
+    feed = int(((pb.op_kind == K_FEED) & ex).sum())
+    n_exec = int(pb.exec_mask.sum())
+    read = (8 * B + 5 * B * N + (8 + K) * n_exec + 4 * (routed + broken)
+            + routed * (4 + 4 * M) + 4 * feed + 4 * B * S
+            + 4 * int(np.sum(pb.step_abs < NEVER)))
+    return read + 5 * B * N * pb.iterations + B
+
+
+@contextlib.contextmanager
+def plain_alu():
+    """The eager loop with the plain ALU (``ref.sim_alu``) in place of the
+    sim_alu kernel while the block runs: the fused kernel's plain version
+    on the card."""
+    from repro_torch.kernels import ref
+    from repro_torch.sim import step
+
+    kernel_alu = step.sim_alu
+    step.sim_alu = ref.sim_alu
+    try:
+        yield
+    finally:
+        step.sim_alu = kernel_alu
+
+
+#: cycles of the latency probe's one-node bucket
+CHAIN_CYCLES = 4096
+
+
+def chain_statics(cycles: int):
+    """A one-mapping bucket whose one node runs every cycle (ii 1) for
+    ``cycles`` cycles, adding a feed to its own previous value, which it
+    reads back through one route step (M = 1): each cycle is the fused
+    kernel's whole dependent chain (gather, ALU, write, route step, three
+    barriers) and nothing else, with its statics hot in L1."""
+    import torch
+
+    from repro_torch.kernels.sim_loop import STATICS
+    from repro_torch.sim.lower import K_FEED, K_ROUTED
+
+    one = {"ii": [1], "horizon": [cycles], "opcode": [[5]],  # add
+           "exec_mask": [[True]], "issue": [[0]], "leaf": [[0.0]],
+           "op_kind": [[[K_ROUTED, K_FEED, 0]]], "op_src": [[[0, 1, 1]]],
+           "op_dist": [[[1, 0, 0]]], "op_feed": [[[0.0, 1.0, 0.0]]],
+           "op_steps": [[[[0], [1], [1]]]], "step_src": [[0]],
+           "step_abs": [[1]]}
+    return {name: torch.tensor(one[name], dtype=dtype, device="cuda")
+            for name, (dtype, _) in STATICS.items()}
+
+
+def chain_floor_us():
+    """Device time per cycle of the fused kernel's dependent chain alone
+    (:func:`chain_statics`), after checking the probe's values bit for
+    bit against the same float32 adds on the host; None when the profiler
+    misses it."""
+    import numpy as np
+
+    from repro_torch.kernels.sim_loop import sim_loop_cuda
+
+    statics = chain_statics(CHAIN_CYCLES)
+    val, done, fail = sim_loop_cuda(statics, CHAIN_CYCLES)
+    want = np.zeros(CHAIN_CYCLES, dtype=np.float32)
+    acc = np.float32(0.0)
+    for t in range(CHAIN_CYCLES):
+        acc = np.float32(acc + np.float32(np.float32(1.0) + np.float32(t)))
+        want[t] = acc
+    got = val[0, 0].cpu().numpy()
+    require(bool(done[0, 0].all()) and not bool(fail.any())
+            and np.array_equal(got, want),
+            "the latency probe's one-node bucket ran wrong")
+    dev = device_ms(lambda: sim_loop_cuda(statics, CHAIN_CYCLES), 10)
+    return None if dev is None else dev / CHAIN_CYCLES * 1e3
+
+
+def path_phase(mappings):
+    """The main path on the card: ``verify`` launches ``sim_loop`` once per
+    bucket and run; its state equals the CPU run and the eager loop on the
+    card (the yardstick, whose sim_alu launches are read here), bit for
+    bit.  Returns the sim_loop record minus ``launches``, and the
+    launches of the CLI run and of the eager run."""
+    import numpy as np
+    import torch
 
     from repro_torch import CORPUS_DIR
     from repro_torch.compiler.cli import main as cli_main
+    from repro_torch.kernels.sim_loop import sim_loop_cuda
     from repro_torch.sim.batch import prepare_batch
-    from repro_torch.sim.step import run_bucket
+    from repro_torch.sim.step import (_kernel_statics, run_bucket,
+                                      run_bucket_eager)
 
     with open(os.path.join(CORPUS_DIR, "MANIFEST.json")) as f:
         manifest = json.load(f)
@@ -224,9 +342,11 @@ def path_phase(mappings):
         rc = cli_main(["verify", CORPUS_DIR, "--device", "cuda"])
     launched = read_counts()
     text = buf.getvalue()
-    launches = launched["sim_alu"]
-    require(sum(launched.values()) == launches,
-            f"verify launched other kernels than sim_alu: {launched}")
+    want = dict.fromkeys(launched, 0)
+    want["sim_loop"] = 2  # one bucket, in the cold run and in the warm run
+    require(launched == want,
+            f"verify launched {launched}, want {want} (sim_loop once per "
+            "bucket in each of its cold and warm runs, nothing else)")
     require(rc == manifest["verify_exit_code"],
             f"verify exited {rc}, manifest says "
             f"{manifest['verify_exit_code']}; its output ends:\n"
@@ -237,15 +357,15 @@ def path_phase(mappings):
         if word in ("OK", "FAIL", "SKIP"):
             got[line[6:40].strip()] = (word, line[41:].strip())
     counts = {"OK": 0, "FAIL": 0, "SKIP": 0}
-    for fn, want in manifest["files"].items():
+    for fn, want_v in manifest["files"].items():
         label = fn[:-len(".json")].replace("__", "/")
         require(label in got, f"verify printed no verdict for {label}")
         word, detail = got[label]
-        require(word == want["verdict"],
-                f"{label}: {word} on the card, {want['verdict']} in the "
+        require(word == want_v["verdict"],
+                f"{label}: {word} on the card, {want_v['verdict']} in the "
                 f"manifest ({detail})")
         if word == "OK":
-            require(detail == f"{want['segments']} mapping(s) verified",
+            require(detail == f"{want_v['segments']} mapping(s) verified",
                     f"{label}: {detail}")
         counts[word] += 1
     require(len(got) == len(manifest["files"]),
@@ -257,80 +377,149 @@ def path_phase(mappings):
                              device=d) for d in ("cuda", "cpu")}
     pb = prep["cuda"].packed
     cpu = run_bucket(prep["cpu"].packed)
+    reset_counts()
     dev = run_bucket(pb)
-    t0 = time.perf_counter()
-    reps = 5
-    for _ in range(reps):
-        dev2 = run_bucket(pb)
-    per_cycle_ms = (time.perf_counter() - t0) / reps / pb.hmax * 1e3
-    for name, x, y, z in zip(("val", "done", "fail"), dev, cpu, dev2):
-        require(np.array_equal(x, y), f"{name} on the card differs from "
-                                      "the CPU run of the port")
-        require(np.array_equal(x, z), f"{name} differs between two runs "
-                                      "on the card")
+    one = read_counts()
+    require(one == {**dict.fromkeys(one, 0), "sim_loop": 1},
+            f"one run_bucket on the card launched {one}, want sim_loop once")
+    dev2 = run_bucket(pb)
+    reset_counts()
+    eager = run_bucket_eager(pb)
+    eager_counts = read_counts()
+    require(eager_counts == {**dict.fromkeys(eager_counts, 0),
+                             "sim_alu": pb.hmax},
+            f"the eager loop launched {eager_counts}, want sim_alu hmax = "
+            f"{pb.hmax} times")
+    for i, name in enumerate(("val", "done", "fail")):
+        for other, what in ((cpu, "the CPU run"), (dev2, "a second fused "
+                            "run"), (eager, "the eager loop on the card")):
+            require(np.array_equal(dev[i], other[i]) and
+                    dev[i].dtype == other[i].dtype,
+                    f"{name} of the fused kernel differs from {what}")
     require(bool(np.isfinite(dev[0]).all()), "non-finite values")
     B, N, K, M, S = pb.shape
     print(f"path: verify over {len(manifest['files'])} artifacts, "
           f"{len(mappings)} mappings; bucket (B,N,K,M,S)=({B},{N},{K},{M},"
           f"{S}), hmax {pb.hmax}; verdicts OK {counts['OK']} FAIL "
-          f"{counts['FAIL']} SKIP {counts['SKIP']} = manifest")
+          f"{counts['FAIL']} SKIP {counts['SKIP']} = manifest; launches "
+          f"{launched}")
     print(f"path: {summary[0]}")
-    print(f"path: val/done/fail on the card equal the CPU run; warm cycle "
-          f"loop {per_cycle_ms:.6f} ms/cycle ({pb.hmax} cycles); sim_alu "
-          f"launches {launches} (cold + warm run, 2 x hmax)")
-    profile_run(pb, per_cycle_ms * pb.hmax)
-    require(launches == 2 * pb.hmax,
-            f"sim_alu launched {launches} times, want 2 x hmax = "
-            f"{2 * pb.hmax}")
-    return launches
+    print(f"path: val/done/fail of the fused loop (sim_loop, 1 launch a run)"
+          f" equal the CPU run, a second fused run and the eager loop on the "
+          f"card (sim_alu launches {eager_counts['sim_alu']} = hmax), bit for "
+          f"bit (tolerance 0); "
+          f"{int(dev[1].sum())} values, {int(dev[2].sum())} read failures")
+
+    # the warm run of each loop, in turns: wall time, device busy share
+    loops = (("fused", lambda: run_bucket(pb), "sim_loop_kernel"),
+             ("eager", lambda: run_bucket_eager(pb), "sim_alu_kernel"))
+    for turn in range(2):
+        for name, run, kernel in loops:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = 20 if name == "fused" else 5
+            for _ in range(reps):
+                run()
+            wall_ms = (time.perf_counter() - t0) / reps * 1e3
+            profile_run(f"{name} loop, turn {turn + 1}", run, wall_ms,
+                        kernel, top=turn == 0)
+
+    statics = _kernel_statics(pb)
+    kern = lambda: sim_loop_cuda(statics, pb.iterations)  # noqa: E731
+    k_turns = [cuda_ms(kern, 200) for _ in range(2)]
+    k_devs = [device_ms(kern, 50) for _ in range(2)]
+    with plain_alu():
+        p_ms = cuda_ms(lambda: run_bucket_eager(pb), 3)
+    n_bytes = sim_loop_bytes(pb)
+    # per value produced: leaf + q, then one ALU operation (two for mac)
+    ops = int((dev[1] * (2 + (pb.opcode == 8))[:, :, None]).sum())
+    bound, by = _bound(n_bytes, ops, FP32_OPS_PER_S)
+    chain_us = chain_floor_us()
+    k_ms, k_dev = _mean(k_turns), _mean(k_devs)
+    per_cycle = "not measured" if k_dev is None else \
+        f"{k_dev / pb.hmax * 1e3:.3f} us"
+    share = "" if k_dev is None else \
+        f", {100 * bound / k_dev:.2f}% of the bound in device time"
+    if chain_us is None:
+        latency, floor_txt = None, "latency floor not measured"
+    else:
+        latency = pb.hmax * chain_us / 1e3
+        floor_txt = (f"latency floor {latency:.6f} ms (hmax {pb.hmax} x "
+                     f"{chain_us:.3f} us, one cycle of the dependent chain "
+                     f"alone, timed over {CHAIN_CYCLES} cycles of a one-node "
+                     "bucket)")
+        if k_dev is not None:
+            floor_txt += f", {100 * latency / k_dev:.2f}% of it in device time"
+    print(f"kernel sim_loop bucket ({B},{N},{K},{M},{S}) I "
+          f"{pb.iterations}: {k_ms:.6f} ms a launch (turns "
+          f"{_turns_txt(k_turns)}; {_device_txt(k_dev)}, turns "
+          f"{_turns_txt(k_devs)}; {per_cycle} of device time per simulated "
+          f"cycle over hmax {pb.hmax}), plain {p_ms:.6f} ms (the eager loop "
+          f"with ref.sim_alu, copies in and out included), bound "
+          f"{bound:.6f} ms ({by}: {n_bytes} bytes){share}; {floor_txt}; "
+          "library none (no PyTorch call runs a cycle loop); bitwise equal "
+          "(tolerance 0)")
+    err = float(np.abs(dev[0] - cpu[0]).max())
+    record = {"name": "sim_loop", "route": "cuda", "source": SIM_LOOP_SOURCE,
+              "replaces": SIM_ALU_REPLACES, "max_abs_err": err, "ms": k_ms,
+              "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound,
+              "bound_by": by, "latency_floor_ms": latency, "library_ms": None}
+    return record, launched, eager_counts
 
 
-def profile_run(pb, warm_ms: float) -> None:
-    """Where one warm run of the cycle loop spends device time
+def profile_run(label: str, run, wall_ms: float, kernel: str,
+                top: bool) -> None:
+    """Where one warm run of a cycle loop spends device time
     (``torch.profiler``): device busy time against the unprofiled warm
-    wall time, and the sim_alu kernel's own device time per launch."""
+    wall time ``wall_ms``, and ``kernel``'s own device time per launch;
+    with ``top``, the five largest kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.sim.step import run_bucket
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_bucket(pb)
+        run()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
-        print("profile: no device time in the trace (not measured)")
+        print(f"profile: {label}: warm run {wall_ms:.6f} ms wall; no device "
+              "time in the trace (not measured)")
         return
-    alu = [e for e in kernels if "sim_alu_kernel" in e.key]
-    alu_us = (sum(e.self_device_time_total for e in alu)
-              / max(sum(e.count for e in alu), 1))
-    print(f"profile: one warm run, device busy {busy_ms:.6f} ms of "
-          f"{warm_ms:.6f} ms wall ({100 * busy_ms / warm_ms:.2f}% busy); "
-          f"{sum(e.count for e in kernels)} kernels; sim_alu_kernel "
-          f"{alu_us:.3f} us/launch")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    for e in top:
-        print(f"profile:   {e.self_device_time_total / 1e3:9.6f} ms "
-              f"{e.count:5d}x {e.key[:90]}")
+    own = [e for e in kernels if kernel in e.key]
+    own_us = (sum(e.self_device_time_total for e in own)
+              / max(sum(e.count for e in own), 1))
+    print(f"profile: {label}: warm run {wall_ms:.6f} ms wall, device busy "
+          f"{busy_ms:.6f} ms ({100 * busy_ms / wall_ms:.2f}% busy); "
+          f"{sum(e.count for e in kernels)} kernels; {kernel} "
+          f"{own_us:.3f} us/launch")
+    if top:
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+            print(f"profile:   {e.self_device_time_total / 1e3:9.6f} ms "
+                  f"{e.count:5d}x {e.key[:90]}")
 
 
 def fail_phase(mappings):
+    """A dropped route FAILs through the fused kernel (one launch) with the
+    CPU run's reason."""
     from repro_torch.sim.batch import simulate_batch
 
     bad = copy.deepcopy(next(m for m in mappings if m.routes))
     bad.routes.pop(next(iter(bad.routes)))
+    reset_counts()
     v_dev = simulate_batch([bad], iterations=3, device="cuda")[0]
+    counts = read_counts()
     v_cpu = simulate_batch([bad], iterations=3, device="cpu")[0]
+    require(counts == {**dict.fromkeys(counts, 0), "sim_loop": 1},
+            f"the fail run launched {counts}, want sim_loop once")
     require(not v_dev.ok and "not present at read time" in v_dev.reason,
             f"dropped route not caught on the card: {v_dev!r}")
     require((v_dev.ok, v_dev.reason) == (v_cpu.ok, v_cpu.reason),
             f"card {v_dev!r} vs CPU {v_cpu!r}")
-    print(f"fail: dropped route FAILs on the card as on the CPU: "
-          f"{v_dev.reason}")
+    print(f"fail: dropped route FAILs through sim_loop on the card as on the "
+          f"CPU: {v_dev.reason}")
 
 
 def _randn(shape, dtype, seed: int, scale=1.0):
@@ -391,14 +580,19 @@ def _bound(n_bytes: float, ops: float, ops_rate: float):
     return bounds[by], by
 
 
+#: the serve path's kernel shapes of each served model: d_model, d_ff,
+#: query heads over kv heads at batch 4, head dim
+LM_SHAPES = {"llama3_2_3b": (3072, 8192, 96, 32, 128),
+             "stablelm_12b": (5120, 13824, 128, 32, 160)}
+
+
 def lm_kernel_cases():
     """(name, label, kernel call, plain call, library call or None, bytes,
     operations, operations rate, cuBLAS yardsticks as (label, call) pairs,
-    fused_swiglu's route or None) at the serve path's shapes, bfloat16:
-    M = B*T = 2000 rows in prefill and 4 in decode, D = 3072, F = 8192,
-    96 = 4 x 24 query heads over 32 kv heads, S = 500, d = 128.  rmsnorm's
-    rows have RMS from 0.1 to 10, so a missing or misplaced normalization
-    shows."""
+    fused_swiglu's route or None) at the serve path's shapes of each model
+    of ``LM_SHAPES``, bfloat16: M = B*T = 2000 rows in prefill and 4 in
+    decode, S = 500; llama3_2_3b first.  rmsnorm's rows have RMS from 0.1
+    to 10, so a missing or misplaced normalization shows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -411,40 +605,43 @@ def lm_kernel_cases():
 
     bf = torch.bfloat16
     cases = []
-    for M in (2000, 4):
-        x = _randn((M, 3072), bf, 1, np.geomspace(0.1, 10.0, M)[:, None])
-        s = _randn((3072,), bf, 2)
+    for D, Ff, H, Hkv, d in LM_SHAPES.values():
+        for M in (2000, 4):
+            x = _randn((M, D), bf, 1, np.geomspace(0.1, 10.0, M)[:, None])
+            s = _randn((D,), bf, 2)
+            cases.append((
+                "rmsnorm", f"({M},{D})", lambda x=x, s=s: rmsnorm_cuda(x, s),
+                lambda x=x, s=s: ref.rmsnorm(x, s),
+                lambda x=x, s=s, D=D: F.rms_norm(x, (D,), s, 1e-6),
+                (2 * M * D + D) * 2, 4 * M * D, FP32_OPS_PER_S, (), None))
+        for M in (2000, 4):
+            x = _randn((M, D), bf, 3)
+            w1, w3 = (_randn((D, Ff), bf, i, D ** -0.5) for i in (4, 5))
+            w13 = torch.cat([w1, w3], dim=1)  # (D, 2F), yardstick only
+            cases.append((
+                "fused_swiglu", f"({M},{D})x({D},{Ff})",
+                lambda x=x, w1=w1, w3=w3: fused_swiglu_cuda(x, w1, w3),
+                lambda x=x, w1=w1, w3=w3: ref.fused_swiglu(x, w1, w3), None,
+                (M * D + 2 * D * Ff + M * Ff) * 2,
+                4 * M * D * Ff + 5 * M * Ff, BF16_OPS_PER_S,
+                (("x @ w1", lambda x=x, w1=w1: x @ w1),
+                 ("x @ [w1 | w3]", lambda x=x, w13=w13: x @ w13)),
+                ROUTE_NAMES[route(M, D, Ff, bf)]))
+        S, g = 500, H // Hkv
+        q = _randn((H, S, d), bf, 6)
+        k, v = (_randn((Hkv, S, d), bf, i) for i in (7, 8))
+        pairs = H * S * (S + 1) // 2  # live (q, k) pairs of the causal band
         cases.append((
-            "rmsnorm", f"({M},3072)", lambda x=x, s=s: rmsnorm_cuda(x, s),
-            lambda x=x, s=s: ref.rmsnorm(x, s),
-            lambda x=x, s=s: F.rms_norm(x, (3072,), s, 1e-6),
-            (2 * M * 3072 + 3072) * 2, 4 * M * 3072, FP32_OPS_PER_S, (),
-            None))
-    for M in (2000, 4):
-        x = _randn((M, 3072), bf, 3)
-        w1, w3 = (_randn((3072, 8192), bf, i, 3072 ** -0.5) for i in (4, 5))
-        w13 = torch.cat([w1, w3], dim=1)  # (3072, 16384), yardstick only
-        cases.append((
-            "fused_swiglu", f"({M},3072)x(3072,8192)",
-            lambda x=x, w1=w1, w3=w3: fused_swiglu_cuda(x, w1, w3),
-            lambda x=x, w1=w1, w3=w3: ref.fused_swiglu(x, w1, w3), None,
-            (M * 3072 + 2 * 3072 * 8192 + M * 8192) * 2,
-            4 * M * 3072 * 8192 + 5 * M * 8192, BF16_OPS_PER_S,
-            (("x @ w1", lambda x=x, w1=w1: x @ w1),
-             ("x @ [w1 | w3]", lambda x=x, w13=w13: x @ w13)),
-            ROUTE_NAMES[route(M, 3072, 8192, bf)]))
-    H, S, d, g = 96, 500, 128, 3
-    q = _randn((H, S, d), bf, 6)
-    k, v = (_randn((H // g, S, d), bf, i) for i in (7, 8))
-    pairs = H * S * (S + 1) // 2  # live (q, k) pairs of the causal band
-    cases.append((
-        "flash_attention", f"({H},{S},{d}) causal kv_group {g}",
-        lambda: flash_attention_cuda(q, k, v, causal=True, kv_group=g),
-        lambda: ref.flash_attention(q, k, v, causal=True, kv_group=g),
-        lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0],
-        (2 * H + 2 * H // g) * S * d * 2, 4 * d * pairs, BF16_OPS_PER_S,
-        (), None))
+            "flash_attention", f"({H},{S},{d}) causal kv_group {g}",
+            lambda q=q, k=k, v=v, g=g: flash_attention_cuda(
+                q, k, v, causal=True, kv_group=g),
+            lambda q=q, k=k, v=v, g=g: ref.flash_attention(
+                q, k, v, causal=True, kv_group=g),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True,
+                enable_gqa=True)[0],
+            (2 * H + 2 * Hkv) * S * d * 2, 4 * d * pairs, BF16_OPS_PER_S,
+            (), None))
     return cases
 
 
@@ -472,7 +669,8 @@ def lm_kernel_phase():
             _close(f"fused_swiglu {dtype} ({M},{D},{F})",
                    fused_swiglu_cuda(x, w1, w3), ref.fused_swiglu(x, w1, w3),
                    TOL[dtype])
-        for H, S, d in [(2, 128, 64), (1, 256, 32)]:
+        for H, S, d in [(2, 128, 64), (1, 256, 32), (2, 128, 160),
+                        (1, 100, 256)]:
             q, k, v = (_randn((H, S, d), dt, i) for i in (15, 16, 17))
             for kw in (dict(causal=True), dict(causal=True, window=64),
                        dict(causal=False)):
@@ -481,8 +679,8 @@ def lm_kernel_phase():
                        ref.flash_attention(q, k, v, **kw), TOL[dtype])
         print(f"kernel rmsnorm, fused_swiglu, flash_attention {dtype}: equal "
               f"to plain on tests/test_kernels.py's shapes and the three "
-              f"flash cases (rtol {TOL[dtype]['rtol']} atol "
-              f"{TOL[dtype]['atol']})")
+              f"flash cases, with flash also at d = 160 and 256 (rtol "
+              f"{TOL[dtype]['rtol']} atol {TOL[dtype]['atol']})")
     flash_tc_checks()
     swiglu_route_checks()
 
@@ -579,6 +777,85 @@ def swiglu_route_checks() -> None:
               f"(M 1-300, D 72/256/1000, F 130/136/320/520) equal to plain "
               f"within rtol {TOL[dtype]['rtol']} atol {TOL[dtype]['atol']} "
               f"({w:.3f} of it at most)")
+    swiglu_misaligned_checks()
+
+
+def _offset_view(shape, seed: int, scale=1.0):
+    """A contiguous bf16 (M, N) tensor one element past a fresh allocation:
+    its data pointer is 2 bytes past a 16-byte boundary."""
+    import torch
+
+    M, N = shape
+    t = torch.empty(M * N + 1, dtype=torch.bfloat16, device="cuda")[1:]
+    t = t.view(M, N)
+    t.copy_(_randn(shape, torch.bfloat16, seed, scale))
+    require(t.is_contiguous() and t.data_ptr() % 16 == 2,
+            f"offset view at {t.data_ptr() % 16} bytes past 16")
+    return t
+
+
+def swiglu_misaligned_checks() -> None:
+    """bf16 fused_swiglu on views that start 2 bytes past a 16-byte
+    boundary, at the prefill shape (2000,3072)x(3072,8192), which the
+    tensor-core route would take if aligned: x alone offset, then x, w1
+    and w3; each takes the SIMT route and agrees with its plain version
+    under ``TOL``.  The count of outputs that differ from the plain version
+    and from a float64-summed reference is printed (bf16 products are
+    exact in float32, so a kernel that sums in cuBLAS's k order may agree
+    with it bit for bit), and the SIMT call is timed in turns with the
+    aligned tensor-core call."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_swiglu import (ROUTE_NAMES, SIMT,
+                                                  TENSOR_CORES,
+                                                  fused_swiglu_cuda, route)
+
+    M, D, F = 2000, 3072, 8192
+    bf = torch.bfloat16
+    require(route(M, D, F, bf) == TENSOR_CORES,
+            "the aligned prefill shape does not take the tensor cores")
+    aligned = (_randn((D, F), bf, 61, D ** -0.5),
+               _randn((D, F), bf, 62, D ** -0.5))
+    offset = (_offset_view((D, F), 61, D ** -0.5),
+              _offset_view((D, F), 62, D ** -0.5))
+    x = _offset_view((M, D), 60)
+    for label, (w1, w3) in (("x", aligned), ("x, w1 and w3", offset)):
+        ptrs = (x.data_ptr(), w1.data_ptr(), w3.data_ptr())
+        name = ROUTE_NAMES[route(M, D, F, bf, aligned=not any(
+            p % 16 for p in ptrs))]
+        require(name == ROUTE_NAMES[SIMT],
+                f"misaligned {label} routed to {name}")
+        before = fused_swiglu_cuda.launches
+        got = fused_swiglu_cuda(x, w1, w3)
+        require(fused_swiglu_cuda.launches == before + 1,
+                "fused_swiglu_cuda did not count its launch")
+        want = ref.fused_swiglu(x, w1, w3)
+        require(got.data_ptr() != want.data_ptr(),
+                "the kernel's output and the plain version's are one tensor")
+        err, share = _close(f"fused_swiglu bf16 ({M},{D},{F}) misaligned "
+                            f"{label}", got, want, TOL["bfloat16"])
+        x64 = x.double()
+        wide = (torch.nn.functional.silu(x64 @ w1.double())
+                * (x64 @ w3.double())).to(bf)
+        n_plain = int((got != want).sum())
+        n_wide = int((got != wide).sum())
+        del wide, x64
+        print(f"kernel fused_swiglu bf16 ({M},{D})x({D},{F}) with {label} 2 "
+              f"bytes past 16-byte boundaries: route {name}, equal to plain "
+              f"within rtol {TOL['bfloat16']['rtol']} atol "
+              f"{TOL['bfloat16']['atol']} ({share:.3f} of it; max abs err "
+              f"{err:.6g}; {n_plain} of {got.numel()} outputs differ from "
+              f"plain, {n_wide} from the float64-summed reference)")
+    xa = _randn((M, D), bf, 60)
+    aligned_x = lambda: fused_swiglu_cuda(xa, *aligned)  # noqa: E731
+    misaligned = lambda: fused_swiglu_cuda(x, *offset)  # noqa: E731
+    turns = [(cuda_ms(misaligned, 3), cuda_ms(aligned_x, 3))
+             for _ in range(2)]
+    print(f"kernel fused_swiglu bf16 ({M},{D})x({D},{F}): SIMT on the "
+          f"misaligned views {_turns_txt([t[0] for t in turns])} ms, tensor "
+          f"cores on aligned copies {_turns_txt([t[1] for t in turns])} ms "
+          "(turns)")
 
 
 def flash_long_prefill() -> None:
@@ -638,9 +915,9 @@ def _turns_txt(values) -> str:
 
 def flash_tc_checks() -> None:
     """The bf16 tensor-core flash kernel against its plain version on every
-    head dim it pads (32, 64, 80 -> 128, 128), on ragged and one-row
-    sequences, with and without grouped kv heads and in every mask mode,
-    under ``TOL``; one launch per call."""
+    head dim it pads (32, 64, 80 -> 128, 128, 160, 192 -> 256, 256), on
+    ragged and one-row sequences, with and without grouped kv heads and in
+    every mask mode, under ``TOL``; one launch per call."""
     import torch
 
     from repro_torch.kernels import ref
@@ -648,7 +925,7 @@ def flash_tc_checks() -> None:
 
     bf = torch.bfloat16
     n, worst, path_worst = 0, 0.0, 0.0
-    for d in (32, 64, 80, 128):
+    for d in FLASH_TC_DIMS:
         for S in (1, 17, 64, 65, 500):
             for g in (1, 3):
                 H = 2 * g
@@ -671,8 +948,9 @@ def flash_tc_checks() -> None:
                         PATH_TOL["atol"] + PATH_TOL["rtol"]
                         * want.float().abs())).max().item())
                     n += 1
-    print(f"kernel flash_attention bf16 tensor cores: {n} cases (d 32, 64, "
-          f"80, 128; S 1, 17, 64, 65, 500; kv_group 1, 3; causal, window "
+    print(f"kernel flash_attention bf16 tensor cores: {n} cases (d "
+          f"{', '.join(map(str, FLASH_TC_DIMS))}; S 1, 17, 64, 65, 500; "
+          f"kv_group 1, 3; causal, window "
           f"64, full) equal to plain within rtol {TOL['bfloat16']['rtol']} "
           f"atol {TOL['bfloat16']['atol']} ({worst:.3f} of it at most; "
           f"{path_worst:.3f} of PATH_TOL, not held)")
@@ -734,8 +1012,10 @@ def kernel_entries():
     from repro_torch.kernels.motif_pcu import motif_pcu_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.sim_alu import sim_alu_cuda
+    from repro_torch.kernels.sim_loop import sim_loop_cuda
 
-    return {"sim_alu": sim_alu_cuda, "rmsnorm": rmsnorm_cuda,
+    return {"sim_alu": sim_alu_cuda, "sim_loop": sim_loop_cuda,
+            "rmsnorm": rmsnorm_cuda,
             "fused_swiglu": fused_swiglu_cuda,
             "flash_attention": flash_attention_cuda,
             "motif_pcu": motif_pcu_cuda}
@@ -771,9 +1051,11 @@ def teacher_forced(model, prompts, follow, steps: int):
     return torch.stack(dec, dim=1), full
 
 
-def serve_phase():
-    """The second main path: the serving launcher at full width on the
-    card; returns the launch counts of its run."""
+def serve_phase(arch: str, decode_check: bool):
+    """A serving run at full width on the card (the second main path, once
+    per model of ``SERVED``); returns the launch counts of its run.  With
+    ``decode_check``, 4 teacher-forced decode steps against a full forward
+    in float32 at full width and depth follow."""
     import torch
 
     from repro_torch.launch.serve import run as serve_run
@@ -783,26 +1065,30 @@ def serve_phase():
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        out = serve_run(SERVE_ARGV)
+        out = serve_run(["--arch", arch, *SERVE_ARGS])
     wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for line in buf.getvalue().splitlines():
         print(f"serve: {line}")
     cfg, info, tokens = out["cfg"], out["info"], out["tokens"]
-    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+    layers = cfg.n_layers
+    require((layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
              cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
-            == (28, 3072, 24, 8, 128, 8192, 128256),
-            f"not the full llama3_2_3b config: {cfg}")
+            == SERVED[arch], f"not the full {arch} config: {cfg}")
     require(tuple(tokens.shape) == (4, 32), f"tokens {tuple(tokens.shape)}")
     require(info["cache_length"] == 531,
             f"cache length {info['cache_length']}, want 500 + 31")
     require(info["logits_finite"], "non-finite logits")
-    want = {"sim_alu": 0, "rmsnorm": 57 * 32, "fused_swiglu": 28 * 32,
-            "flash_attention": 28, "motif_pcu": 0}
-    require(counts == want, f"launch counts {counts}, want {want}")
-    print(f"serve: full width ({sum(p.numel() for p in out['model'].parameters())}"
-          f" params, bf16); prefill {info['prefill_s'] * 1e3:.3f} ms, "
+    # per pass (1 prefill + 31 decode steps): ln1 + ln2 per layer and ln_f;
+    # one MLP per layer; flash_attention in the prefill only
+    want = dict.fromkeys(counts, 0)
+    want.update(rmsnorm=(2 * layers + 1) * 32, fused_swiglu=layers * 32,
+                flash_attention=layers)
+    require(counts == want, f"{arch} launch counts {counts}, want {want}")
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    print(f"serve: {arch} full width ({n_params} params, bf16); prefill "
+          f"{info['prefill_s'] * 1e3:.3f} ms, "
           f"decode {info['decode_s'] / info['decode_steps'] * 1e3:.3f} ms "
           f"per token; set-up {out['setup_s']:.3f} s; run {wall:.3f} s; "
           f"peak device memory {peak:.3f} GiB; launches {counts}")
@@ -813,16 +1099,18 @@ def serve_phase():
     profile_decode(model, cache, tokens[:, :1])
     del out, model, cache
     torch.cuda.empty_cache()
+    if not decode_check:
+        return counts
 
     # float32, where sum order is all that differs between the two routes
     model = zoo_init(cfg, torch.float32)
     dec, full = teacher_forced(model, prompts, tokens, 4)
-    err, share = _close("teacher-forced decode vs forward (f32, 28 layers)",
-                        dec, full, DECODE_TOL)
+    err, share = _close(f"teacher-forced decode vs forward (f32, {layers} "
+                        "layers)", dec, full, DECODE_TOL)
     print(f"serve: 4 teacher-forced decode steps equal the full forward in "
-          f"float32 at full width and 28 layers (rtol {DECODE_TOL['rtol']} "
-          f"atol {DECODE_TOL['atol']}); max abs diff {err:.6g}, "
-          f"{share:.3f} of the tolerance; logits up to "
+          f"float32 at full width and {layers} layers (rtol "
+          f"{DECODE_TOL['rtol']} atol {DECODE_TOL['atol']}); max abs diff "
+          f"{err:.6g}, {share:.3f} of the tolerance; logits up to "
           f"{full.abs().max().item():.6g}, mean |logit| "
           f"{full.abs().mean().item():.6g}")
     del model
@@ -880,7 +1168,7 @@ def profile_decode(model, cache, tok) -> None:
               f"{e.count:5d}x {e.key[:90]}")
 
 
-def parity_phase() -> None:
+def parity_phase(arch: str) -> None:
     """Full width, 2 layers, float32: the port on the card (kernels) against
     the port on the CPU (plain versions), same weights and prompts: prefill
     and 4 teacher-forced decode steps."""
@@ -889,7 +1177,7 @@ def parity_phase() -> None:
 
     from repro_torch.configs import get_config
 
-    cfg = get_config("llama3_2_3b").replace(n_layers=2)
+    cfg = get_config(arch).replace(n_layers=2)
     card = zoo_init(cfg, torch.float32)
     cpu = copy.deepcopy(card).to("cpu")
     rng = np.random.default_rng(SEED)
@@ -901,13 +1189,14 @@ def parity_phase() -> None:
     dec_c, full_c = teacher_forced(card, toks[:, :128].cuda(),
                                       toks[:, 128:].cuda(), 4)
     dec_h, full_h = teacher_forced(cpu, toks[:, :128], toks[:, 128:], 4)
-    err = max(_close(f"card vs CPU {what} (f32, full width, 2 layers)",
+    err = max(_close(f"card vs CPU {arch} {what} (f32, full width, 2 "
+                     "layers)",
                      g.cpu(), w, PARITY_TOL)[0]
               for what, g, w in (("prefill logits", got[0], want[0]),
                                  ("decode logits", dec_c, dec_h),
                                  ("forward logits", full_c, full_h)))
-    print(f"parity: full width, 2 layers, f32, batch 2, prompt 128, 4 "
-          f"teacher-forced steps: the card's kernels equal the CPU's plain "
+    print(f"parity: {arch} full width, 2 layers, f32, batch 2, prompt 128, "
+          f"4 teacher-forced steps: the card's kernels equal the CPU's plain "
           f"versions (rtol {PARITY_TOL['rtol']} atol {PARITY_TOL['atol']}); "
           f"max abs diff {err:.6g}")
     del card, cpu
@@ -1039,7 +1328,7 @@ def ops_phase() -> int:
     """The third main path: ``repro_torch.kernels.ops`` on ``cuda`` at the
     shapes of ``benchmarks/run.py``'s kernel rows, in float32.  Each row is
     called once and checked against its plain version, then timed over
-    ``OPS_REPS`` calls after a warm one; returns motif_pcu's launches."""
+    ``OPS_REPS`` calls after a warm one; returns the launch counts."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1085,7 +1374,7 @@ def ops_phase() -> int:
     want = {n: 0 for n in counts}
     want.update({name: OPS_REPS + 2 for name, _, _ in rows})
     require(counts == want, f"ops path launch counts {counts}, want {want}")
-    return counts["motif_pcu"]
+    return counts
 
 
 def build_all(root: str) -> None:
@@ -1104,7 +1393,8 @@ def build_all(root: str) -> None:
         print(f"build: {name} {secs:.3f} s ({os.path.relpath(lib, root)})")
         with open(f"{lib}.log") as f:
             for line in f.read().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
                     print(f"build: {line.strip()}")
 
 
@@ -1132,22 +1422,31 @@ def main() -> int:
     mappings = corpus_mappings()
     from repro_torch.sim.batch import prepare_batch
     pb = prepare_batch(mappings, iterations=3, device="cpu").packed
-    record = kernel_phase(pb.opcode.shape)
-    record["launches"] = path_phase(mappings)
+    alu = kernel_phase(pb.opcode.shape)
+    loop, verify, eager = path_phase(mappings)
+    loop["launches"] = verify["sim_loop"]
+    # sim_alu is off the verify path; it runs on the eager yardstick only
+    alu["launches"] = verify["sim_alu"]
+    alu["launches_by_path"] = {"verify": verify["sim_alu"],
+                               "eager yardstick": eager["sim_alu"]}
     fail_phase(mappings)
-    print(f"phase: verify path (sim_alu) {time.perf_counter() - t0:.3f} s")
+    print(f"phase: verify path (sim_loop; sim_alu on the eager yardstick) "
+          f"{time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
     records = lm_kernel_phase()
     print(f"phase: LM kernels {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    counts = serve_phase()
-    print(f"phase: serve path {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    parity_phase()
-    print(f"phase: card vs CPU parity {time.perf_counter() - t0:.3f} s")
-    for name, rec in records.items():
-        rec["launches"] = counts[name]
+    counts = {}
+    for arch in SERVED:
+        t0 = time.perf_counter()
+        counts[f"serve {arch}"] = serve_phase(
+            arch, decode_check=arch == "llama3_2_3b")
+        print(f"phase: serve path {arch} {time.perf_counter() - t0:.3f} s")
+    for arch in SERVED:
+        t0 = time.perf_counter()
+        parity_phase(arch)
+        print(f"phase: card vs CPU parity {arch} "
+              f"{time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
     motif = motif_phase()
@@ -1155,10 +1454,14 @@ def main() -> int:
     print(f"phase: motif kernel and Track-A tie "
           f"{time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    motif["launches"] = ops_phase()
+    counts["ops"] = ops_phase()
     print(f"phase: ops path {time.perf_counter() - t0:.3f} s")
+    motif["launches"] = counts["ops"]["motif_pcu"]
+    for name, rec in records.items():
+        rec["launches"] = counts["serve llama3_2_3b"][name]
+        rec["launches_by_path"] = {path: c[name] for path, c in counts.items()}
 
-    print(json.dumps({"kernels": [record, *records.values(), motif]}))
+    print(json.dumps({"kernels": [alu, loop, *records.values(), motif]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

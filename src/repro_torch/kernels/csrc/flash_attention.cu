@@ -16,17 +16,19 @@
 // Bound: bytes for short sequences.  At (96, 500, 128) bf16, causal, with
 // kv_group 3, the inputs and output are 32.8 MB (9.8 us over 3.35 TB/s)
 // against 6.2 GFLOP of live (q, k) pairs (6.3 us at the 989 TFLOP/s bf16
-// tensor-core peak).
+// tensor-core peak); at stablelm_12b's (128, 500, 160) with kv_group 4,
+// 51.2 MB (15.3 us) against 10.3 GFLOP (10.4 us).  Head dims run up to 256.
 //
 // Two paths, chosen by dtype:
 //
 // * bfloat16: tensor cores.  One block of 4 warps per (head, 64-row q
 //   tile); each warp owns 16 query rows.  The head dim is padded in shared
-//   memory to DP in {32, 64, 128} with zero columns (scores and outputs
-//   unchanged; columns >= d are never stored), and every row is padded by
-//   16 bytes so ldmatrix reads are free of bank conflicts.  The q tile is
-//   copied once with 16-byte cp.async; k and v run in 32-key tiles through
-//   two stages of cp.async, so tile j + 1 loads while tile j computes.
+//   memory to DP in {32, 64, 128, 160, 256} with zero columns (scores and
+//   outputs unchanged; columns >= d are never stored), and every row is
+//   padded by 16 bytes so ldmatrix reads are free of bank conflicts.  The
+//   q tile is copied once with 16-byte cp.async; k and v run in 32-key
+//   tiles through two stages of cp.async, so tile j + 1 loads while tile j
+//   computes.
 //   S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products
 //   accumulating in float32 (q and k fragments from ldmatrix, v from
 //   ldmatrix.trans); the mask and the online softmax stay in registers (a
@@ -37,16 +39,21 @@
 //   rather than held, so the kernel fits 128 registers and 4 blocks (16
 //   warps, 52 KB of shared memory each at DP = 128) share an SM: at these
 //   short sequences the kernel is bound by latency, and more warps in
-//   flight beat fewer, wider ones.  Rows past S load as zeros and their
-//   scores as -inf.  The q tiles with the most live k tiles are issued
+//   flight beat fewer, wider ones.  Above DP = 128 the output fragments
+//   alone are DP / 2 floats a thread (128 at DP = 256), so the kernel asks
+//   for 2 blocks per SM and up to 255 registers (99 KB of shared memory a
+//   block at DP = 256).  Rows past S load as zeros and their scores as
+//   -inf.  The q tiles with the most live k tiles are issued
 //   first (the causal tail).  The output tile is staged in the q tile's
 //   shared memory and stored with 16-byte writes.
 // * float32: the SIMT kernel, no tensor cores (they would round float32
 //   operands to TF32, about 3 decimal digits).  One block of 256 threads
 //   per (head, 64-row q tile); q (transposed), k (transposed), v and the
 //   probabilities live in dynamic shared memory as float32 (about 113 KB
-//   at d = 128); each thread owns 4 query rows x 4 key columns of a score
-//   tile and 4 rows x d/16 columns of the output, with columns interleaved
+//   at d = 128, 210 KB at d = 256); each thread owns 4 query rows x 4 key
+//   columns of a score tile and 4 rows x DJ columns of the output (DJ = 8
+//   up to d = 128, 16 up to d = 256: the kernel is instantiated for both,
+//   so a short head keeps its registers), with columns interleaved
 //   by 16 so shared-memory reads do not collide; a row's 16 threads sit in
 //   one half-warp, so its max and sum reduce with shuffles.
 //
@@ -65,11 +72,10 @@ namespace {
 
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // keys per tile
-constexpr int DMAX = 128;    // largest head dim
+constexpr int DMAX = 256;    // largest head dim
 constexpr int kThreads = 256;
 constexpr int RI = BQ / 16;  // rows per thread
 constexpr int CJ = BK / 16;  // score columns per thread
-constexpr int DJ = DMAX / 16;  // output columns per thread (at most)
 constexpr float NEG = -1e30f;
 
 // the SIMT kernel is instantiated for float32 only
@@ -85,7 +91,8 @@ size_t smem_bytes(int d) {
           (size_t)BQ * (BK + 1));
 }
 
-template <typename T>
+// DJ: output columns per thread, d <= 16 DJ
+template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int S,
@@ -225,7 +232,8 @@ constexpr int kTcWarps = 4;              // each owns 16 query rows
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcBQ = 16 * kTcWarps;      // query rows per block
 constexpr int kTcBK = 32;                 // keys per tile
-constexpr int kTcMinBlocks = 4;           // blocks per SM: <= 128 registers
+// blocks per SM: 4 (<= 128 registers) up to DP = 128, else 2 (<= 255)
+constexpr int tc_min_blocks(int dp) { return dp <= 128 ? 4 : 2; }
 constexpr int kPad = 8;  // bf16 of padding per shared row: 16 bytes
 
 // the q tile and two stages of k and of v, rows of DP + kPad bf16
@@ -309,7 +317,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kTcThreads, kTcMinBlocks)
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(DP))
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -490,17 +498,17 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, int DJ>
 int launch_simt(const void* q, const void* k, const void* v, void* out, int H,
                 int S, int d, int causal, int window, int kv_group,
                 float scale, cudaStream_t s) {
   const size_t bytes = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)flash_attention_kernel<T>,
+      (const void*)flash_attention_kernel<T, DJ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, (S + BQ - 1) / BQ);
-  flash_attention_kernel<T><<<grid, kThreads, bytes, s>>>(
+  flash_attention_kernel<T, DJ><<<grid, kThreads, bytes, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, S, d, causal, window,
       kv_group, scale);
   return (int)cudaGetLastError();
@@ -530,9 +538,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int H,
 
 // Launches on `stream` with `device` current; returns cudaGetLastError() (0
 // on success), or cudaErrorInvalidValue for a dtype code other than 0 or 1,
-// d outside [1, 128], a kv_group that does not divide H, or a grid the card
-// cannot take.  float32 runs the SIMT kernel, bfloat16 the tensor-core
-// kernel with the head dim padded to 32, 64 or 128.
+// d outside [1, 256], a kv_group that does not divide H, or a grid the card
+// cannot take.  float32 runs the SIMT kernel (8 or 16 output columns a
+// thread), bfloat16 the tensor-core kernel with the head dim padded to 32,
+// 64, 128, 160 or 256.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int H, int S,
                                       int d, int causal, int window,
@@ -545,15 +554,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   return on_device(device, [&] {
     if (dtype == 0)
-      return launch_simt<float>(q, k, v, out, H, S, d, causal, window,
-                                kv_group, scale, s);
+      return d <= 128 ? launch_simt<float, 8>(q, k, v, out, H, S, d, causal,
+                                              window, kv_group, scale, s)
+                      : launch_simt<float, 16>(q, k, v, out, H, S, d, causal,
+                                               window, kv_group, scale, s);
     if (d <= 32)
       return launch_tc<32>(q, k, v, out, H, S, d, causal, window, kv_group,
                            scale, s);
     if (d <= 64)
       return launch_tc<64>(q, k, v, out, H, S, d, causal, window, kv_group,
                            scale, s);
-    return launch_tc<128>(q, k, v, out, H, S, d, causal, window, kv_group,
+    if (d <= 128)
+      return launch_tc<128>(q, k, v, out, H, S, d, causal, window, kv_group,
+                            scale, s);
+    if (d <= 160)
+      return launch_tc<160>(q, k, v, out, H, S, d, causal, window, kv_group,
+                            scale, s);
+    return launch_tc<256>(q, k, v, out, H, S, d, causal, window, kv_group,
                           scale, s);
   });
 }

@@ -8,9 +8,10 @@
 // is applied in float32 before the one cast, as the reference does.  The
 // plain version is repro_torch.kernels.ref.fused_swiglu.
 //
-// The caller picks one of three routes by shape and dtype alone
-// (repro_torch/kernels/fused_swiglu.py::route); a route the shape cannot
-// take is refused with cudaErrorInvalidValue, never replaced by another.
+// The caller picks one of three routes by shape, dtype and the operands'
+// 16-byte alignment (repro_torch/kernels/fused_swiglu.py::route); a route
+// the call cannot take is refused with cudaErrorInvalidValue, never
+// replaced by another.
 //
 // 0. Stream route, decode: M <= 16 rows, float32 or bfloat16.  Bound by
 //    bytes: at (4, 3072) x (3072, 8192) bf16 the 100.7 MB of w1 and w3
@@ -38,7 +39,8 @@
 //    the library is built with --fmad=false.
 // 1. Tensor-core route, prefill: M > 16, bfloat16, D and F multiples of 8
 //    (TMA needs 16-byte strides), operands on 16-byte boundaries (any
-//    tensor PyTorch allocates).  Bound by operations: at (2000, 3072) x
+//    tensor PyTorch allocates; a view at an odd element offset goes to the
+//    SIMT route).  Bound by operations: at (2000, 3072) x
 //    (3072, 8192) the two products are 201 GFLOP, 0.204 ms at the 989
 //    TFLOP/s bf16 peak, against 0.044 ms for the 146 MB it moves.  A GEMM
 //    with two B operands and the gate as its epilogue.  A block of 384

@@ -16,21 +16,12 @@
 // traffic, and memory is the bound.  The TPU version's 8x128 padding is
 // gone: the kernel takes any element count.
 //
-// Semantics:
-// * opcodes outside [0, 20) give 0.0, as the where-ladder does;
-// * and/or/xor/not truncate to int32 with __float2int_rz (toward zero);
-//   not is ~a & 0xFFFF; shl/shr are a*2 and a/2; cmp is (float)(a > b);
-//   select is a != 0 ? b : c;
-// * mac is a*b + c with two roundings: the library is built with
-//   --fmad=false so nvcc does not contract it into an FMA, and the result
-//   equals the plain PyTorch version bit for bit.
-// Float-to-int conversion of NaN or of values outside int32 differs
-// between XLA, PyTorch on the CPU and CUDA; simulated values stay far
-// inside int32 (up to ~1e5), and the tests use in-range inputs.
+// Semantics: sim_alu.cuh, shared with the whole-loop kernel sim_loop.cu.
 
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
+#include "sim_alu.cuh"
 
 namespace {
 
@@ -43,40 +34,7 @@ __global__ void sim_alu_kernel(const int* __restrict__ opcode,
   const long long stride = (long long)blockDim.x * gridDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float x = a[i];
-    const float y = b[i];
-    const float z = c[i];
-    const float l = leaf[i];
-    float r;
-    switch (opcode[i]) {
-      case 0:   // const
-      case 1:   // input
-      case 2:   // load
-        r = l;
-        break;
-      case 3:   // store
-      case 4:   // output
-        r = x;
-        break;
-      case 5: r = x + y; break;                                   // add
-      case 6: r = x - y; break;                                   // sub
-      case 7: r = x * y; break;                                   // mul
-      case 8: r = x * y + z; break;                               // mac
-      case 9: r = x * 2.0f; break;                                // shl
-      case 10: r = x / 2.0f; break;                               // shr
-      case 11: r = (float)(__float2int_rz(x) & __float2int_rz(y)); break;
-      case 12: r = (float)(__float2int_rz(x) | __float2int_rz(y)); break;
-      case 13: r = (float)(__float2int_rz(x) ^ __float2int_rz(y)); break;
-      case 14: r = (float)(~__float2int_rz(x) & 0xFFFF); break;   // not
-      // min/max propagate NaN like torch.minimum/jnp.minimum (fminf would not)
-      case 15: r = (x != x || y != y) ? x + y : fminf(x, y); break;
-      case 16: r = (x != x || y != y) ? x + y : fmaxf(x, y); break;
-      case 17: r = fabsf(x); break;                               // abs
-      case 18: r = x > y ? 1.0f : 0.0f; break;                    // cmp
-      case 19: r = x != 0.0f ? y : z; break;                      // select
-      default: r = 0.0f; break;
-    }
-    out[i] = r;
+    out[i] = sim_alu_op(opcode[i], a[i], b[i], c[i], leaf[i]);
   }
 }
 

@@ -9,7 +9,8 @@ v hold ``H // kv_group`` heads and query head h reads kv head
 (``kv_group=1`` is the TPU kernel's function).  The source is
 ``csrc/flash_attention.cu`` (design and bound are documented there): a
 bfloat16 kernel on tensor cores (``mma.sync``, the head dim padded to 32,
-64 or 128 on chip) and a float32 kernel without them, chosen by dtype.
+64, 128, 160 or 256 on chip) and a float32 kernel without them, chosen by
+dtype.  Head dims run up to 256.
 
 :func:`flash_attention` is the wrapper the attention layer calls: a CPU
 tensor takes the plain version (:func:`repro_torch.kernels.ref.
@@ -26,7 +27,7 @@ import torch
 from repro_torch.kernels import _launch, ref
 
 #: the largest head dim the kernel takes
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 #: q, k, v, out, H, S, d, causal, window, kv_group, scale, dtype code (then
 #: the device and the stream)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
@@ -38,7 +39,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          kv_group: int = 1) -> torch.Tensor:
     """Launch the kernel: ``q`` (H, S, d), ``k`` and ``v`` (H // kv_group,
-    S, d) with d <= 128, all float32 or all bfloat16, contiguous, on one
+    S, d) with d <= 256, all float32 or all bfloat16, contiguous, on one
     CUDA device.  Returns a new (H, S, d) tensor of ``q``'s dtype.  Raises
     ``ValueError`` on any other input and ``RuntimeError`` when the launch
     is refused."""

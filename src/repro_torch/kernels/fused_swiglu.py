@@ -6,10 +6,10 @@ and the gate in float32, cast to the input type once.  The source is
 ``csrc/fused_swiglu.cu`` (design and bound are documented there): the
 products are the kernel's own, with no cuBLAS and no ``torch.matmul``.
 
-The kernel has three routes, picked by :func:`route` from the shape and
-dtype alone: a byte-bound stream for decode (``STREAM``, M <= 16), a
-``wgmma`` + TMA GEMM for bf16 prefill (``TENSOR_CORES``) and the SIMT
-kernel for the rest (``SIMT``).
+The kernel has three routes, picked by :func:`route` from the shape, the
+dtype and the operands' alignment: a byte-bound stream for decode
+(``STREAM``, M <= 16), a ``wgmma`` + TMA GEMM for bf16 prefill
+(``TENSOR_CORES``) and the SIMT kernel for the rest (``SIMT``).
 
 :func:`fused_swiglu` is the wrapper the MLP calls: a CPU tensor takes the
 plain version (:func:`repro_torch.kernels.ref.fused_swiglu`), a CUDA tensor
@@ -37,15 +37,21 @@ ROUTE_NAMES = {STREAM: "stream", TENSOR_CORES: "tensor cores", SIMT: "SIMT"}
 STREAM_MAX_ROWS = 16
 
 
-def route(M: int, D: int, F: int, dtype: torch.dtype) -> int:
+def route(M: int, D: int, F: int, dtype: torch.dtype,
+          aligned: bool = True) -> int:
     """The route for x (M, D) and w1, w3 (D, F) of ``dtype``: ``STREAM``
     for at most 16 rows (decode; either dtype), ``TENSOR_CORES`` for more
     rows in bfloat16 when D and F are multiples of 8 (TMA's 16-byte
-    strides), ``SIMT`` otherwise (float32 at M > 16, where TF32 products
-    would miss the float32 tolerance)."""
+    strides) and ``aligned``, ``SIMT`` otherwise (float32 at M > 16, where
+    TF32 products would miss the float32 tolerance, and bf16 that TMA
+    cannot describe).  ``aligned``: whether x, w1, w3 and the output all
+    start on 16-byte boundaries, as TMA needs (a view at an odd element
+    offset does not; the output, which the wrapper allocates, always
+    does)."""
     if M <= STREAM_MAX_ROWS:
         return STREAM
-    if dtype == torch.bfloat16 and D > 0 and D % 8 == 0 and F % 8 == 0:
+    if dtype == torch.bfloat16 and D > 0 and D % 8 == 0 and F % 8 == 0 \
+            and aligned:
         return TENSOR_CORES
     return SIMT
 
@@ -68,9 +74,10 @@ def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"fused_swiglu: a dimension of {(M, D, F)} "
                          "exceeds int32")
     out = torch.empty((M, F), dtype=x.dtype, device=x.device)
-    _launch.launch("fused_swiglu", _ARGS, dev, x.data_ptr(),
-                   w1.data_ptr(), w3.data_ptr(), out.data_ptr(), M, D, F,
-                   code, route(M, D, F, x.dtype))
+    ptrs = (x.data_ptr(), w1.data_ptr(), w3.data_ptr(), out.data_ptr())
+    aligned = (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0
+    _launch.launch("fused_swiglu", _ARGS, dev, *ptrs, M, D, F, code,
+                   route(M, D, F, x.dtype, aligned))
     fused_swiglu_cuda.launches += 1
     return out
 

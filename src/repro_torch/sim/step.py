@@ -22,11 +22,16 @@ gated on the producer's value existing (it sees phase 1's writes).  This
 is the scalar oracle's two-phase loop, vectorized over batch x nodes x
 steps.
 
-The ALU stage is :func:`repro_torch.kernels.sim_alu.sim_alu`: the CUDA
-kernel on a CUDA device, the plain version on the CPU.  Every other step
-is eager PyTorch: about seventy small launches per cycle plus the kernel's
-one, so the loop is bound by host dispatch (``PERF.md``); fusing them is
-later work.
+On a CUDA device the whole loop is one kernel launch,
+:func:`repro_torch.kernels.sim_loop.sim_loop_cuda`: one block per mapping
+runs every cycle of it, with block barriers where the eager loop has
+implicit ones, and gives back the same state bit for bit.  On the CPU the
+loop runs eagerly (:func:`run_bucket_eager`), its ALU stage through
+:func:`repro_torch.kernels.sim_alu.sim_alu`, which is the plain version
+there.  The eager loop also runs on the card when called explicitly, with
+the ``sim_alu`` kernel as its ALU: about seventy small launches per cycle
+plus the kernel's one, bound by host dispatch (``PERF.md``); it is the
+yardstick the fused kernel is held and timed against.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.sim_alu import sim_alu
+from repro_torch.kernels.sim_loop import STATICS, sim_loop_cuda
 from repro_torch.sim.lower import K_BROKEN, K_FEED, K_ROUTED
 
 #: step_abs padding: far enough out that no in-horizon cycle matches
@@ -176,12 +182,43 @@ def _cycle(s: Dict[str, object], t: int, val, done, avail, fail):
     return idx, widx
 
 
+def _kernel_statics(pb: PackedBucket) -> Dict[str, torch.Tensor]:
+    """The bucket's arrays in the dtypes of
+    :data:`repro_torch.kernels.sim_loop.STATICS`, on ``pb.device`` (float64
+    rounds to float32 on the host, to nearest, as the eager loop's cast
+    does on the device)."""
+    return {name: torch.as_tensor(getattr(pb, name)).to(dtype).contiguous()
+            .to(pb.device) for name, (dtype, _) in STATICS.items()}
+
+
+def _result(pb: PackedBucket, val, done, fail):
+    """``(val (B,N,I) f64, done, fail)`` as numpy from the flat state."""
+    B, N, K, M, S = pb.shape
+    I = pb.iterations
+    val = val.view(B, N + 2, I)[:, :N, :]
+    done = done.view(B, N + 2, I)[:, :N, :]
+    return (val.cpu().numpy().astype(np.float64), done.cpu().numpy(),
+            fail.cpu().numpy())
+
+
 def run_bucket(pb: PackedBucket):
-    """Run every cycle of the bucket on ``pb.device``.  Returns
-    ``(val (B,N,I) f64, done (B,N,I) bool, fail (B,) bool)`` as numpy;
-    ``val`` is float32 widened to float64 (compare under ``F32_TOL``) and
-    ``fail`` marks read failures only (the final comparison against the
-    reference is the caller's)."""
+    """Run every cycle of the bucket on ``pb.device``: one launch of the
+    ``sim_loop`` kernel on a CUDA device, the eager loop on the CPU.
+    Returns ``(val (B,N,I) f64, done (B,N,I) bool, fail (B,) bool)`` as
+    numpy; ``val`` is float32 widened to float64 (compare under
+    ``F32_TOL``) and ``fail`` marks read failures only (the final
+    comparison against the reference is the caller's)."""
+    if pb.device.type == "cpu":
+        return run_bucket_eager(pb)
+    val, done, fail = sim_loop_cuda(_kernel_statics(pb), pb.iterations)
+    return _result(pb, val, done, fail)
+
+
+def run_bucket_eager(pb: PackedBucket):
+    """The eager cycle loop on ``pb.device``, ``pb.hmax`` cycles of small
+    tensor ops with :func:`~repro_torch.kernels.sim_alu.sim_alu` as the ALU
+    stage (the plain version on the CPU, the kernel on a card).  Returns
+    what :func:`run_bucket` returns."""
     B, N, K, M, S = pb.shape
     I = pb.iterations
     dev = pb.device
@@ -192,7 +229,4 @@ def run_bucket(pb: PackedBucket):
     fail = torch.zeros(B, dtype=torch.bool, device=dev)
     for t in range(pb.hmax):
         _cycle(s, t, val, done, avail, fail)
-    val = val.view(B, N + 2, I)[:, :N, :]
-    done = done.view(B, N + 2, I)[:, :N, :]
-    return (val.cpu().numpy().astype(np.float64), done.cpu().numpy(),
-            fail.cpu().numpy())
+    return _result(pb, val, done, fail)

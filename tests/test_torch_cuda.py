@@ -1,8 +1,11 @@
 """``repro_torch`` on the card: the CUDA ``sim_alu`` kernel against its
-plain version, and the cycle loop on ``cuda`` against the CPU run; the
+plain version; the whole cycle loop (``sim_loop``, one launch a bucket, its
+state in shared memory or, for a bucket too large for it, in global
+memory) against the CPU run and the eager loop on the card, bit for bit; the
 language-model kernels (``rmsnorm``, ``fused_swiglu`` on each of its three
-routes, ``flash_attention`` in float32 and in bfloat16 on tensor cores)
-against their plain versions, on the caller's stream, and smoke-width
+routes, misaligned bf16 included; ``flash_attention`` in float32 and in
+bfloat16 on tensor cores, head dims up to 256) against their plain
+versions, on the caller's stream, and smoke-width
 serving on ``cuda`` against the CPU run; the PCU kernel ``motif_pcu``
 against its plain version, bit for bit in float32, and the ``ops``
 dispatchers through the kernels.
@@ -24,7 +27,8 @@ from repro_torch.compiler.artifact import CompileResult
 from repro_torch.kernels import ref
 from repro_torch.kernels.sim_alu import sim_alu, sim_alu_cuda
 from repro_torch.sim.batch import prepare_batch, simulate_batch
-from repro_torch.sim.step import run_bucket
+from repro_torch.kernels.sim_loop import sim_loop_cuda, state_in_shared
+from repro_torch.sim.step import PackedBucket, run_bucket, run_bucket_eager
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda)
@@ -106,6 +110,94 @@ def test_verdicts_on_card_equal_cpu(cuda):
     assert [(v.ok, v.reason) for v in on_card] == \
         [(v.ok, v.reason) for v in on_cpu]
     assert not on_card[-1].ok and all(v.ok for v in on_card[:-1])
+
+
+def _corpus_and_corrupted():
+    """Every mapping of the TABLE2 corpus, then corrupted copies of four:
+    a dropped route, a node placed on no real site, a node issued a cycle
+    late."""
+    from repro_torch.compiler.cli import _gather_artifacts
+
+    ms = [m for _, art in _gather_artifacts([CORPUS_DIR]) if art.mappings
+          for m in art.rebuild_mappings()]
+    bad = []
+    for m in [m for m in ms if m.routes][:4]:
+        dropped = copy.deepcopy(m)
+        dropped.routes.pop(next(iter(dropped.routes)))
+        foreign = copy.deepcopy(m)
+        foreign.place[99999] = 0
+        shifted = copy.deepcopy(m)
+        shifted.time[next(iter(shifted.time))] += 1
+        bad += [dropped, foreign, shifted]
+    return ms + bad
+
+
+def _assert_loops_equal(pb_cuda, pb_cpu):
+    """The fused loop (one launch) equals the CPU run, the eager loop on
+    the card (hmax sim_alu launches) and a second fused run, bit for bit."""
+    before = (sim_loop_cuda.launches, sim_alu_cuda.launches)
+    fused = run_bucket(pb_cuda)
+    assert (sim_loop_cuda.launches, sim_alu_cuda.launches) == \
+        (before[0] + 1, before[1])
+    eager = run_bucket_eager(pb_cuda)
+    assert sim_alu_cuda.launches == before[1] + pb_cuda.hmax
+    for other in (run_bucket(pb_cpu), eager, run_bucket(pb_cuda)):
+        for x, y in zip(fused, other):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    return fused
+
+
+def test_fused_loop_equals_cpu_and_eager_on_the_corpus(cuda):
+    ms = _corpus_and_corrupted()
+    pb = prepare_batch(ms, iterations=3, device=cuda).packed
+    _, N, _, _, S = pb.shape
+    assert state_in_shared(N, S, pb.iterations, torch.cuda.current_device())
+    fused = _assert_loops_equal(
+        pb, prepare_batch(ms, iterations=3, device="cpu").packed)
+    assert fused[2].any() and fused[1].any()  # failures and values both
+
+
+def _padded(pb, n_nodes: int):
+    """``pb`` with its node rows padded to ``n_nodes`` by nodes that never
+    execute (the sentinel row moves to ``n_nodes``)."""
+    B, N, K, M, S = pb.shape
+    pad = n_nodes - N
+    fields = {}
+    for f in ("opcode", "exec_mask", "issue", "compare", "leaf", "ref",
+              "op_kind", "op_src", "op_dist", "op_feed", "op_steps"):
+        a = getattr(pb, f)
+        fill = {"op_src": n_nodes, "op_steps": S}.get(f, 0)
+        extra = np.full((B, pad) + a.shape[2:], fill, dtype=a.dtype)
+        if f == "op_src":
+            a = np.where(a == N, n_nodes, a)
+        fields[f] = np.concatenate([a, extra], axis=1)
+    step_src = np.where(pb.step_src == N, n_nodes, pb.step_src)
+    return PackedBucket(iterations=pb.iterations, hmax=pb.hmax, ii=pb.ii,
+                        horizon=pb.horizon, step_src=step_src,
+                        step_abs=pb.step_abs, device=pb.device, **fields)
+
+
+def test_fused_loop_keeps_a_large_state_in_global_memory(cuda):
+    """A bucket whose state per mapping ((N + 2) I 5 + (S + 2) I bytes,
+    plus 8 N staged) exceeds the card's opt-in shared memory runs the
+    global-memory variant, with the same state as the CPU and the eager
+    loop."""
+    ms = _mappings()
+    bad = copy.deepcopy(ms[0])
+    bad.routes.pop(next(iter(bad.routes)))
+    ms.append(bad)
+    N = 16384
+    big = [_padded(prepare_batch(ms, iterations=3, device=d).packed, N)
+           for d in (cuda, "cpu")]
+    _, _, _, _, S = big[0].shape
+    I = big[0].iterations
+    optin = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert (N + 2) * I * 5 + (S + 2) * I + 8 * N > optin
+    assert not state_in_shared(N, S, I, torch.cuda.current_device())
+    fused = _assert_loops_equal(*big)
+    assert fused[2][-1] and not fused[2][:-1].any()
 
 
 @pytest.fixture(autouse=True)
@@ -259,6 +351,99 @@ def test_flash_attention_tensor_cores_match_plain(cuda, d, S, g, kw):
     assert flash_attention_cuda.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (H, S, d)
     _assert_close(got, ref.flash_attention(q, k, v, kv_group=g, **kw),
+                  torch.bfloat16)
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels a call of ``fn()`` launches
+    (``torch.profiler``; called up to three times, since a trace can come
+    back empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            return names
+    raise AssertionError("three traces without a kernel")
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 160, "flash_attention_tc_kernel<160>"),
+    (torch.bfloat16, 192, "flash_attention_tc_kernel<256>"),
+    (torch.bfloat16, 256, "flash_attention_tc_kernel<256>"),
+    (torch.float32, 160, "flash_attention_kernel<float, 16>"),
+    (torch.float32, 192, "flash_attention_kernel<float, 16>"),
+    (torch.float32, 256, "flash_attention_kernel<float, 16>"),
+])
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=64),
+                                dict(causal=False)],
+                         ids=["causal", "window64", "full"])
+@pytest.mark.parametrize("S,g", [(100, 1), (500, 4)])
+def test_flash_attention_head_dims_to_256(cuda, dtype, d, kernel, kw, S, g):
+    """Head dims past 128 (stablelm_12b's 160; 192 pads to 256): bf16 on
+    the tensor-core kernel at its padded width, float32 on the SIMT kernel
+    with 16 output columns a thread, each asserted by the kernel's name."""
+    H = 2 * g
+    q = _randn((H, S, d), dtype, cuda, d + S)
+    k, v = (_randn((H // g, S, d), dtype, cuda, d + S + i) for i in (1, 2))
+    call = lambda: flash_attention(q, k, v, kv_group=g, **kw)  # noqa: E731
+    before = flash_attention_cuda.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    names = _kernel_names(call)
+    assert any(kernel in n for n in names), names
+    assert got.dtype == dtype and got.shape == (H, S, d)
+    _assert_close(got, ref.flash_attention(q, k, v, kv_group=g, **kw), dtype)
+
+
+def test_flash_attention_refuses_head_dims_past_256(cuda):
+    q = torch.zeros(2, 8, 257, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        flash_attention_cuda(q, q, q)
+
+
+def _offset_view(shape, seed, device, scale=1.0):
+    """Contiguous bf16 values one element into their storage: the data
+    pointer is 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    t = torch.empty(n + 1, dtype=torch.bfloat16, device=device)[1:]
+    t = t.view(shape)
+    t.copy_(_randn(shape, torch.bfloat16, device, seed) * scale)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 2
+    return t
+
+
+@pytest.mark.parametrize("offset", ["x", "w1", "w3", "all"])
+@pytest.mark.parametrize("M,D,F", [(300, 1024, 520), (2000, 3072, 8192)])
+def test_fused_swiglu_misaligned_bf16_takes_simt(cuda, M, D, F, offset):
+    """bf16 operands at an odd element offset, at shapes the tensor-core
+    route takes when aligned: the SIMT route computes them (the C entry
+    would refuse them on tensor cores), one launch, under ``TOL``."""
+    assert fs.route(M, D, F, torch.bfloat16) == fs.TENSOR_CORES
+    assert fs.route(M, D, F, torch.bfloat16, aligned=False) == fs.SIMT
+    shapes = {"x": (M, D), "w1": (D, F), "w3": (D, F)}
+    ts = {name: (_offset_view(shape, i, cuda, D ** -0.5 if i else 1.0)
+                 if offset in (name, "all") else
+                 _randn(shape, torch.bfloat16, cuda, i)
+                 * (D ** -0.5 if i else 1.0))
+          for i, (name, shape) in enumerate(shapes.items())}
+    call = lambda: fused_swiglu(ts["x"], ts["w1"], ts["w3"])  # noqa: E731
+    before = fused_swiglu_cuda.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert fused_swiglu_cuda.launches == before + 1
+    names = _kernel_names(call)
+    assert any("fused_swiglu_kernel<" in n for n in names), names
+    assert got.dtype == torch.bfloat16 and got.shape == (M, F)
+    _assert_close(got, ref.fused_swiglu(ts["x"], ts["w1"], ts["w3"]),
                   torch.bfloat16)
 
 

@@ -4,21 +4,26 @@
 the message and in the order the wrappers have always used (device, then
 dtype, then contiguity, tensor by tensor); each C entry's signature in
 ``csrc/<name>.cu`` matches the argument types its wrapper binds, device and
-stream included; and a library's build hash covers the shared headers.
+stream included; a library's build hash covers the shared headers; every
+kernel module imports without ``nvcc``; and ``sim_loop_cuda`` refuses what
+its kernel does not take before any launch.
 Tensors that claim to lie on a card are stand-ins: this host has none.
 """
 import ctypes
 import importlib
 import os
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
 
 from repro_torch.kernels import _build, _launch
+from repro_torch.kernels.sim_loop import STATICS, sim_loop_cuda
 
-KERNELS = ["sim_alu", "rmsnorm", "fused_swiglu", "flash_attention",
-           "motif_pcu"]
+KERNELS = ["sim_alu", "sim_loop", "rmsnorm", "fused_swiglu",
+           "flash_attention", "motif_pcu"]
 C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
            "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
@@ -110,6 +115,22 @@ def test_c_entry_matches_the_bound_signature(name):
         assert '#include "device_guard.cuh"' in f.read()
 
 
+def test_sim_loop_fit_query_matches_its_c_signature():
+    """``state_in_shared`` binds ``sim_loop_state_in_shared`` with the C
+    function's own parameter types."""
+    from repro_torch.kernels import sim_loop
+
+    with open(os.path.join(_build.CSRC, "sim_loop.cu")) as f:
+        src = f.read()
+    m = re.search(r'extern "C" int sim_loop_state_in_shared\((.*?)\)', src,
+                  re.S)
+    assert m
+    params = [p.split() for p in m.group(1).split(",")]
+    assert [C_TYPES[" ".join(p[:-1])] for p in params] == \
+        sim_loop._FITS_ARGS
+    assert [p[-1] for p in params] == ["N", "S", "I", "device"]
+
+
 def test_library_path_covers_the_shared_headers(tmp_path):
     """An edited header, like an edited source, names a new library; an
     unrelated source does not."""
@@ -126,3 +147,91 @@ def test_library_path_covers_the_shared_headers(tmp_path):
     (tmp_path / "k.cu").write_text("a2")
     assert _build.library_path("k", str(tmp_path), "/b") not in (before,
                                                                   after)
+
+
+def test_every_kernel_source_is_a_kernel():
+    """Each ``csrc/*.cu`` has its wrapper module in ``KERNELS``."""
+    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
+                     if f.endswith(".cu"))
+    assert sources == sorted(KERNELS)
+
+
+def test_kernel_modules_import_without_nvcc(tmp_path):
+    """No nvcc on PATH and a CUDA_HOME without one: every kernel module
+    imports, and only the build itself reports the missing compiler."""
+    code = (
+        f"import importlib\n"
+        f"for name in {KERNELS!r}:\n"
+        f"    importlib.import_module('repro_torch.kernels.' + name)\n"
+        "import repro_torch.sim.step\n"
+        "from repro_torch.kernels import _build\n"
+        "try:\n"
+        "    _build.nvcc_path()\n"
+        "except RuntimeError as e:\n"
+        "    print('no nvcc:', e)\n"
+    )
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "no nvcc:" in proc.stdout
+
+
+def _cpu_statics(B=2, N=8, K=3, M=2, S=16):
+    dims = dict(B=B, N=N, K=K, M=M, S=S)
+    return {name: torch.zeros(tuple(dims[c] for c in letters), dtype=dtype)
+            for name, (dtype, letters) in STATICS.items()}
+
+
+def test_sim_loop_entry_refuses_cpu_tensors():
+    before = sim_loop_cuda.launches
+    with pytest.raises(ValueError, match="sim_loop_cuda needs CUDA tensors"):
+        sim_loop_cuda(_cpu_statics(), 3)
+    assert sim_loop_cuda.launches == before
+
+
+class _OnCardTensor:
+    """A CPU tensor that answers as one on card 0 (what ``sim_loop_cuda``
+    reads before it allocates)."""
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t):
+        self.t = t
+        self.dtype, self.shape = t.dtype, t.shape
+
+    def dim(self):
+        return self.t.dim()
+
+    def get_device(self):
+        return 0
+
+    def is_contiguous(self):
+        return self.t.is_contiguous()
+
+
+@pytest.mark.parametrize("name,change,message", [
+    ("leaf", lambda t: t.double(), "leaf is torch.float64"),
+    ("op_steps", lambda t: t[:, :4], "opcode is (2, 8), not (2, 4) (BN)"),
+    ("step_abs", lambda t: t[:, :8], "step_abs is (2, 8), not (2, 16)"),
+    ("exec_mask", lambda t: t.T.contiguous().T, "exec_mask must be"),
+    ("issue", lambda t: t.cpu(), "issue lies on cpu"),
+])
+def test_sim_loop_entry_refuses_bad_statics(monkeypatch, name, change,
+                                            message):
+    """Each static is checked for its device, dtype, shape (in the letters
+    of (B, N, K, M, S), read off op_steps and step_src) and contiguity, on
+    stand-in card tensors; nothing launches."""
+    statics = {k: _OnCardTensor(v) for k, v in _cpu_statics().items()}
+    statics[name] = _OnCardTensor(change(statics[name].t))
+    if name == "issue":
+        statics[name] = statics[name].t
+    launched = []
+    monkeypatch.setattr(_launch, "launch",
+                        lambda *args: launched.append(args))
+    with pytest.raises(ValueError, match=re.escape(message)):
+        sim_loop_cuda(statics, 3)
+    assert not launched

@@ -8,7 +8,8 @@ dtypes and tolerances of ``tests/test_kernels.py``.  Ragged shapes, which
 the Pallas kernels refuse (their blocks must divide the shape), are held
 against the oracles only.  The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here their entries must
-refuse CPU tensors.
+refuse CPU tensors, and ``fused_swiglu``'s route rule (shape, dtype and
+16-byte alignment) is held as the wrapper applies it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -190,6 +191,53 @@ def test_fused_swiglu_wrapper_passes_its_route(monkeypatch, shape, dtype,
     assert args[4:] == (M, D, F, fs._launch.DTYPE_CODES[x.dtype], want)
     assert out.shape == (M, F) and out.dtype == x.dtype
     fused_swiglu_cuda.launches = before
+
+
+@pytest.mark.parametrize("M,D,F,want_aligned,want_misaligned", [
+    (2000, 3072, 8192, fs.TENSOR_CORES, fs.SIMT),  # prefill: SIMT if offset
+    (17, 72, 136, fs.TENSOR_CORES, fs.SIMT),
+    (4, 3072, 8192, fs.STREAM, fs.STREAM),  # the stream loads any address
+    (100, 72, 130, fs.SIMT, fs.SIMT),
+])
+def test_fused_swiglu_route_takes_alignment(M, D, F, want_aligned,
+                                            want_misaligned):
+    """bf16 operands that do not all start on 16-byte boundaries cannot be
+    described to TMA: the route rule sends them to SIMT (a route choice,
+    as float32's is), and to tensor cores only when aligned."""
+    assert fs.route(M, D, F, torch.bfloat16) == want_aligned
+    assert fs.route(M, D, F, torch.bfloat16, aligned=True) == want_aligned
+    assert fs.route(M, D, F, torch.bfloat16, aligned=False) == \
+        want_misaligned
+
+
+@pytest.mark.parametrize("offset", ["x", "w1", "w3", "none"])
+def test_fused_swiglu_wrapper_routes_offset_views_to_simt(monkeypatch,
+                                                          offset):
+    """A contiguous bf16 view one element into its storage (2 bytes past a
+    16-byte boundary) makes the wrapper pass the SIMT route code; fresh
+    tensors pass tensor cores.  The output is the wrapper's own
+    allocation, so it is aligned."""
+    M, D, F = 32, 64, 128
+    shapes = {"x": (M, D), "w1": (D, F), "w3": (D, F)}
+    ts = {}
+    for name, (r, c) in shapes.items():
+        if name == offset:
+            ts[name] = torch.zeros(r * c + 1, dtype=torch.bfloat16)[1:] \
+                .view(r, c)
+            assert ts[name].is_contiguous() and ts[name].data_ptr() % 16 == 2
+        else:
+            ts[name] = torch.zeros((r, c), dtype=torch.bfloat16)
+    calls = []
+    monkeypatch.setattr(fs._launch, "check_operands", lambda *a: (1, 0))
+    monkeypatch.setattr(fs._launch, "launch",
+                        lambda name, argtypes, index, *args:
+                        calls.append(args))
+    before = fused_swiglu_cuda.launches
+    out = fused_swiglu_cuda(ts["x"], ts["w1"], ts["w3"])
+    fused_swiglu_cuda.launches = before
+    (args,) = calls
+    assert args[3] == out.data_ptr() and out.data_ptr() % 16 == 0
+    assert args[-1] == (fs.TENSOR_CORES if offset == "none" else fs.SIMT)
 
 
 def test_wrappers_count_no_launch_on_the_cpu():

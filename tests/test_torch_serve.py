@@ -5,7 +5,9 @@ numpy (``repro_torch.models.convert.params_from_numpy``), so both packages
 compute the same function on the same prompts.  The smoke configs of
 llama3_2_3b, h2o_danube_3_4b (sliding window 8, which wraps the ring
 cache, and 32, which does not) and qwen3_14b (qk-norm) carry the branches;
-qwen2_vl_72b carries M-RoPE.  The kernels run through their wrappers,
+qwen2_vl_72b carries M-RoPE; stablelm_12b's smoke config at head dims 160
+(the full config's) and 256 carries the widest heads the attention kernel
+takes.  The kernels run through their wrappers,
 which on CPU tensors take the plain versions.
 
 Tolerances:
@@ -55,6 +57,8 @@ CASES = {
     "danube_w8": ("h2o_danube_3_4b", dict(sliding_window=8)),
     "danube_w32": ("h2o_danube_3_4b", {}),
     "qwen3_qknorm": ("qwen3_14b", {}),
+    "stablelm_hd160": ("stablelm_12b", dict(head_dim=160)),
+    "stablelm_hd256": ("stablelm_12b", dict(head_dim=256)),
 }
 B, T = 2, 16
 
@@ -180,6 +184,26 @@ def test_apply_rope_matches_jax(sections):
     got = L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 500_000.0,
                        sections)
     _close(got, want, F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 8], ids=["causal", "window8"])
+@pytest.mark.parametrize("hd", [16, 160, 256])
+def test_banded_attention_matches_jax(hd, window, dtype):
+    """``banded_attention`` (through the flash_attention wrapper, plain on
+    the CPU) against ``repro.models.layers.banded_attention`` at head dims
+    up to 256, 4 query heads over 2 kv heads."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (rng.standard_normal((B, T, h, hd)).astype(np.float32)
+               for h in (4, 2, 2))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = JL.banded_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                               causal=True, window=window)
+    got = L.banded_attention(*(torch.from_numpy(a).to(TORCH_DT[dtype])
+                               for a in (q, k, v)),
+                             causal=True, window=window)
+    assert got.shape == (B, T, 4, hd) and got.dtype == TORCH_DT[dtype]
+    _close(got, want, TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -13,7 +13,12 @@ atax_u2, dwconv_u1 and jacobi_u1 on plaid2x2) go through both packages:
   ``simulate_batch`` and ``scalar_verdict``;
 * warm ``prepared`` reruns equal the cold run, stale ones raise, and a
   call without ``device`` raises on a host without CUDA;
-* within one cycle, no scatter index other than the dump slots repeats.
+* within one cycle, no scatter index other than the dump slots repeats;
+* the premise of the fused ``sim_loop`` kernel (one block per mapping, each
+  stopping at its own horizon): each mapping run alone, in a one-mapping
+  bucket up to its own horizon, gives its slice of the batched run; and a
+  CUDA bucket hands the kernel the statics of ``sim_loop.STATICS`` and
+  reads its state back in the eager loop's layout.
 """
 import copy
 import json
@@ -41,7 +46,10 @@ from repro_torch.sim.batch import (
 )
 from repro_torch.sim.check import F32_TOL, close_array, scalar_verdict
 from repro_torch.sim.lower import CompiledSim, lower_mapping
-from repro_torch.sim.step import PackedBucket, _cycle, _statics, run_bucket
+from repro_torch.kernels import sim_loop
+from repro_torch.sim import step
+from repro_torch.sim.step import (PackedBucket, _cycle, _kernel_statics,
+                                  _statics, run_bucket, run_bucket_eager)
 
 KERNELS = [("atax", 2), ("dwconv", 1), ("jacobi", 1)]
 FIELDS = (CompiledSim._INT_FIELDS + CompiledSim._BOOL_FIELDS
@@ -182,6 +190,83 @@ def test_scatter_indices_repeat_only_at_dump_slots(jax_bucket):
     assert n_writes > 0
     # row N (the read sentinel) is never written
     assert not done.view(B, N + 2, I)[:, N, :].any()
+
+
+def _one_mapping(pb: PackedBucket, b: int) -> PackedBucket:
+    """Mapping ``b`` of ``pb`` alone, same padding, run to its own horizon."""
+    fields = {f: getattr(pb, f)[b:b + 1] for f in step._FIELDS}
+    return PackedBucket(iterations=pb.iterations,
+                        hmax=int(pb.horizon[b]), device=pb.device, **fields)
+
+
+def test_each_mapping_alone_equals_its_slice_of_the_batch(jax_bucket):
+    """What lets one block of the fused kernel own one mapping and stop at
+    its own horizon: no mapping reads another's state, and no cycle past a
+    mapping's horizon changes it."""
+    pb = PackedBucket.from_numpy(vars(jax_bucket), "cpu")
+    batched = run_bucket(pb)
+    assert len(set(pb.horizon.tolist())) > 1  # horizons differ
+    for b in range(pb.shape[0]):
+        alone = run_bucket(_one_mapping(pb, b))
+        for got, want in zip(alone, batched):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got[0], want[b])
+
+
+def test_kernel_statics_are_the_kernels_inputs(jax_bucket):
+    """``_kernel_statics`` gives every static ``sim_loop.STATICS`` names, in
+    its dtype and shape, with float64 rounded as the eager loop's cast
+    rounds it."""
+    pb = PackedBucket.from_numpy(vars(jax_bucket), "cpu")
+    B, N, K, M, S = pb.shape
+    dims = dict(B=B, N=N, K=K, M=M, S=S)
+    st = _kernel_statics(pb)
+    assert list(st) == list(sim_loop.STATICS)
+    for name, (dtype, letters) in sim_loop.STATICS.items():
+        assert st[name].dtype is dtype, name
+        assert tuple(st[name].shape) == tuple(dims[c] for c in letters), name
+        assert st[name].is_contiguous()
+        np.testing.assert_array_equal(st[name].numpy(), getattr(pb, name),
+                                      err_msg=name)
+    eager = _statics(pb)
+    for name in ("leaf", "op_feed"):
+        assert torch.equal(st[name].view(torch.int32),
+                           eager[name].view(torch.int32))
+
+
+def test_cuda_bucket_runs_one_sim_loop_launch(monkeypatch, jax_bucket):
+    """On a CUDA bucket ``run_bucket`` calls ``sim_loop_cuda`` once with the
+    bucket's statics and iterations, and reads the state it returns (the
+    eager loop's layout); the eager loop and its ALU never run.  The
+    kernel's part is played by the eager loop on the CPU."""
+    pb = PackedBucket.from_numpy(vars(jax_bucket), "cpu")
+    want = run_bucket_eager(pb)
+    B, N = pb.shape[:2]
+    I = pb.iterations
+    calls = []
+
+    def fake_kernel(statics, iterations):
+        calls.append((sorted(statics), iterations))
+        val = torch.zeros((B, N + 2, I))
+        done = torch.zeros((B, N + 2, I), dtype=torch.bool)
+        val[:, :N] = torch.from_numpy(want[0]).float()
+        done[:, :N] = torch.from_numpy(want[1])
+        return val, done, torch.from_numpy(want[2])
+
+    def no_eager(*args, **kwargs):
+        raise AssertionError("the eager loop ran on a CUDA bucket")
+
+    monkeypatch.setattr(step, "sim_loop_cuda", fake_kernel)
+    monkeypatch.setattr(step, "_cycle", no_eager)
+    monkeypatch.setattr(step, "_kernel_statics",
+                        lambda pb_: _kernel_statics(PackedBucket(
+                            **{**vars(pb_), "device": torch.device("cpu")})))
+    cuda_pb = PackedBucket(**{**vars(pb), "device": torch.device("cuda")})
+    got = run_bucket(cuda_pb)
+    assert calls == [(sorted(sim_loop.STATICS), I)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
 
 
 # -- verdicts ----------------------------------------------------------------
