@@ -44,15 +44,20 @@ Phases, in order; any failure exits non-zero before the last line:
    one call); flash and SDPA at a 2000-token prefill; then the host time
    of one ``rmsnorm_cuda`` call at (4, 3072), part by part;
 6. serve phase: ``python -m repro_torch.launch.serve --arch A --batch 4
-   --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width for A =
-   llama3_2_3b and stablelm_12b (the second main path, with the launch
-   counters read just around each run): tokens (4, 32), cache length 531,
-   finite logits, exactly (2 L + 1) x 32 rmsnorm, L x 32 fused_swiglu and
-   L flash_attention launches for L layers (1824 / 896 / 28 and 2592 /
-   1280 / 40); a ``torch.profiler`` trace of one decode step; for llama, in
-   float32 at full width and depth, 4 teacher-forced decode steps against a
-   full forward (``DECODE_TOL``); then for each model the card against the
-   CPU at full width and 2 layers (``PARITY_TOL``);
+   --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width and depth
+   for A = llama3_2_3b, stablelm_12b (dense), granite_moe_1b_a400m (moe)
+   and falcon_mamba_7b (ssm, Mamba-1) (the second main path, with the
+   launch counters read just around each run): tokens (4, 32), cache
+   length 531, finite logits, exactly the launches of ``serve_launches``
+   (rmsnorm / fused_swiglu / flash_attention: 1824 / 896 / 28, 2592 /
+   1280 / 40, 1568 / 0 / 24 and 2080 / 0 / 0); for granite the routes
+   dropped in the prefill per layer; a ``torch.profiler`` trace of the
+   prefill (run again) and of one decode step; for llama, in float32 at full width and depth, 4
+   teacher-forced decode steps against a full forward (``DECODE_TOL``);
+   then for each model the card against the CPU at full width and 2
+   layers (``PARITY_TOL``; the moe and ssm models' 2 layers sliced from
+   the full draw), with granite's dispatch of each layer equal route for
+   route to the CPU's on the same input;
 7. motif phase: ``motif_pcu`` against its plain version on the card, bit
    for bit in float32 on FANIN, FANOUT and UNICAST (inputs mixing NaN,
    +-inf and +-0 in their first columns) and on three seeded random
@@ -124,11 +129,23 @@ PATH_TOL = dict(rtol=1e-2, atol=5e-3)
 DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
 #: the card (kernels) against the CPU (plain versions), float32 logits
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
-#: the served models at full width: (n_layers, d_model, n_heads, n_kv_heads,
-#: head_dim, d_ff, vocab) of each config, checked before the counts; each
-#: runs batch 4 x prompt 500 x 32 new tokens in bf16 from seed 0
-SERVED = {"llama3_2_3b": (28, 3072, 24, 8, 128, 8192, 128256),
-          "stablelm_12b": (40, 5120, 32, 8, 160, 13824, 100352)}
+#: the served models at full width and depth: the fields of each config
+#: that are checked before the counts (attention widths for the dense and
+#: moe families, experts and top_k for moe; d_inner, state and conv for
+#: ssm); each runs batch 4 x prompt 500 x 32 new tokens in bf16 from seed 0
+_LM = ("n_layers", "d_model", "vocab_size")
+_ATTN = ("n_heads", "n_kv_heads", "resolved_head_dim", "d_ff")
+SERVED = {
+    "llama3_2_3b": dict(zip(_LM + _ATTN, (28, 3072, 128256, 24, 8, 128,
+                                          8192))),
+    "stablelm_12b": dict(zip(_LM + _ATTN, (40, 5120, 100352, 32, 8, 160,
+                                           13824))),
+    "granite_moe_1b_a400m": dict(zip(
+        _LM + _ATTN + ("n_experts", "top_k", "moe_dense_ff"),
+        (24, 1024, 49155, 16, 8, 64, 512, 32, 8, 0))),
+    "falcon_mamba_7b": dict(zip(_LM + ("d_inner", "ssm_state", "d_conv"),
+                                (64, 4096, 65024, 8192, 16, 4))),
+}
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "500", "--new-tokens", "32",
               "--device", "cuda"]
 
@@ -1032,7 +1049,8 @@ def reset_counts() -> None:
 
 def teacher_forced(model, prompts, follow, steps: int):
     """Logits of ``steps`` decode steps fed ``follow`` after a prefill of
-    ``prompts``, and the full forward's logits at the same positions."""
+    ``prompts``, and the full forward's logits at the same positions (the
+    MoE family's ``forward`` returns ``(h, aux)``)."""
     import torch
 
     from repro_torch.serve.kvcache import grow_cache
@@ -1047,6 +1065,8 @@ def teacher_forced(model, prompts, follow, steps: int):
             dec.append(logits[:, 0])
         h = model.forward({"tokens": torch.cat([prompts, follow[:, :steps]],
                                                dim=1)})
+        if isinstance(h, tuple):
+            h = h[0]
         full = (h[:, T:T + steps] @ model.emb.T).float()
     return torch.stack(dec, dim=1), full
 
@@ -1057,6 +1077,7 @@ def serve_phase(arch: str, decode_check: bool):
     ``decode_check``, 4 teacher-forced decode steps against a full forward
     in float32 at full width and depth follow."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import run as serve_run
 
@@ -1073,29 +1094,43 @@ def serve_phase(arch: str, decode_check: bool):
         print(f"serve: {line}")
     cfg, info, tokens = out["cfg"], out["info"], out["tokens"]
     layers = cfg.n_layers
-    require((layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
-            == SERVED[arch], f"not the full {arch} config: {cfg}")
+    require({k: getattr(cfg, k) for k in SERVED[arch]} == SERVED[arch],
+            f"not the full {arch} config: {cfg}")
     require(tuple(tokens.shape) == (4, 32), f"tokens {tuple(tokens.shape)}")
     require(info["cache_length"] == 531,
             f"cache length {info['cache_length']}, want 500 + 31")
     require(info["logits_finite"], "non-finite logits")
-    # per pass (1 prefill + 31 decode steps): ln1 + ln2 per layer and ln_f;
-    # one MLP per layer; flash_attention in the prefill only
     want = dict.fromkeys(counts, 0)
-    want.update(rmsnorm=(2 * layers + 1) * 32, fused_swiglu=layers * 32,
-                flash_attention=layers)
+    want.update(serve_launches(cfg))
     require(counts == want, f"{arch} launch counts {counts}, want {want}")
-    n_params = sum(p.numel() for p in out["model"].parameters())
-    print(f"serve: {arch} full width ({n_params} params, bf16); prefill "
+    params = list(out["model"].parameters())
+    n_params = sum(p.numel() for p in params)
+    n_bytes = sum(p.numel() * p.element_size() for p in params)
+    print(f"serve: {arch} full width ({n_params} params, "
+          f"{n_bytes / 1e9:.3f} GB of weights); prefill "
           f"{info['prefill_s'] * 1e3:.3f} ms, "
           f"decode {info['decode_s'] / info['decode_steps'] * 1e3:.3f} ms "
           f"per token; set-up {out['setup_s']:.3f} s; run {wall:.3f} s; "
           f"peak device memory {peak:.3f} GiB; launches {counts}")
 
     model, prompts = out["model"], out["prompts"]
-    with torch.inference_mode():
+    # the served prefill again, traced (and its MoE dispatch recorded)
+    with torch.inference_mode(), recorded_moe() as calls, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         cache, _ = model.prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    report_trace(prof, "the prefill (batch 4 x 500)",
+                 info["prefill_s"] * 1e3, traced_ms)
+    if calls:  # the same prefill as the served one: its dispatch
+        from repro_torch.models.moe import moe_capacity
+
+        dropped = [int((~c["dispatch"][2]).sum()) for c in calls]
+        print(f"serve: {arch} routes dropped in the prefill per layer (of "
+              f"{calls[0]['dispatch'][2].numel()} a layer, capacity "
+              f"{moe_capacity(cfg, prompts.numel())} an expert; random "
+              f"weights, not a gate): {dropped}")
     profile_decode(model, cache, tokens[:, :1])
     del out, model, cache
     torch.cuda.empty_cache()
@@ -1118,6 +1153,48 @@ def serve_phase(arch: str, decode_check: bool):
     return counts
 
 
+def serve_launches(cfg):
+    """The kernels' launches in one serve run (1 prefill + 31 decode
+    steps, 32 passes): rmsnorm ln1 + ln2 a layer and ln_f a pass (one ln
+    a Mamba-1 layer); fused_swiglu one MLP a dense layer a pass (only
+    arctic's dense branch among the MoE configs); flash_attention a layer
+    in the prefill only (none in Mamba-1)."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"rmsnorm": (L + 1) * 32}
+    swiglu = cfg.family != "moe" or bool(cfg.moe_dense_ff)
+    return {"rmsnorm": (2 * L + 1) * 32, "fused_swiglu": swiglu * L * 32,
+            "flash_attention": L}
+
+
+@contextlib.contextmanager
+def recorded_moe():
+    """Each MoE block run while the ``with`` block runs, in call order: a
+    dict of its input ``x``, its ``dispatch`` ``(gates, top_e, keep,
+    slot)`` and its output ``out`` (``repro_torch.models.moe.moe_block``
+    and ``route`` wrapped; no device synchronisation)."""
+    from repro_torch.models import moe
+
+    calls, real_block, real_route = [], moe.moe_block, moe.route
+
+    def block(cfg, w, x):
+        calls.append({"x": x})
+        out = real_block(cfg, w, x)
+        calls[-1]["out"] = out[0]
+        return out
+
+    def route(gates, top_k, capacity):
+        out = real_route(gates, top_k, capacity)
+        calls[-1]["dispatch"] = (gates, *out[1:])
+        return out
+
+    moe.moe_block, moe.route = block, route
+    try:
+        yield calls
+    finally:
+        moe.moe_block, moe.route = real_block, real_route
+
+
 def zoo_init(cfg, dtype):
     """The model at ``cfg`` with weights drawn on the card from ``SEED``."""
     import torch
@@ -1128,18 +1205,44 @@ def zoo_init(cfg, dtype):
     return zoo.init_model(cfg, gen, "cuda", dtype)
 
 
+def first_layers(cfg, n: int, dtype, device: str = "cuda"):
+    """The first ``n`` layers of the model at ``cfg``, its weights drawn on
+    ``device`` from ``SEED`` at the full depth and sliced.  ``init_params``
+    divides a stacked weight by the square root of its layer count (the
+    JAX ``init_of`` rule), so a model drawn at 2 layers has weights
+    sqrt(L / 2) times those of the full model's layers.  falcon_mamba_7b
+    drawn so drives ``dt`` past 1e5 and its state past 1e11, where float32
+    decode logits miss a float64 run by more than ``PARITY_TOL`` on the CPU
+    as on the card (``scripts/ssm_parity_conditioning.py``).  Sliced from
+    the full draw, each layer has the served model's scale."""
+    import torch
+
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import init_params
+
+    def head(tree):
+        return {k: head(v) if isinstance(v, dict) else v[:n].clone()
+                for k, v in tree.items()}
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(zoo.param_spec(cfg), gen, device, dtype)
+    params["layers"] = head(params["layers"])
+    return zoo.build(cfg.replace(n_layers=n), params)
+
+
 def profile_decode(model, cache, tok) -> None:
     """Device busy share and top kernels of one decode step at full width
     (``torch.profiler``): device time of a profiled step against the wall
     time of an unprofiled one, after a warm step."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.kvcache import grow_cache
 
     cache = grow_cache(cache, 3)  # a warm, a timed and a traced step
-    S = cache["k"].shape[2]
+    held = (f"cache {cache['k'].shape[2]} slots" if "k" in cache else
+            f"state cache conv {tuple(cache['conv'].shape)} + h "
+            f"{tuple(cache['h'].shape)} float32")
     with torch.inference_mode():
         model.decode_step(cache, tok)  # warm
         torch.cuda.synchronize()
@@ -1153,13 +1256,22 @@ def profile_decode(model, cache, tok) -> None:
             model.decode_step(cache, tok)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
+    report_trace(prof, f"one decode step (batch 4, {held})", wall_ms,
+                 traced_ms)
+
+
+def report_trace(prof, what: str, wall_ms: float, traced_ms: float) -> None:
+    """The device busy share of a traced run against the wall time of an
+    unprofiled one, its kernel count and its 8 longest kernels."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("profile: no device time in the trace (not measured)")
         return
-    print(f"profile: one decode step (batch 4, cache {S} slots), device busy "
+    print(f"profile: {what}, device busy "
           f"{busy_ms:.6f} ms of {wall_ms:.6f} ms unprofiled wall "
           f"({100 * busy_ms / wall_ms:.2f}% busy; {traced_ms:.6f} ms wall "
           f"while traced); {sum(e.count for e in kernels)} kernels")
@@ -1171,21 +1283,32 @@ def profile_decode(model, cache, tok) -> None:
 def parity_phase(arch: str) -> None:
     """Full width, 2 layers, float32: the port on the card (kernels) against
     the port on the CPU (plain versions), same weights and prompts: prefill
-    and 4 teacher-forced decode steps."""
+    and 4 teacher-forced decode steps.  For an MoE model the card's
+    dispatch of each layer in the prefill (experts, slots, kept routes)
+    must equal the CPU's on the same input exactly (``dispatch_parity``).
+    The MoE and SSM models take the first 2 layers of the full model
+    (``first_layers``); the dense ones keep their 2-layer draw.
+    """
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch).replace(n_layers=2)
-    card = zoo_init(cfg, torch.float32)
+    if cfg.family in ("moe", "ssm"):
+        card = first_layers(get_config(arch), 2, torch.float32)
+    else:
+        card = zoo_init(cfg, torch.float32)
     cpu = copy.deepcopy(card).to("cpu")
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 132)).astype(
         np.int32))
-    with torch.inference_mode():
+    with torch.inference_mode(), recorded_moe() as calls:
         got = [card.prefill({"tokens": toks[:, :128].cuda()})[1]]
+        n_card = len(calls)
         want = [cpu.prefill({"tokens": toks[:, :128]})[1]]
+    if calls:
+        dispatch_parity(arch, cpu, calls[:n_card], calls[n_card:])
     dec_c, full_c = teacher_forced(card, toks[:, :128].cuda(),
                                       toks[:, 128:].cuda(), 4)
     dec_h, full_h = teacher_forced(cpu, toks[:, :128], toks[:, 128:], 4)
@@ -1201,6 +1324,75 @@ def parity_phase(arch: str) -> None:
           f"max abs diff {err:.6g}")
     del card, cpu
     torch.cuda.empty_cache()
+
+
+def _rank_gaps(gates, K: int):
+    """Per token, the smallest gap between neighbouring gates among the
+    best K + 1 in log space (how near an expert came to changing rank or
+    place; equal gates, zeros included, are ties, which both devices break
+    to the lower expert), and the gap between gates K and K + 1 in
+    gates."""
+    import torch
+
+    top = torch.sort(gates.double(), dim=-1, descending=True).values
+    lg = top[:, :K + 1].log()
+    gap = torch.nan_to_num(lg[:, :-1] - lg[:, 1:], nan=float("inf"))
+    return gap.min(-1).values, top[:, K - 1] - top[:, K]
+
+
+def dispatch_parity(arch, cpu_model, card, cpu) -> None:
+    """The card's MoE dispatch of each layer of a prefill (``card``, calls
+    recorded by ``recorded_moe``) against the CPU's dispatch of the same
+    layer on the same input (the card's, moved over): experts, slots and
+    kept routes equal, the block's output within ``PARITY_TOL`` (atol
+    relative to the output's largest magnitude).  The
+    CPU's own prefill (``cpu``) reaches each layer with float32 noise of
+    its own; where that noise moves a route it is reported, with how near
+    that route came to a tie, and not held."""
+    import torch
+
+    from repro_torch.models import moe
+
+    cfg = cpu_model.cfg
+    K = cfg.top_k
+    require(len(card) == len(cpu) == cfg.n_layers,
+            f"{len(card)} / {len(cpu)} MoE blocks, want {cfg.n_layers}")
+    for i, (c, h) in enumerate(zip(card, cpu)):
+        x = c["x"].cpu()
+        with recorded_moe() as again:
+            out = moe.moe_block(cfg, cpu_model.layers[i]["moe"], x)[0]
+        want = again[0]["dispatch"]
+        log_gap, gap = _rank_gaps(want[0], K)
+        same = all(torch.equal(a.cpu(), b)
+                   for a, b in zip(c["dispatch"][1:], want[1:]))
+        require(same, f"{arch} layer {i}: the card's dispatch differs from "
+                f"the CPU's on the same input; smallest gap between gates "
+                f"{K} and {K + 1} of a token, best first: "
+                f"{gap.min().item():.6g} (smallest log gap among the best "
+                f"{K + 1}: {log_gap.min().item():.6g})")
+        # the block's outputs are hidden states, not logits: atol relative
+        # to their largest magnitude, as the CPU tests hold hidden states
+        scale = max(1.0, out.abs().max().item())
+        err, share = _close(f"{arch} MoE block {i} on the card's input",
+                            c["out"].cpu(), out,
+                            dict(PARITY_TOL, atol=PARITY_TOL["atol"] * scale))
+        top_c, top_h = c["dispatch"][1].cpu(), h["dispatch"][1]
+        moved = (top_c != top_h).any(-1)
+        drift = ((x - h["x"]).abs().max() / h["x"].abs().max()).item()
+        print(f"parity: {arch} layer {i} dispatch on the card equals the "
+              f"CPU's on the same input, route for route "
+              f"({top_c.numel()} routes, {int((~want[2]).sum())} dropped; "
+              f"smallest gap between gates {K} and {K + 1} "
+              f"{gap.min().item():.6g}, smallest log gap among the best "
+              f"{K + 1} {log_gap.min().item():.6g}); block output max abs "
+              f"diff {err:.6g} at magnitudes up to {scale:.6g} ({share:.3f} "
+              f"of PARITY_TOL, atol times that magnitude). The CPU's own "
+              f"run reaches the layer {drift:.3g} away (max |diff| / max "
+              f"|x|) and routes {int(moved.sum())} token(s) otherwise"
+              + ("" if not moved.any() else
+                 f", at log gaps "
+                 f"{_rank_gaps(h['dispatch'][0][moved], K)[0].tolist()} "
+                 f"(not held)"))
 
 
 def _motif_inputs(N: int, seed: int, special: bool):

@@ -4,7 +4,7 @@
 (seq_len, global_batch, kind) input-shape cell.  Configs live in
 ``repro_torch.configs.<arch_id>`` and register themselves in
 ``ARCH_REGISTRY`` via ``register``.  Only the configs of the families the
-port runs are copied (dense and vlm); :func:`get_config` raises
+port runs are copied (dense, vlm, moe and ssm); :func:`get_config` raises
 ``NotImplementedError`` for the others.
 """
 from __future__ import annotations
@@ -189,12 +189,15 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-#: the architectures whose configs the port carries (dense and vlm)
+#: the architectures whose configs the port carries (dense, vlm, moe, ssm)
 PORTED_ARCH_IDS = [
     "stablelm_12b",
     "qwen3_14b",
     "llama3_2_3b",
     "h2o_danube_3_4b",
+    "arctic_480b",
+    "granite_moe_1b_a400m",
+    "falcon_mamba_7b",
     "qwen2_vl_72b",
 ]
 

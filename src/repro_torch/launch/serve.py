@@ -1,17 +1,23 @@
 """Serving launcher of the port: random weights from a seed, a batch of
-random prompts, greedy decoding on the card.
+random prompts, greedy decoding on the card, for every ported family
+(dense, vlm, moe, ssm).
 
     python -m repro_torch.launch.serve --arch llama3_2_3b --batch 4 \\
         --prompt-len 500 --new-tokens 32               # full config, cuda
     python -m repro_torch.launch.serve --arch llama3_2_3b --smoke \\
         --device cpu                                   # reduced, on the host
+    python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \\
+        --batch 4 --prompt-len 500 --new-tokens 32     # MoE, full config
+    python -m repro_torch.launch.serve --arch falcon_mamba_7b --smoke \\
+        --device cpu                                   # Mamba-1, reduced
 
 Without ``--smoke`` the full config runs (the JAX launcher's ``--smoke``
 is always on; here it is off unless given).  Prompts are drawn with numpy
 from ``--seed``; weights with a ``torch.Generator`` seeded from it on the
-device, in each parameter's spec dtype (bfloat16).  Prints the generated
-tokens, the cache length, the prefill time and the decode time per
-token.
+device, in each parameter's spec dtype (bfloat16; float32 for the MoE
+router and the SSM's ``dt_bias``, ``A_log`` and ``Dskip``).  Prints the
+generated tokens, the cache length, the prefill time and the decode time
+per token.
 """
 from __future__ import annotations
 
@@ -71,10 +77,12 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     tokens, info = generate(cfg, model, prompts,
                             max_new_tokens=args.new_tokens, extra_batch=extra)
     n_params = sum(p.numel() for p in model.parameters())
+    dtypes = " and ".join(sorted({str(p.dtype).split(".")[-1]
+                                  for p in model.parameters()}))
     per_tok = info["decode_s"] / max(info["decode_steps"], 1)
     print(f"model: {cfg.arch_id} ({'smoke' if args.smoke else 'full'}) "
           f"{cfg.n_layers}L d_model={cfg.d_model} vocab={cfg.vocab_size}, "
-          f"{n_params} params in bfloat16 on {device}; set-up "
+          f"{n_params} params in {dtypes} on {device}; set-up "
           f"{setup_s:.3f} s")
     print("generated:", tokens.tolist())
     print(f"info: cache_length={info['cache_length']} "

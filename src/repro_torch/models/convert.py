@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import zoo
+from repro_torch.models.layers import Spec
 
 
 def tree_from_numpy(tree: Dict, device: Union[str, torch.device],
@@ -34,9 +35,19 @@ def tree_from_numpy(tree: Dict, device: Union[str, torch.device],
     return out
 
 
+def _cast_to_spec(spec, tree: Dict, dtype: torch.dtype) -> Dict:
+    if isinstance(spec, Spec):
+        return tree if spec.dtype == torch.float32 else tree.to(dtype)
+    return {k: _cast_to_spec(spec[k], v, dtype) for k, v in tree.items()}
+
+
 def params_from_numpy(cfg, tree: Dict, device: Union[str, torch.device],
                       dtype: torch.dtype) -> torch.nn.Module:
     """The port's model for ``cfg`` holding the JAX parameter ``tree``
-    (numpy arrays shaped like ``param_spec(cfg)``), cast to ``dtype`` on
-    ``device``."""
-    return zoo.build(cfg, tree_from_numpy(tree, device, dtype))
+    (numpy arrays shaped like ``param_spec(cfg)``) on ``device``: each
+    leaf cast to ``dtype``, except the leaves whose spec is float32 (the
+    MoE router; the SSM's ``dt_bias``, ``A_log`` and ``Dskip``), which
+    stay float32 as in the JAX package."""
+    return zoo.build(cfg, _cast_to_spec(zoo.param_spec(cfg),
+                                        tree_from_numpy(tree, device),
+                                        dtype))

@@ -125,18 +125,23 @@ class DenseLM(nn.Module):
                                  device=tokens.device)[None].expand(B, T)
         return L.embed_lookup(self.emb, tokens), positions
 
+    def _ffn(self, w, x) -> Tuple[torch.Tensor, None]:
+        """The feed-forward half of a block on the normed ``x``: (out, aux),
+        where only the MoE family has an ``aux``."""
+        return L.swiglu(w["mlp"], x), None
+
     def _block(self, w, x, positions):
         h, kv = L.attention_layer(self.cfg, w["attn"], L.rms_norm(x, w["ln1"]),
                                   positions, attn_impl=self.cfg.attn_impl)
         x = x + h
-        x = x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
-        return x, kv
+        m, aux = self._ffn(w, L.rms_norm(x, w["ln2"]))
+        return x + m, kv, aux
 
     def forward(self, batch) -> torch.Tensor:
         """Final hidden states (B, T, D)."""
         x, positions = self._inputs(batch)
         for w in self.layers:
-            x, _ = self._block(w, x, positions)
+            x, _, _ = self._block(w, x, positions)
         return L.rms_norm(x, self.ln_f)
 
     def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
@@ -149,7 +154,7 @@ class DenseLM(nn.Module):
         x, positions = self._inputs(batch)
         ks, vs = [], []
         for w in self.layers:
-            x, (k, v) = self._block(w, x, positions)
+            x, (k, v), _ = self._block(w, x, positions)
             # keep the last S positions (ring-buffer layout: slot = pos % S)
             kk = k.reshape(B, T, -1)[:, T - S:]
             vv = v.reshape(B, T, -1)[:, T - S:]
@@ -216,7 +221,7 @@ class DenseLM(nn.Module):
             o = L.decode_attention(q, kc.view(B, S, cfg.n_kv_heads, hd),
                                    vc.view(B, S, cfg.n_kv_heads, hd), valid)
             x = x + o.reshape(B, 1, -1) @ w["attn"]["wo"]
-            x = x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
+            x = x + self._ffn(w, L.rms_norm(x, w["ln2"]))[0]
         x = L.rms_norm(x, self.ln_f)
         logits = (x @ self.emb.T).float()
         cache["length"] = length + 1

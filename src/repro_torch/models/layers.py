@@ -45,7 +45,7 @@ class Spec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     dtype: Any = torch.bfloat16
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a | ssm_dt
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -84,12 +84,16 @@ def init_params(spec_tree, generator: torch.Generator,
                 dtype: Optional[torch.dtype] = None):
     """Materialize params on ``device``: the counterpart of ``init_of``
     (layers.py:57-79), drawing normals from ``generator`` (which must live
-    on ``device``) leaf by leaf in the JAX package's flatten order.  The
-    rules the served families use (normal, zeros, ones) and the same
-    distributions: a normal weight is N(0, 1) /
+    on ``device``) leaf by leaf in the JAX package's flatten order.  Every
+    rule of ``init_of``: normal, zeros, ones, and the SSM's two fixed ones,
+    ``ssm_a`` (``A_log`` = log 1..N along the state axis) and ``ssm_dt``
+    (``dt_bias`` = softplus^-1(0.01)).  A normal weight is N(0, 1) /
     sqrt(shape[0]), so a weight stacked over layers is scaled by the layer
-    count as in the JAX package.  ``jax.random`` cannot be reproduced, so
-    the values differ.  ``dtype`` overrides every spec's dtype."""
+    count as in the JAX package; ``jax.random`` cannot be reproduced, so
+    the normal values differ.  The fixed rules give the JAX values, except
+    that ``ssm_a`` takes the correctly rounded float32 log (computed in
+    float64), where XLA's float32 log on the CPU is one ulp off at a few
+    integers (7, 47, 49, 179).  ``dtype`` overrides every spec's dtype."""
     out: Dict[str, Any] = {}
     for path, s in _leaves(spec_tree):
         dt = dtype or s.dtype
@@ -97,6 +101,13 @@ def init_params(spec_tree, generator: torch.Generator,
             v = torch.zeros(s.shape, dtype=dt, device=device)
         elif s.init == "ones":
             v = torch.ones(s.shape, dtype=dt, device=device)
+        elif s.init == "ssm_a":  # -log-uniform init for A_log
+            a = torch.arange(1, s.shape[-1] + 1, dtype=torch.float64,
+                             device=device)
+            v = a.log().float().to(dt).expand(s.shape).contiguous()
+        elif s.init == "ssm_dt":  # softplus^-1(0.01)
+            v = torch.full(s.shape, math.log(math.e ** 0.01 - 1.0),
+                           dtype=dt, device=device)
         else:
             fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[-1], 1)
             v = torch.randn(s.shape, generator=generator, device=device,

@@ -1,0 +1,231 @@
+"""State-space LM: Mamba-1 (falcon-mamba-7b), the port of the Mamba-1 half
+of ``repro/models/ssm.py``.
+
+The recurrence h_t = dA_t * h_{t-1} + dB_t x_t has a per-(channel, state)
+decay.  The JAX package runs it as a nested ``lax.scan`` (chunks outside,
+checkpointed for the backward pass; steps inside).  Here it is one loop
+over T in order: the chunks only bound memory, so each chunk's ``dA`` and
+``dB x`` (which do not depend on h) are computed in one operation each,
+and the state update per step is the JAX one.  There is no TPU kernel for
+the scan (``repro/models/ssm.py:10`` names a ``selective_scan`` that the
+JAX package does not have), so the scan is plain PyTorch; the layer norms
+go through the ``rmsnorm`` kernel.
+
+Mamba-2 (SSD) is not ported yet; ``hybrid.py`` (zamba2) is its only user.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import dense as D
+from repro_torch.models import layers as L
+from repro_torch.models.layers import Spec
+
+
+def dt_rank(cfg) -> int:
+    return max(cfg.d_model // 16, 1)
+
+
+def _chunk_len(chunk: int, T: int) -> int:
+    """Largest divisor of T not exceeding the configured chunk."""
+    q = min(chunk, T)
+    while T % q:
+        q -= 1
+    return q
+
+
+def mamba1_param_spec(cfg) -> Dict[str, Spec]:
+    Dm, Di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    R = dt_rank(cfg)
+    return {
+        "in_proj": Spec((Dm, 2 * Di), ("embed", "mlp")),
+        "conv_w": Spec((Di, cfg.d_conv), ("mlp", "conv")),
+        "conv_b": Spec((Di,), ("mlp",), init="zeros"),
+        "x_proj": Spec((Di, R + 2 * N), ("mlp", None)),
+        "dt_proj": Spec((R, Di), (None, "mlp")),
+        "dt_bias": Spec((Di,), ("mlp",), torch.float32, init="ssm_dt"),
+        "A_log": Spec((Di, N), ("mlp", "state"), torch.float32, init="ssm_a"),
+        "Dskip": Spec((Di,), ("mlp",), torch.float32, init="ones"),
+        "out_proj": Spec((Di, Dm), ("mlp", "embed")),
+        "ln": Spec((Dm,), ("embed",), init="ones"),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along T. x: (B, T, C); w: (C, K).
+
+    ``state``: (B, K-1, C) left context for decode or a continued prefill.
+    The K taps are summed in float32 in tap order, then the bias, then one
+    cast, as in the JAX package.  Returns (y, new_state)."""
+    B, T, C = x.shape
+    K = w.shape[1]
+    if state is None:
+        state = x.new_zeros((B, K - 1, C))
+    xp = torch.cat([state, x], dim=1)  # (B, T+K-1, C)
+    y = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        y = y + xp[:, k:k + T].float() * w[:, k].float()
+    new_state = xp[:, -(K - 1):] if K > 1 else state
+    return (y + b.float()).to(x.dtype), new_state
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(exp(x) + 1) at every x (``F.softplus``
+    returns x itself above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _mamba1_scan(dt, Bm, Cm, xs, A, h, Q: int):
+    """The selective scan over T in order, ``Q`` steps a chunk.
+
+    dt: (B,T,Di) fp32; Bm/Cm: (B,T,N) fp32; xs: (B,T,Di); A: (Di,N) fp32;
+    h: (B,Di,N) fp32.  Returns (y (B,T,Di) fp32, h_T).  A chunk's ``dB x``
+    buffer takes each step's state in place, so a step is one launch and
+    the chunk's outputs one batched product."""
+    B, T, Di = dt.shape
+    ys = []
+    for t0 in range(0, T, Q):
+        dtc = dt[:, t0:t0 + Q]
+        dA = torch.exp(dtc[..., None] * A)  # (B,Q,Di,N)
+        hs = (dtc * xs[:, t0:t0 + Q].float())[..., None] \
+            * Bm[:, t0:t0 + Q, None, :]  # dB x, then h_t in place
+        for t in range(Q):
+            h = hs[:, t].addcmul_(dA[:, t], h)
+        N = hs.shape[-1]
+        ys.append(torch.bmm(hs.reshape(-1, Di, N),
+                            Cm[:, t0:t0 + Q].reshape(-1, N, 1)).view(B, Q, Di))
+    return torch.cat(ys, dim=1), h.clone()
+
+
+def mamba1_block(cfg, w, x: torch.Tensor, cache: Optional[Dict] = None):
+    """x: (B, T, D) -> (out, new_cache). cache: {'conv', 'h'} or None."""
+    B, T, _ = x.shape
+    Di, N = cfg.d_inner, cfg.ssm_state
+    R = dt_rank(cfg)
+    xz = x @ w["in_proj"]
+    xs, z = xz[..., :Di], xz[..., Di:]
+    conv_state = cache["conv"] if cache is not None else None
+    xs, new_conv = _causal_conv(xs, w["conv_w"], w["conv_b"], conv_state)
+    xs = F.silu(xs)
+
+    proj = xs @ w["x_proj"]  # (B,T,R+2N)
+    dt = _softplus(proj[..., :R].float() @ w["dt_proj"].float()
+                   + w["dt_bias"])  # (B,T,Di)
+    Bm = proj[..., R:R + N].float()
+    Cm = proj[..., R + N:].float()
+    A = -torch.exp(w["A_log"])  # (Di,N)
+
+    h0 = cache["h"] if cache is not None else torch.zeros(
+        (B, Di, N), dtype=torch.float32, device=x.device)
+    y, hT = _mamba1_scan(dt, Bm, Cm, xs, A, h0, _chunk_len(cfg.ssm_chunk, T))
+    y = y + xs.float() * w["Dskip"]
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ w["out_proj"]
+    new_cache = {"conv": new_conv, "h": hT} if cache is not None else None
+    return out, new_cache
+
+
+def mamba1_decode(cfg, w, x: torch.Tensor, cache: Dict):
+    """Single-token step. x: (B, 1, D)."""
+    return mamba1_block(cfg, w, x, cache)
+
+
+# ---------------------------------------------------------------------------
+# Falcon-Mamba LM (pure Mamba-1 stack)
+# ---------------------------------------------------------------------------
+
+
+def param_spec(cfg) -> Dict[str, Spec]:
+    return {
+        **L.embed_param_spec(cfg),
+        "layers": D._stack(mamba1_param_spec(cfg), cfg.n_layers),
+        "ln_f": Spec((cfg.d_model,), ("embed",), init="ones"),
+    }
+
+
+def cache_spec(cfg, batch: int, seq_len: int) -> Dict[str, Spec]:
+    Di, N, K = cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    return {
+        "conv": Spec((cfg.n_layers, batch, K - 1, Di),
+                     ("layers", "batch", None, "mlp")),
+        "h": Spec((cfg.n_layers, batch, Di, N),
+                  ("layers", "batch", "mlp", "state"), torch.float32),
+        "length": Spec((batch,), ("batch",), torch.int32),
+    }
+
+
+class SSMLM(nn.Module):
+    """The ssm family's model (Mamba-1 blocks, pre-norm residual).
+    ``params`` is a tree shaped like :func:`param_spec` (stacked
+    ``layers``).  The cache is ``{"conv", "h", "length"}``, of a constant
+    size: ``grow_cache`` leaves it as it is, and ``decode_step`` writes
+    each layer's new conv window and state into it in place."""
+
+    def __init__(self, cfg, params: Dict):
+        super().__init__()
+        self.cfg = cfg
+        self.emb = nn.Parameter(params["emb"], requires_grad=False)
+        self.ln_f = nn.Parameter(params["ln_f"], requires_grad=False)
+        self.layers = nn.ModuleList(
+            D.ParamTree(D._layer_slice(params["layers"], i))
+            for i in range(cfg.n_layers))
+
+    def forward(self, batch) -> torch.Tensor:
+        """Final hidden states (B, T, D)."""
+        x = L.embed_lookup(self.emb, batch["tokens"])
+        for w in self.layers:
+            x = x + mamba1_block(self.cfg, w, L.rms_norm(x, w["ln"]))[0]
+        return L.rms_norm(x, self.ln_f)
+
+    def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
+        """Run the full prompt; return (cache, last-token logits (B, 1, V)
+        in float32)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        x = L.embed_lookup(self.emb, tokens)
+        convs, hs = [], []
+        for w in self.layers:
+            zero = {
+                "conv": x.new_zeros((B, cfg.d_conv - 1, cfg.d_inner)),
+                "h": torch.zeros((B, cfg.d_inner, cfg.ssm_state),
+                                 dtype=torch.float32, device=x.device),
+            }
+            h, c = mamba1_block(cfg, w, L.rms_norm(x, w["ln"]), zero)
+            x = x + h
+            convs.append(c["conv"])
+            hs.append(c["h"])
+        x = L.rms_norm(x, self.ln_f)
+        logits = (x[:, -1:] @ self.emb.T).float()
+        cache = {"conv": torch.stack(convs), "h": torch.stack(hs),
+                 "length": torch.full((B,), T, dtype=torch.int32,
+                                      device=x.device)}
+        return cache, logits
+
+    def decode_step(self, cache: Dict, tokens: torch.Tensor
+                    ) -> Tuple[Dict, torch.Tensor]:
+        """One decode step: tokens (B, 1) -> (cache, logits (B, 1, V) in
+        float32).  Writes each layer's conv window and state into
+        ``cache`` in place (the JAX package returns a new cache) and
+        returns the same dict with ``length`` advanced."""
+        x = L.embed_lookup(self.emb, tokens)  # (B, 1, D)
+        for i, w in enumerate(self.layers):
+            out, nc = mamba1_decode(
+                self.cfg, w, L.rms_norm(x, w["ln"]),
+                {"conv": cache["conv"][i], "h": cache["h"][i]})
+            cache["conv"][i].copy_(nc["conv"])
+            cache["h"][i].copy_(nc["h"])
+            x = x + out
+        x = L.rms_norm(x, self.ln_f)
+        logits = (x @ self.emb.T).float()
+        cache["length"] = cache["length"] + 1
+        return cache, logits
+
+
+#: the family's model class, as :mod:`repro_torch.models.zoo` builds it
+Model = SSMLM

@@ -13,19 +13,20 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models import dense
+from repro_torch.models import dense, moe, ssm
 from repro_torch.models.layers import Spec, init_params
 
 FAMILY_MODULES = {
     "dense": dense,
     "vlm": dense,
+    "moe": moe,
+    "ssm": ssm,
 }
 #: where ROADMAP.md section 1 queues each family not yet ported
 NOT_PORTED = {
-    "moe": "ROADMAP.md section 1 item 9 (repro/models/moe.py)",
-    "ssm": "ROADMAP.md section 1 item 10 (repro/models/ssm.py)",
-    "hybrid": "ROADMAP.md section 1 item 10 (repro/models/hybrid.py)",
-    "encdec": "ROADMAP.md section 1 item 10 (repro/models/encdec.py)",
+    "hybrid": "ROADMAP.md section 1 item 1 (repro/models/hybrid.py, with "
+              "the Mamba-2 half of repro/models/ssm.py)",
+    "encdec": "ROADMAP.md section 1 item 2 (repro/models/encdec.py)",
 }
 
 

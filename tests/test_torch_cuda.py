@@ -6,7 +6,9 @@ language-model kernels (``rmsnorm``, ``fused_swiglu`` on each of its three
 routes, misaligned bf16 included; ``flash_attention`` in float32 and in
 bfloat16 on tensor cores, head dims up to 256) against their plain
 versions, on the caller's stream, and smoke-width
-serving on ``cuda`` against the CPU run; the PCU kernel ``motif_pcu``
+serving on ``cuda`` against the CPU run (one layer each of the MoE and
+Mamba-1 families too, and the MoE dispatch route for route); the PCU
+kernel ``motif_pcu``
 against its plain version, bit for bit in float32, and the ``ops``
 dispatchers through the kernels.
 
@@ -39,7 +41,8 @@ from repro_torch.kernels.motif_pcu import (FANIN, FANOUT, MAX_SLOTS, UNICAST,
                                            motif_pcu, motif_pcu_cuda,
                                            random_schedule)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda
-from repro_torch.models import zoo
+from repro_torch.models import moe, zoo
+from repro_torch.serve.kvcache import grow_cache
 from repro_torch.serve.loop import generate
 
 pytestmark = pytest.mark.cuda
@@ -47,6 +50,8 @@ pytestmark = pytest.mark.cuda
 #: tests/test_kernels.py's tolerances
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-3),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-1)}
+#: chip_smoke.py's tolerance of the card against the CPU, float32 logits
+PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 @pytest.fixture
@@ -510,6 +515,91 @@ def test_smoke_generate_on_card_equals_cpu(cuda):
     # per pass: ln1 + ln2 per layer and ln_f; one MLP per layer; attention
     # through flash_attention in the prefill only
     assert [a - b for a, b in zip(after, before)] == [5 * 6, 2 * 6, 2]
+
+
+@pytest.mark.parametrize("E,K", [(4, 2), (32, 8)])
+def test_moe_route_on_card_equals_cpu(cuda, E, K):
+    """The MoE dispatch on identical gates, ties and drops included: the
+    experts, slots and kept routes equal the CPU's exactly."""
+    g = torch.softmax(_randn((512, E), torch.float32, "cpu", E), dim=-1)
+    g[:8] = 1.0 / E  # all-equal rows: ties at every place
+    C = 512 * K // E // 2  # half the mean load: routes drop
+    got = moe.route(g.to(cuda), K, C)
+    want = moe.route(g, K, C)
+    for x, y in zip(got[1:], want[1:]):
+        assert torch.equal(x.cpu(), y)
+    assert got[1][:8].tolist() == [list(range(K))] * 8
+    assert not bool(want[2].all())
+    torch.testing.assert_close(got[0].cpu(), want[0], **PARITY_TOL)
+
+
+def _one_layer_on_card_and_cpu(cuda, arch):
+    cfg = smoke_config(arch).replace(n_layers=1)
+    cpu_model = zoo.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
+                               torch.float32)
+    return cfg, cpu_model, copy.deepcopy(cpu_model).to(cuda)
+
+
+@pytest.mark.parametrize("arch,swiglu", [("granite_moe_1b_a400m", 0),
+                                         ("arctic_480b", 1)])
+def test_moe_layer_on_card_equals_cpu(cuda, arch, swiglu):
+    """One MoE layer at smoke width, float32: prefill logits and kv cache
+    and two decode steps on the card against the CPU under ``PARITY_TOL``,
+    with the kernels' launches counted (ln1, ln2, ln_f a pass; flash in
+    the prefill; fused_swiglu only on arctic's dense branch)."""
+    cfg, cpu_model, card_model = _one_layer_on_card_and_cpu(cuda, arch)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 18)).astype(np.int32))
+    counters = (rmsnorm_cuda, fused_swiglu_cuda, flash_attention_cuda)
+    before = [c.launches for c in counters]
+    out = {}
+    with torch.inference_mode():
+        for name, model, dev in (("card", card_model, cuda),
+                                 ("cpu", cpu_model, "cpu")):
+            cache, logits = model.prefill({"tokens": toks[:, :16].to(dev)})
+            cache = grow_cache(cache, 2)
+            steps = [logits]
+            for i in range(2):
+                cache, logits = model.decode_step(
+                    cache, toks[:, 16 + i:17 + i].to(dev))
+                steps.append(logits)
+            out[name] = (torch.cat(steps, dim=1).cpu(), cache["k"].cpu())
+            if name == "card":
+                torch.cuda.synchronize()
+                after = [c.launches for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [3 * 3, swiglu * 3, 1]
+    for x, y in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(x, y, **PARITY_TOL)
+
+
+def test_mamba1_layer_on_card_equals_cpu(cuda):
+    """One Mamba-1 layer at smoke width, float32, over two chunks: prefill
+    logits and state cache and two decode steps on the card against the
+    CPU under ``PARITY_TOL``; the layer norm and ln_f through rmsnorm, no
+    flash."""
+    cfg, cpu_model, card_model = _one_layer_on_card_and_cpu(
+        cuda, "falcon_mamba_7b")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 34)).astype(np.int32))
+    before = (rmsnorm_cuda.launches, flash_attention_cuda.launches)
+    out = {}
+    with torch.inference_mode():
+        for name, model, dev in (("card", card_model, cuda),
+                                 ("cpu", cpu_model, "cpu")):
+            cache, logits = model.prefill({"tokens": toks[:, :32].to(dev)})
+            steps = [logits]
+            for i in range(2):
+                cache, logits = model.decode_step(
+                    cache, toks[:, 32 + i:33 + i].to(dev))
+                steps.append(logits)
+            out[name] = [torch.cat(steps, dim=1)] + [
+                cache[k] for k in ("conv", "h", "length")]
+            if name == "card":
+                torch.cuda.synchronize()
+                after = (rmsnorm_cuda.launches, flash_attention_cuda.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (2 * 3, 0)
+    for x, y in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(x.cpu(), y, **PARITY_TOL)
 
 
 MOTIF_SCHEDULES = {"fanin": FANIN, "fanout": FANOUT, "unicast": UNICAST,

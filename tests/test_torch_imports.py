@@ -65,11 +65,15 @@ def test_module_list_covers_the_package():
                  "repro_torch.configs.qwen3_14b",
                  "repro_torch.configs.stablelm_12b",
                  "repro_torch.configs.qwen2_vl_72b",
+                 "repro_torch.configs.granite_moe_1b_a400m",
+                 "repro_torch.configs.arctic_480b",
+                 "repro_torch.configs.falcon_mamba_7b",
                  "repro_torch.kernels._launch", "repro_torch.kernels.rmsnorm",
                  "repro_torch.kernels.fused_swiglu",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.motif_pcu", "repro_torch.kernels.ops",
                  "repro_torch.models.layers", "repro_torch.models.dense",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
                  "repro_torch.models.zoo", "repro_torch.models.convert",
                  "repro_torch.serve.kvcache", "repro_torch.serve.loop",
                  "repro_torch.launch.serve"):

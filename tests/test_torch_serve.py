@@ -136,7 +136,7 @@ def test_specs_and_input_specs_match_jax():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.param_spec(smoke_config("llama3_2_3b").replace(family="moe"))
+        zoo.param_spec(smoke_config("llama3_2_3b").replace(family="hybrid"))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("whisper_tiny")
 
