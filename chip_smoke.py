@@ -44,20 +44,26 @@ Phases, in order; any failure exits non-zero before the last line:
    one call); flash and SDPA at a 2000-token prefill; then the host time
    of one ``rmsnorm_cuda`` call at (4, 3072), part by part;
 6. serve phase: ``python -m repro_torch.launch.serve --arch A --batch 4
-   --prompt-len 500 --new-tokens 32`` on ``cuda`` at full width and depth
-   for A = llama3_2_3b, stablelm_12b (dense), granite_moe_1b_a400m (moe)
-   and falcon_mamba_7b (ssm, Mamba-1) (the second main path, with the
-   launch counters read just around each run): tokens (4, 32), cache
-   length 531, finite logits, exactly the launches of ``serve_launches``
-   (rmsnorm / fused_swiglu / flash_attention: 1824 / 896 / 28, 2592 /
-   1280 / 40, 1568 / 0 / 24 and 2080 / 0 / 0); for granite the routes
-   dropped in the prefill per layer; a ``torch.profiler`` trace of the
-   prefill (run again) and of one decode step; for llama, in float32 at full width and depth, 4
-   teacher-forced decode steps against a full forward (``DECODE_TOL``);
-   then for each model the card against the CPU at full width and 2
-   layers (``PARITY_TOL``; the moe and ssm models' 2 layers sliced from
-   the full draw), with granite's dispatch of each layer equal route for
-   route to the CPU's on the same input;
+   --prompt-len P --new-tokens 32`` on ``cuda`` at full width and depth
+   for A = llama3_2_3b, stablelm_12b (dense), granite_moe_1b_a400m (moe),
+   falcon_mamba_7b (ssm, Mamba-1) and zamba2_1_2b (hybrid, Mamba-2 and a
+   shared attention block), P = 500, and whisper_tiny (encdec, with 1500
+   audio frames a sequence), P = 224 (``SERVE_SHAPES``; the second main
+   path, with the launch counters read just around each run): tokens (4,
+   32), cache length P + 31, finite logits, exactly the launches of
+   ``serve_launches`` (rmsnorm / fused_swiglu / flash_attention: 1824 /
+   896 / 28, 2592 / 1280 / 40, 1568 / 0 / 24, 2080 / 0 / 0, 2848 / 192 /
+   6 and 425 / 132 / 4); for granite the routes dropped in the prefill
+   per layer; a ``torch.profiler`` trace of the prefill (run again) and of
+   one decode step, and the peak device memory; for llama, in float32 at
+   full width and depth, 4 teacher-forced decode steps against a full
+   forward (``DECODE_TOL``); then for each model the card against the CPU
+   at full width in float32 (``PARITY_TOL``): 2 layers (the moe and ssm
+   models' sliced from the full draw), zamba2 at 7 layers sliced so (one
+   shared site and one tail layer, ``ssm_chunk`` 64 so that the prompt
+   spans two chunks) and whisper_tiny at its full depth, with granite's
+   dispatch of each layer equal route for route to the CPU's on the same
+   input;
 7. motif phase: ``motif_pcu`` against its plain version on the card, bit
    for bit in float32 on FANIN, FANOUT and UNICAST (inputs mixing NaN,
    +-inf and +-0 in their first columns) and on three seeded random
@@ -130,9 +136,11 @@ DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
 #: the card (kernels) against the CPU (plain versions), float32 logits
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
 #: the served models at full width and depth: the fields of each config
-#: that are checked before the counts (attention widths for the dense and
-#: moe families, experts and top_k for moe; d_inner, state and conv for
-#: ssm); each runs batch 4 x prompt 500 x 32 new tokens in bf16 from seed 0
+#: that are checked before the counts (attention widths for the families
+#: with attention, experts and top_k for moe; d_inner, state and conv for
+#: ssm; d_inner, state, SSM heads and the shared block's period for
+#: hybrid; the encoder's depth and frames for encdec); each runs the
+#: traffic of ``SERVE_SHAPES`` in bf16 from seed 0
 _LM = ("n_layers", "d_model", "vocab_size")
 _ATTN = ("n_heads", "n_kv_heads", "resolved_head_dim", "d_ff")
 SERVED = {
@@ -145,9 +153,18 @@ SERVED = {
         (24, 1024, 49155, 16, 8, 64, 512, 32, 8, 0))),
     "falcon_mamba_7b": dict(zip(_LM + ("d_inner", "ssm_state", "d_conv"),
                                 (64, 4096, 65024, 8192, 16, 4))),
+    "zamba2_1_2b": dict(zip(
+        _LM + ("d_inner", "ssm_state", "n_ssm_heads", "attn_every") + _ATTN,
+        (38, 2048, 32000, 4096, 64, 64, 6, 32, 32, 64, 8192))),
+    "whisper_tiny": dict(zip(_LM + ("n_enc_layers", "enc_seq") + _ATTN,
+                             (4, 384, 51865, 4, 1500, 6, 6, 64, 1536))),
 }
-SERVE_ARGS = ["--batch", "4", "--prompt-len", "500", "--new-tokens", "32",
-              "--device", "cuda"]
+#: each served model's traffic: (batch, prompt length, new tokens).  Whisper
+#: reads 30 s of audio a window (1500 frames) and its published text
+#: context is 448 tokens; a 224-token prompt is the previous window's text
+#: that long-form transcription conditions on (its prompt limit, 448 // 2)
+SERVE_SHAPES = {arch: (4, 500, 32) for arch in SERVED}
+SERVE_SHAPES["whisper_tiny"] = (4, 224, 32)
 
 
 class SmokeFailure(RuntimeError):
@@ -1047,24 +1064,26 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def teacher_forced(model, prompts, follow, steps: int):
+def teacher_forced(model, prompts, follow, steps: int, extra=None):
     """Logits of ``steps`` decode steps fed ``follow`` after a prefill of
-    ``prompts``, and the full forward's logits at the same positions (the
-    MoE family's ``forward`` returns ``(h, aux)``)."""
+    ``prompts`` (with the ``extra`` inputs of a full-sequence batch, the
+    encdec's audio), and the full forward's logits at the same positions
+    (the MoE family's ``forward`` returns ``(h, aux)``)."""
     import torch
 
     from repro_torch.serve.kvcache import grow_cache
 
     T = prompts.shape[1]
+    extra = extra or {}
     with torch.inference_mode():
-        cache, _ = model.prefill({"tokens": prompts})
+        cache, _ = model.prefill({"tokens": prompts, **extra})
         cache = grow_cache(cache, steps, window=model.cfg.sliding_window)
         dec = []
         for i in range(steps):
             cache, logits = model.decode_step(cache, follow[:, i:i + 1])
             dec.append(logits[:, 0])
         h = model.forward({"tokens": torch.cat([prompts, follow[:, :steps]],
-                                               dim=1)})
+                                               dim=1), **extra})
         if isinstance(h, tuple):
             h = h[0]
         full = (h[:, T:T + steps] @ model.emb.T).float()
@@ -1081,12 +1100,15 @@ def serve_phase(arch: str, decode_check: bool):
 
     from repro_torch.launch.serve import run as serve_run
 
+    batch, prompt_len, new = SERVE_SHAPES[arch]
+    args = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt_len), "--new-tokens", str(new), "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        out = serve_run(["--arch", arch, *SERVE_ARGS])
+        out = serve_run(args)
     wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1096,9 +1118,11 @@ def serve_phase(arch: str, decode_check: bool):
     layers = cfg.n_layers
     require({k: getattr(cfg, k) for k in SERVED[arch]} == SERVED[arch],
             f"not the full {arch} config: {cfg}")
-    require(tuple(tokens.shape) == (4, 32), f"tokens {tuple(tokens.shape)}")
-    require(info["cache_length"] == 531,
-            f"cache length {info['cache_length']}, want 500 + 31")
+    require(tuple(tokens.shape) == (batch, new),
+            f"tokens {tuple(tokens.shape)}")
+    require(info["cache_length"] == prompt_len + new - 1,
+            f"cache length {info['cache_length']}, want {prompt_len} + "
+            f"{new - 1}")
     require(info["logits_finite"], "non-finite logits")
     want = dict.fromkeys(counts, 0)
     want.update(serve_launches(cfg))
@@ -1114,14 +1138,15 @@ def serve_phase(arch: str, decode_check: bool):
           f"peak device memory {peak:.3f} GiB; launches {counts}")
 
     model, prompts = out["model"], out["prompts"]
+    extra = out["extra_batch"] or {}
     # the served prefill again, traced (and its MoE dispatch recorded)
     with torch.inference_mode(), recorded_moe() as calls, profile(
             activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cache, _ = model.prefill({"tokens": prompts})
+        cache, _ = model.prefill({"tokens": prompts, **extra})
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    report_trace(prof, "the prefill (batch 4 x 500)",
+    report_trace(prof, f"the prefill (batch {batch} x {prompt_len})",
                  info["prefill_s"] * 1e3, traced_ms)
     if calls:  # the same prefill as the served one: its dispatch
         from repro_torch.models.moe import moe_capacity
@@ -1156,12 +1181,24 @@ def serve_phase(arch: str, decode_check: bool):
 def serve_launches(cfg):
     """The kernels' launches in one serve run (1 prefill + 31 decode
     steps, 32 passes): rmsnorm ln1 + ln2 a layer and ln_f a pass (one ln
-    a Mamba-1 layer); fused_swiglu one MLP a dense layer a pass (only
-    arctic's dense branch among the MoE configs); flash_attention a layer
-    in the prefill only (none in Mamba-1)."""
+    a Mamba-1 layer; ln and the gated norm a Mamba-2 layer, ln1 + ln2 a
+    shared-attention site; ln1, ln_x and ln2 a decoder layer, and once in
+    the prefill 2 an encoder layer and ln_enc); fused_swiglu one MLP a
+    dense layer or site a pass (only arctic's dense branch among the MoE
+    configs; an encoder layer's once); flash_attention a causal
+    self-attention layer or site in the prefill only (none in Mamba-1;
+    the encoder and cross-attention are non-causal and take none)."""
     L = cfg.n_layers
     if cfg.family == "ssm":
         return {"rmsnorm": (L + 1) * 32}
+    if cfg.family == "hybrid":
+        sites = L // cfg.attn_every
+        return {"rmsnorm": (2 * L + 2 * sites + 1) * 32,
+                "fused_swiglu": sites * 32, "flash_attention": sites}
+    if cfg.family == "encdec":
+        enc = cfg.n_enc_layers
+        return {"rmsnorm": 2 * enc + 1 + (3 * L + 1) * 32,
+                "fused_swiglu": enc + L * 32, "flash_attention": L}
     swiglu = cfg.family != "moe" or bool(cfg.moe_dense_ff)
     return {"rmsnorm": (2 * L + 1) * 32, "fused_swiglu": swiglu * L * 32,
             "flash_attention": L}
@@ -1207,7 +1244,9 @@ def zoo_init(cfg, dtype):
 
 def first_layers(cfg, n: int, dtype, device: str = "cuda"):
     """The first ``n`` layers of the model at ``cfg``, its weights drawn on
-    ``device`` from ``SEED`` at the full depth and sliced.  ``init_params``
+    ``device`` from ``SEED`` at the full depth and sliced (the hybrid's
+    stacked ``mamba`` layers; its ``shared`` block is kept whole).
+    ``init_params``
     divides a stacked weight by the square root of its layer count (the
     JAX ``init_of`` rule), so a model drawn at 2 layers has weights
     sqrt(L / 2) times those of the full model's layers.  falcon_mamba_7b
@@ -1226,7 +1265,8 @@ def first_layers(cfg, n: int, dtype, device: str = "cuda"):
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = init_params(zoo.param_spec(cfg), gen, device, dtype)
-    params["layers"] = head(params["layers"])
+    stacked = "mamba" if cfg.family == "hybrid" else "layers"
+    params[stacked] = head(params[stacked])
     return zoo.build(cfg.replace(n_layers=n), params)
 
 
@@ -1280,45 +1320,66 @@ def report_trace(prof, what: str, wall_ms: float, traced_ms: float) -> None:
               f"{e.count:5d}x {e.key[:90]}")
 
 
+#: the parity phase's depth a model (2 where not listed): zamba2 at 7
+#: layers, one shared-attention site and one tail layer, so that both the
+#: group path and the tail run; whisper_tiny at its full 4 + 4
+PARITY_LAYERS = {"zamba2_1_2b": 7, "whisper_tiny": 4}
+#: the hybrid's SSD chunk in the parity phase: a 128-token prompt spans two
+PARITY_SSM_CHUNK = 64
+
+
 def parity_phase(arch: str) -> None:
-    """Full width, 2 layers, float32: the port on the card (kernels) against
-    the port on the CPU (plain versions), same weights and prompts: prefill
-    and 4 teacher-forced decode steps.  For an MoE model the card's
-    dispatch of each layer in the prefill (experts, slots, kept routes)
-    must equal the CPU's on the same input exactly (``dispatch_parity``).
-    The MoE and SSM models take the first 2 layers of the full model
-    (``first_layers``); the dense ones keep their 2-layer draw.
+    """Full width, float32, ``PARITY_LAYERS`` deep: the port on the card
+    (kernels) against the port on the CPU (plain versions), same weights
+    and prompts (and audio frames for the encdec): prefill and 4
+    teacher-forced decode steps.  For an MoE model the card's dispatch of
+    each layer in the prefill (experts, slots, kept routes) must equal the
+    CPU's on the same input exactly (``dispatch_parity``).  The MoE, SSM
+    and hybrid models take their first layers of the full model
+    (``first_layers``); the dense ones keep their 2-layer draw, whisper
+    its full one.
     """
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch).replace(n_layers=2)
-    if cfg.family in ("moe", "ssm"):
-        card = first_layers(get_config(arch), 2, torch.float32)
+    n = PARITY_LAYERS.get(arch, 2)
+    full = get_config(arch)
+    if full.family == "hybrid":
+        full = full.replace(ssm_chunk=PARITY_SSM_CHUNK)
+    cfg = full.replace(n_layers=n)
+    if cfg.family in ("moe", "ssm", "hybrid"):
+        card = first_layers(full, n, torch.float32)
     else:
         card = zoo_init(cfg, torch.float32)
     cpu = copy.deepcopy(card).to("cpu")
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 132)).astype(
         np.int32))
+    extra = {}
+    if cfg.family == "encdec":
+        extra["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    on_card = {k: v.cuda() for k, v in extra.items()}
     with torch.inference_mode(), recorded_moe() as calls:
-        got = [card.prefill({"tokens": toks[:, :128].cuda()})[1]]
+        got = [card.prefill({"tokens": toks[:, :128].cuda(), **on_card})[1]]
         n_card = len(calls)
-        want = [cpu.prefill({"tokens": toks[:, :128]})[1]]
+        want = [cpu.prefill({"tokens": toks[:, :128], **extra})[1]]
     if calls:
         dispatch_parity(arch, cpu, calls[:n_card], calls[n_card:])
     dec_c, full_c = teacher_forced(card, toks[:, :128].cuda(),
-                                      toks[:, 128:].cuda(), 4)
-    dec_h, full_h = teacher_forced(cpu, toks[:, :128], toks[:, 128:], 4)
-    err = max(_close(f"card vs CPU {arch} {what} (f32, full width, 2 "
-                     "layers)",
-                     g.cpu(), w, PARITY_TOL)[0]
+                                   toks[:, 128:].cuda(), 4, on_card)
+    dec_h, full_h = teacher_forced(cpu, toks[:, :128], toks[:, 128:], 4,
+                                   extra)
+    depth = f"{n} layers" if cfg.family != "encdec" else \
+        f"{cfg.n_enc_layers} + {n} layers, {cfg.enc_seq} audio frames"
+    err = max(_close(f"card vs CPU {arch} {what} (f32, full width, "
+                     f"{depth})", g.cpu(), w, PARITY_TOL)[0]
               for what, g, w in (("prefill logits", got[0], want[0]),
                                  ("decode logits", dec_c, dec_h),
                                  ("forward logits", full_c, full_h)))
-    print(f"parity: {arch} full width, 2 layers, f32, batch 2, prompt 128, "
+    print(f"parity: {arch} full width, {depth}, f32, batch 2, prompt 128, "
           f"4 teacher-forced steps: the card's kernels equal the CPU's plain "
           f"versions (rtol {PARITY_TOL['rtol']} atol {PARITY_TOL['atol']}); "
           f"max abs diff {err:.6g}")

@@ -3,9 +3,9 @@
 ``ModelConfig`` fully describes one architecture; ``ShapeSpec`` one
 (seq_len, global_batch, kind) input-shape cell.  Configs live in
 ``repro_torch.configs.<arch_id>`` and register themselves in
-``ARCH_REGISTRY`` via ``register``.  Only the configs of the families the
-port runs are copied (dense, vlm, moe and ssm); :func:`get_config` raises
-``NotImplementedError`` for the others.
+``ARCH_REGISTRY`` via ``register``.  Every served architecture's config
+is copied (dense, vlm, moe, ssm, hybrid and encdec); :func:`get_config`
+raises ``NotImplementedError`` for an id it does not know.
 """
 from __future__ import annotations
 
@@ -189,12 +189,15 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-#: the architectures whose configs the port carries (dense, vlm, moe, ssm)
+#: the architectures whose configs the port carries (dense, vlm, moe, ssm,
+#: hybrid, encdec)
 PORTED_ARCH_IDS = [
     "stablelm_12b",
     "qwen3_14b",
     "llama3_2_3b",
     "h2o_danube_3_4b",
+    "zamba2_1_2b",
+    "whisper_tiny",
     "arctic_480b",
     "granite_moe_1b_a400m",
     "falcon_mamba_7b",
@@ -207,8 +210,8 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_REGISTRY:
         if arch_id not in PORTED_ARCH_IDS:
             raise NotImplementedError(
-                f"{arch_id}: not ported yet (ROADMAP.md section 1 lists the "
-                f"families still to port); ported: {PORTED_ARCH_IDS}")
+                f"{arch_id}: not a ported architecture; ported: "
+                f"{PORTED_ARCH_IDS}")
         importlib.import_module(f"repro_torch.configs.{arch_id}")
     return ARCH_REGISTRY[arch_id]
 

@@ -1,6 +1,6 @@
 """Serving launcher of the port: random weights from a seed, a batch of
 random prompts, greedy decoding on the card, for every ported family
-(dense, vlm, moe, ssm).
+(dense, vlm, moe, ssm, hybrid, encdec).
 
     python -m repro_torch.launch.serve --arch llama3_2_3b --batch 4 \\
         --prompt-len 500 --new-tokens 32               # full config, cuda
@@ -10,12 +10,18 @@ random prompts, greedy decoding on the card, for every ported family
         --batch 4 --prompt-len 500 --new-tokens 32     # MoE, full config
     python -m repro_torch.launch.serve --arch falcon_mamba_7b --smoke \\
         --device cpu                                   # Mamba-1, reduced
+    python -m repro_torch.launch.serve --arch zamba2_1_2b --batch 4 \\
+        --prompt-len 500 --new-tokens 32               # Mamba-2 hybrid
+    python -m repro_torch.launch.serve --arch whisper_tiny --batch 4 \\
+        --prompt-len 224 --new-tokens 32               # encoder-decoder
 
 Without ``--smoke`` the full config runs (the JAX launcher's ``--smoke``
 is always on; here it is off unless given).  Prompts are drawn with numpy
-from ``--seed``; weights with a ``torch.Generator`` seeded from it on the
-device, in each parameter's spec dtype (bfloat16; float32 for the MoE
-router and the SSM's ``dt_bias``, ``A_log`` and ``Dskip``).  Prints the
+from ``--seed``, and after them the vlm's embeddings and the encdec's
+audio-frame embeddings (B, enc_seq, d_model), both in bfloat16; weights
+with a ``torch.Generator`` seeded from it on the device, in each
+parameter's spec dtype (bfloat16; float32 for the MoE router and the
+SSMs' ``dt_bias``, ``A_log`` and ``Dskip``).  Prints the
 generated tokens, the cache length, the prefill time and the decode time
 per token.
 """
@@ -71,6 +77,10 @@ def run(argv: Optional[List[str]] = None) -> Dict:
             "positions": torch.from_numpy(
                 np.stack([pos, pos, pos], axis=1).copy()).to(device),
         }
+    elif cfg.family == "encdec":
+        extra = {"audio_embeds": torch.from_numpy(
+            rng.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(
+                np.float32)).to(device=device, dtype=torch.bfloat16)}
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t0

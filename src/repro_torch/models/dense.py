@@ -190,42 +190,58 @@ class DenseLM(nn.Module):
         and slot position into ``cache`` in place and returns the same
         dict with ``length`` advanced: ``grow_cache`` preallocated the
         room."""
-        cfg = self.cfg
-        B = tokens.shape[0]
-        S = cache["k"].shape[2]
-        hd = cfg.resolved_head_dim
-        length = cache["length"]  # (B,)
-        positions = length[:, None]  # (B, 1)
-        if cfg.m_rope:
-            positions = positions[:, None, :].expand(B, 3, 1)
-
+        step = decode_slots(self.cfg, cache)
         x = L.embed_lookup(self.emb, tokens)
-        slot = length % S  # (B,)
-        barange = torch.arange(B, device=tokens.device)
-
-        cache["pos"][barange, slot] = length
-        new_pos = cache["pos"]
-        if cfg.sliding_window:
-            valid = (new_pos >= 0) & ((length[:, None] - new_pos)
-                                      < cfg.sliding_window)
-        else:
-            valid = new_pos >= 0
-        valid &= new_pos <= length[:, None]
-
         for i, w in enumerate(self.layers):
-            h = L.rms_norm(x, w["ln1"])
-            q, k, v = L.attention_qkv(cfg, w["attn"], h, positions)
-            kc, vc = cache["k"][i], cache["v"][i]
-            kc[barange, slot] = k.reshape(B, -1)
-            vc[barange, slot] = v.reshape(B, -1)
-            o = L.decode_attention(q, kc.view(B, S, cfg.n_kv_heads, hd),
-                                   vc.view(B, S, cfg.n_kv_heads, hd), valid)
-            x = x + o.reshape(B, 1, -1) @ w["attn"]["wo"]
+            x = x + decode_self_attention(
+                self.cfg, w["attn"], L.rms_norm(x, w["ln1"]), cache["k"][i],
+                cache["v"][i], step)
             x = x + self._ffn(w, L.rms_norm(x, w["ln2"]))[0]
         x = L.rms_norm(x, self.ln_f)
         logits = (x @ self.emb.T).float()
-        cache["length"] = length + 1
+        cache["length"] = cache["length"] + 1
         return cache, logits
+
+
+def decode_slots(cfg, cache: Dict) -> Dict:
+    """The bookkeeping of one decode step over a KV cache, shared by every
+    family that keeps one: writes each sequence's position into its slot
+    (``length % S``, a ring under a sliding window) and returns the step's
+    ``positions`` (B, 1) (B, 3, 1 under M-RoPE), ``slot``, ``barange``
+    and ``valid`` (B, S), the live slots."""
+    length = cache["length"]  # (B,)
+    B, S = cache["pos"].shape
+    positions = length[:, None]  # (B, 1)
+    if cfg.m_rope:
+        positions = positions[:, None, :].expand(B, 3, 1)
+    slot = length % S
+    barange = torch.arange(B, device=length.device)
+    cache["pos"][barange, slot] = length
+    new_pos = cache["pos"]
+    if cfg.sliding_window:
+        valid = (new_pos >= 0) & ((length[:, None] - new_pos)
+                                  < cfg.sliding_window)
+    else:
+        valid = new_pos >= 0
+    valid &= new_pos <= length[:, None]
+    return {"positions": positions, "slot": slot, "barange": barange,
+            "valid": valid}
+
+
+def decode_self_attention(cfg, w, h: torch.Tensor, kc: torch.Tensor,
+                          vc: torch.Tensor, step: Dict) -> torch.Tensor:
+    """One token's self-attention on the normed ``h`` (B, 1, D) against
+    one layer's cache ``kc``/``vc`` (B, S, kvd): writes the token's k and
+    v at ``step["slot"]`` in place, returns the projected output (B, 1,
+    D)."""
+    B, S = kc.shape[:2]
+    hd = cfg.resolved_head_dim
+    q, k, v = L.attention_qkv(cfg, w, h, step["positions"])
+    kc[step["barange"], step["slot"]] = k.reshape(B, -1)
+    vc[step["barange"], step["slot"]] = v.reshape(B, -1)
+    o = L.decode_attention(q, kc.view(B, S, cfg.n_kv_heads, hd),
+                           vc.view(B, S, cfg.n_kv_heads, hd), step["valid"])
+    return o.reshape(B, 1, -1) @ w["wo"]
 
 
 #: the family's model class, as :mod:`repro_torch.models.zoo` builds it

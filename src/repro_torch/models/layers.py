@@ -267,12 +267,33 @@ def attention_qkv(cfg, w, x, positions):
 
 
 def attention_layer(cfg, w, x, positions, *, causal=True,
-                    attn_impl="banded"):
-    """Self-attention over a full sequence (prefill).  Returns (out, (k,
-    v)) so prefill can build the cache.  Cross-attention (``cross_x``)
-    belongs to the encoder-decoder family and is not ported yet."""
+                    attn_impl="banded",
+                    cross_x: Optional[torch.Tensor] = None):
+    """Self- or cross-attention over a full sequence (prefill).  Returns
+    (out, (k, v)) so prefill can build the cache.
+
+    ``cross_x``: encoder hidden states (B, S, D).  k and v are projected
+    from them (no RoPE; q gets RoPE at ``positions``) and the attention is
+    bidirectional over the encoder axis.  Causal self-attention goes
+    through the ``flash_attention`` kernel; non-causal attention (the
+    encoder, cross-attention, whose q and k lengths differ) is
+    :func:`naive_attention`, as the JAX package computes it."""
     B, T, _ = x.shape
-    q, k, v = attention_qkv(cfg, w, x, positions)
+    hd = cfg.resolved_head_dim
+    if cross_x is None:
+        q, k, v = attention_qkv(cfg, w, x, positions)
+    else:
+        q = (x @ w["wq"]).reshape(B, T, cfg.n_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, w["q_norm"])
+        q = apply_rope(q, positions, cfg.rope_theta,
+                       cfg.m_rope_sections if cfg.m_rope else None)
+        S = cross_x.shape[1]
+        k = (cross_x @ w["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+        v = (cross_x @ w["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, w["k_norm"])
+        causal = False
     if attn_impl == "banded" and causal:
         o = banded_attention(q, k, v, causal=causal,
                              window=cfg.sliding_window)

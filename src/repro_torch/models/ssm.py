@@ -1,5 +1,5 @@
-"""State-space LM: Mamba-1 (falcon-mamba-7b), the port of the Mamba-1 half
-of ``repro/models/ssm.py``.
+"""State-space models: Mamba-1 (falcon-mamba-7b) and Mamba-2 (SSD, the
+backbone of zamba2's hybrid), the port of ``repro/models/ssm.py``.
 
 The recurrence h_t = dA_t * h_{t-1} + dB_t x_t has a per-(channel, state)
 decay.  The JAX package runs it as a nested ``lax.scan`` (chunks outside,
@@ -11,7 +11,13 @@ the scan (``repro/models/ssm.py:10`` names a ``selective_scan`` that the
 JAX package does not have), so the scan is plain PyTorch; the layer norms
 go through the ``rmsnorm`` kernel.
 
-Mamba-2 (SSD) is not ported yet; ``hybrid.py`` (zamba2) is its only user.
+Mamba-2 has one scalar decay a head, so the scan becomes the chunked SSD:
+within a chunk an attention-like causal product, across chunks a carried
+(B, H, P, N) state.  The JAX package computes it as einsums outside any
+kernel; here it is plain PyTorch as well, written as explicit batched
+products (:func:`_ssd`, whose decays are segment sums where the JAX
+package subtracts prefix sums).  Its only user is ``hybrid.py``
+(zamba2).
 """
 from __future__ import annotations
 
@@ -133,6 +139,105 @@ def mamba1_block(cfg, w, x: torch.Tensor, cache: Optional[Dict] = None):
 def mamba1_decode(cfg, w, x: torch.Tensor, cache: Dict):
     """Single-token step. x: (B, 1, D)."""
     return mamba1_block(cfg, w, x, cache)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# ---------------------------------------------------------------------------
+
+
+def mamba2_param_spec(cfg) -> Dict[str, Spec]:
+    Dm, Di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    H = cfg.n_ssm_heads
+    return {
+        "wz": Spec((Dm, Di), ("embed", "mlp")),
+        "wx": Spec((Dm, Di), ("embed", "mlp")),
+        "wB": Spec((Dm, N), ("embed", None)),
+        "wC": Spec((Dm, N), ("embed", None)),
+        "wdt": Spec((Dm, H), ("embed", None)),
+        "conv_w": Spec((Di, cfg.d_conv), ("mlp", "conv")),
+        "conv_b": Spec((Di,), ("mlp",), init="zeros"),
+        "dt_bias": Spec((H,), (None,), torch.float32, init="ssm_dt"),
+        "A_log": Spec((H,), (None,), torch.float32, init="ssm_a"),
+        "Dskip": Spec((H,), (None,), torch.float32, init="ones"),
+        "norm": Spec((Di,), ("mlp",), init="ones"),
+        "out_proj": Spec((Di, Dm), ("mlp", "embed")),
+        "ln": Spec((Dm,), ("embed",), init="ones"),
+    }
+
+
+def _ssd(la, Bm, Cm, xh, h, Q: int):
+    """The chunked SSD scan, ``Q`` steps a chunk, heads first.
+
+    la: (B,H,T) fp32 log-decay per step; Bm/Cm: (B,T,N) fp32; xh:
+    (B,H,T,P) fp32; h: (B,H,P,N) fp32.  Returns (y (B,H,T,P) fp32, h_T).
+    Per chunk, with seg(t, s) = la_{s+1} + ... + la_t and cum_t the
+    in-chunk prefix sum: the causal term ``(C_t . B_s) exp(seg(t, s)) x_s``
+    for s <= t, the carry-in ``exp(cum_t) C_t . h``, and the update
+    ``h' = exp(cum_Q) h + sum_s exp(seg(Q, s)) x_s B_s``.
+
+    The JAX package takes seg(t, s) as ``cum_t - cum_s``.  At zamba2's
+    width a chunk's prefix sums reach about -9e3, where a float32 ulp is
+    1e-3, so a decay that matters (seg near 0) is off by that much
+    relative.
+    Here each segment is summed from zero, the same function, rounded
+    where it stays small (``scripts/ssd_parity_conditioning.py`` holds
+    both forms against a float64 run).  The (Q, Q) terms are kept
+    transposed, [s, t], so that the segment sums are a cumsum along the
+    contiguous axis: CUDA's scan along an outer axis is many times
+    slower."""
+    T = la.shape[-1]
+    ones = torch.ones((Q, Q), dtype=torch.bool, device=la.device)
+    causal, strict = ones.triu(), ones.triu(1)  # [s, t]: t >= s, t > s
+    ys = []
+    for t0 in range(0, T, Q):
+        lac = la[..., t0:t0 + Q]  # (B,H,Q)
+        cum = lac.cumsum(-1)
+        seg = lac[..., None, :].expand(lac.shape[:-1] + (Q, Q)).masked_fill(
+            ~strict, 0.0).cumsum(-1)  # (B,H,Q,Q) [s, t] = seg(t, s)
+        bc, cc = Bm[:, None, t0:t0 + Q], Cm[:, None, t0:t0 + Q]  # (B,1,Q,N)
+        xc = xh[:, :, t0:t0 + Q]  # (B,H,Q,P)
+        dec_from = seg[..., -1].exp()  # (B,H,Q) decay s -> end
+        # t < s: -inf before the exp, so 0 (the JAX form's exp overflows
+        # there, and a product with a 0/1 mask gives NaN)
+        decay = seg.masked_fill_(~causal, float("-inf")).exp_()
+        scores = (bc @ cc.transpose(-1, -2)) * decay  # [s, t]
+        y = scores.transpose(-1, -2) @ xc \
+            + (cc @ h.transpose(-1, -2)) * cum.exp()[..., None]
+        h = cum[..., -1].exp()[..., None, None] * h \
+            + (xc * dec_from[..., None]).transpose(-1, -2) @ bc
+        ys.append(y)
+    return torch.cat(ys, dim=2), h
+
+
+def mamba2_block(cfg, w, x: torch.Tensor, cache: Optional[Dict] = None):
+    """Chunked SSD. x: (B, T, D) -> (out, new_cache). cache: {'conv', 'h'}
+    or None.  The gated norm keeps the JAX order: y cast to the
+    activation dtype, times ``silu(z)`` in that dtype, then the
+    ``rmsnorm`` kernel over rows of d_inner."""
+    B, T, _ = x.shape
+    Di, H = cfg.d_inner, cfg.n_ssm_heads
+    P = Di // H
+    z = x @ w["wz"]
+    xs = x @ w["wx"]
+    conv_state = cache["conv"] if cache is not None else None
+    xs, new_conv = _causal_conv(xs, w["conv_w"], w["conv_b"], conv_state)
+    xs = F.silu(xs)
+    Bm = (x @ w["wB"]).float()  # (B,T,N)
+    Cm = (x @ w["wC"]).float()
+    dt = _softplus((x @ w["wdt"]).float() + w["dt_bias"])  # (B,T,H)
+    la = (dt * -torch.exp(w["A_log"])).transpose(1, 2)  # (B,H,T)
+    xh = xs.view(B, T, H, P).float()
+    h0 = cache["h"].float() if cache is not None else torch.zeros(
+        (B, H, P, cfg.ssm_state), dtype=torch.float32, device=x.device)
+    y, hT = _ssd(la, Bm, Cm, xh.transpose(1, 2), h0,
+                 _chunk_len(cfg.ssm_chunk, T))
+    y = y.transpose(1, 2) + xh * w["Dskip"][:, None]  # (B,T,H,P)
+    y = y.reshape(B, T, Di).to(x.dtype)
+    y = L.rms_norm(y * F.silu(z), w["norm"])
+    out = y @ w["out_proj"]
+    new_cache = {"conv": new_conv, "h": hT} if cache is not None else None
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 
 Every family module exposes ``param_spec``, ``cache_spec`` and its model
 class as ``Model``, with ``forward``, ``prefill`` and ``decode_step``
-methods; callers hold the built model and call those methods.  Families
-not yet ported raise ``NotImplementedError`` naming their ROADMAP item.
+methods; callers hold the built model and call those methods.  Every
+family of the JAX package's zoo is ported; an unknown family raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models import dense, moe, ssm
+from repro_torch.models import dense, encdec, hybrid, moe, ssm
 from repro_torch.models.layers import Spec, init_params
 
 FAMILY_MODULES = {
@@ -21,21 +22,16 @@ FAMILY_MODULES = {
     "vlm": dense,
     "moe": moe,
     "ssm": ssm,
-}
-#: where ROADMAP.md section 1 queues each family not yet ported
-NOT_PORTED = {
-    "hybrid": "ROADMAP.md section 1 item 1 (repro/models/hybrid.py, with "
-              "the Mamba-2 half of repro/models/ssm.py)",
-    "encdec": "ROADMAP.md section 1 item 2 (repro/models/encdec.py)",
+    "hybrid": hybrid,
+    "encdec": encdec,
 }
 
 
 def get_module(cfg: ModelConfig):
     if cfg.family not in FAMILY_MODULES:
-        where = NOT_PORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: "
-            f"{where}")
+            f"family {cfg.family!r} ({cfg.arch_id}) is not a ported family: "
+            f"{sorted(FAMILY_MODULES)}")
     return FAMILY_MODULES[cfg.family]
 
 
@@ -77,7 +73,10 @@ def input_spec(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Spec]:
             batch["embeds"] = Spec((B, T, cfg.d_model), ("batch", "seq", None))
             batch["positions"] = Spec((B, 3, T), ("batch", None, "seq"),
                                       torch.int32)
-        # vlm: for cache bookkeeping
+        elif cfg.family == "encdec":
+            batch["audio_embeds"] = Spec((B, cfg.enc_seq, cfg.d_model),
+                                         ("batch", None, None))
+        # the vlm's tokens serve the cache bookkeeping only
         batch["tokens"] = Spec((B, T), ("batch", "seq"), torch.int32)
         return batch
     if shape.kind == "decode":

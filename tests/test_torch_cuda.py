@@ -602,6 +602,70 @@ def test_mamba1_layer_on_card_equals_cpu(cuda):
         torch.testing.assert_close(x.cpu(), y, **PARITY_TOL)
 
 
+def _card_and_cpu_serve(cuda, cfg, T: int, extra=None):
+    """Prefill of ``T`` tokens and two decode steps of the smoke model at
+    ``cfg`` in float32, on the card and on the CPU from the same weights:
+    (card logits and cache, CPU logits and cache, the kernels' launches on
+    the card)."""
+    cpu_model = zoo.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
+                               torch.float32)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, T + 2)).astype(np.int32))
+    counters = (rmsnorm_cuda, fused_swiglu_cuda, flash_attention_cuda)
+    out = {}
+    with torch.inference_mode():
+        for name, model, dev in (("card", card_model, cuda),
+                                 ("cpu", cpu_model, "cpu")):
+            batch = {"tokens": toks[:, :T].to(dev)}
+            batch.update({k: v.to(dev) for k, v in (extra or {}).items()})
+            before = [c.launches for c in counters]
+            cache, logits = model.prefill(batch)
+            cache = grow_cache(cache, 2)
+            steps = [logits]
+            for i in range(2):
+                cache, logits = model.decode_step(
+                    cache, toks[:, T + i:T + i + 1].to(dev))
+                steps.append(logits)
+            if name == "card":
+                torch.cuda.synchronize()
+                launches = [c.launches - b for c, b in zip(counters, before)]
+            out[name] = [torch.cat(steps, dim=1).cpu()] + [
+                cache[k].cpu() for k in sorted(cache)]
+    return out["card"], out["cpu"], launches
+
+
+def test_hybrid_on_card_equals_cpu(cuda):
+    """zamba2's smoke config at 3 layers (one group of 2 and a tail layer),
+    float32, a 32-token prompt over two SSD chunks: prefill logits, every
+    cache entry and two decode steps on the card against the CPU under
+    ``PARITY_TOL``; per pass ln + gated norm a Mamba-2 layer, ln1 + ln2 at
+    the shared site and ln_f through rmsnorm, the site's MLP through
+    fused_swiglu, its attention through flash in the prefill."""
+    cfg = smoke_config("zamba2_1_2b").replace(n_layers=3)
+    card, cpu, launches = _card_and_cpu_serve(cuda, cfg, 32)
+    assert launches == [(2 * 3 + 2 + 1) * 3, 3, 1]
+    for x, y in zip(card, cpu):
+        torch.testing.assert_close(x, y, **PARITY_TOL)
+
+
+def test_encdec_on_card_equals_cpu(cuda):
+    """whisper's smoke config (2 + 2 layers, 16 audio frames), float32:
+    prefill logits, every cache entry (the static encoder k/v included)
+    and two decode steps on the card against the CPU under
+    ``PARITY_TOL``; rmsnorm 2 an encoder layer and ``ln_enc`` once, 3 a
+    decoder layer and ln_f a pass; fused_swiglu an encoder layer once and a
+    decoder layer a pass; flash only for the decoder's causal prefill."""
+    cfg = smoke_config("whisper_tiny")
+    audio = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    card, cpu, launches = _card_and_cpu_serve(cuda, cfg, 16,
+                                              {"audio_embeds": audio})
+    assert launches == [2 * 2 + 1 + (3 * 2 + 1) * 3, 2 + 2 * 3, 2]
+    for x, y in zip(card, cpu):
+        torch.testing.assert_close(x, y, **PARITY_TOL)
+
+
 MOTIF_SCHEDULES = {"fanin": FANIN, "fanout": FANOUT, "unicast": UNICAST,
                    **{f"random{s}": random_schedule(s) for s in range(3)}}
 

@@ -68,12 +68,15 @@ def test_module_list_covers_the_package():
                  "repro_torch.configs.granite_moe_1b_a400m",
                  "repro_torch.configs.arctic_480b",
                  "repro_torch.configs.falcon_mamba_7b",
+                 "repro_torch.configs.zamba2_1_2b",
+                 "repro_torch.configs.whisper_tiny",
                  "repro_torch.kernels._launch", "repro_torch.kernels.rmsnorm",
                  "repro_torch.kernels.fused_swiglu",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.motif_pcu", "repro_torch.kernels.ops",
                  "repro_torch.models.layers", "repro_torch.models.dense",
                  "repro_torch.models.moe", "repro_torch.models.ssm",
+                 "repro_torch.models.hybrid", "repro_torch.models.encdec",
                  "repro_torch.models.zoo", "repro_torch.models.convert",
                  "repro_torch.serve.kvcache", "repro_torch.serve.loop",
                  "repro_torch.launch.serve"):

@@ -121,7 +121,8 @@ def test_specs_and_input_specs_match_jax():
         jax.tree.map(lambda t: tuple(t.shape), metas)
     assert L.spec_map(lambda s: s.shape, zoo.cache_spec(cfg, 2, 9)) == \
         JL.spec_map(lambda s: s.shape, jzoo.cache_spec(jcfg, 2, 9))
-    for arch in ("llama3_2_3b", "qwen2_vl_72b"):
+    for arch in ("llama3_2_3b", "qwen2_vl_72b", "zamba2_1_2b",
+                 "whisper_tiny"):
         for name, shape in SHAPES.items():
             if shape.kind == "train":  # training cells are not served
                 with pytest.raises(ValueError):
@@ -135,10 +136,14 @@ def test_specs_and_input_specs_match_jax():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.param_spec(smoke_config("llama3_2_3b").replace(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper_tiny")
+    """Every family of the JAX zoo is ported; an unknown family or arch id
+    still raises."""
+    with pytest.raises(NotImplementedError, match="not a ported family"):
+        zoo.param_spec(smoke_config("llama3_2_3b").replace(family="nope"))
+    with pytest.raises(NotImplementedError, match="not a ported arch"):
+        get_config("nope")
+    assert sorted(zoo.FAMILY_MODULES) == ["dense", "encdec", "hybrid", "moe",
+                                          "ssm", "vlm"]
 
 
 def test_init_params_follows_init_of_rules():
