@@ -76,7 +76,32 @@ Phases, in order; any failure exits non-zero before the last line:
 9. ops path: ``repro_torch.kernels.ops`` on ``cuda`` at the shapes of the
    kernel rows of ``benchmarks/run.py`` (the third main path, with the
    launch counters read just around it): each row equal to its plain
-   version, each kernel launched exactly as often as its row was called.
+   version, each kernel launched exactly as often as its row was called;
+10. train kernels: the backward kernels ``rmsnorm_bwd``,
+   ``swiglu_gate_bwd`` and ``flash_attention_bwd`` (and flash's training
+   forward: row log-sum-exp and float32 output) against autograd of the
+   plain versions on the card, on ``tests/test_kernels.py``'s shapes in
+   both dtypes under ``TOL`` (flash at d 32-256, kv_group 1 and 3, every
+   mask), flash's backward at d 160 and 256 with a window under
+   ``PATH_TOL``; at the train path's bf16 shapes ((16384, 3072),
+   (16384, 8192), (96, 4096, 128) kv_group 3) under ``PATH_TOL``, twice
+   bitwise (no atomics), each kernel by name in a trace, timed beside its
+   plain version, its bound and its yardstick (the backward of
+   ``F.rms_norm`` and of SDPA, in turns);
+11. train path: ``python -m repro_torch.launch.train --arch llama3_2_3b
+   --batch 4 --seq 4096 --steps 4`` on ``cuda`` at full width and depth
+   (the fourth main path, the launch counters read just around it):
+   finite losses, the first within 0.1 of ln V, finite gradient norms,
+   exactly the launches of ``train_launches`` (4 x 113 / 57 / 56 / 28 /
+   56 / 28: rmsnorm, its backward, fused_swiglu, the gate's backward,
+   flash_attention, its backward), its ``time:`` line, and one more step
+   traced; the card against the CPU in float32 at full width, the first 2
+   layers of the full draw, batch 2 x 256 (loss and params after one
+   AdamW step under ``PARITY_TOL``, each gradient leaf under
+   ``GRAD_REL_TOL``); at smoke width on the card: the loss falls on a
+   repeated batch, a resumed run is bit-identical to a straight one, the
+   injected failure is retried, a refused launch propagates, and 2 x 2
+   gradient accumulation equals one step of 4.
 
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -581,29 +606,43 @@ def _close(name: str, got, want, tol):
     return diff.max().item(), share
 
 
-def device_ms(fn, iters: int):
+def device_ms(fn, iters: int, expect=()):
     """Mean device time in ms of the CUDA kernels ``fn()`` launches, over
     ``iters`` calls (``torch.profiler``; the host's dispatch is left out,
-    unlike :func:`cuda_ms`), or None when the trace holds no device time
-    (the profiler can drop a window's kernel events: not measured)."""
+    unlike :func:`cuda_ms`), from the first of five traces that is whole:
+    each of its kernels launched a multiple of ``iters`` times, and each
+    name of ``expect`` among them.  Each trace opens and closes with a
+    spin kernel of about a millisecond that the sum leaves out, because the
+    profiler can drop the kernels at either end of a window.  None when no
+    trace is whole (a partial sum would understate the time: not
+    measured), after a ``device_ms:`` line with the last trace's counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters if total else None
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2_000_000)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.key]
+        if (events and all(e.count % iters == 0 for e in events)
+                and all(any(w in e.key for e in events) for w in expect)):
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    print(f"device_ms: no whole trace of {iters} calls in 5; the last held "
+          f"{[(e.key[:48], e.count) for e in events] or 'no kernel'}")
+    return None
 
 
 def _device_txt(k_dev) -> str:
     if k_dev is None:
-        return "device time not measured: no kernel in the trace"
+        return "device time not measured: no whole trace"
     return f"{k_dev:.6f} ms device time"
 
 
@@ -1041,10 +1080,12 @@ def dispatch_breakdown() -> None:
 
 def kernel_entries():
     """Each kernel's launching entry, which carries its ``launches``."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.fused_swiglu import fused_swiglu_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.fused_swiglu import (fused_swiglu_cuda,
+                                                  swiglu_gate_bwd_cuda)
     from repro_torch.kernels.motif_pcu import motif_pcu_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
     from repro_torch.kernels.sim_alu import sim_alu_cuda
     from repro_torch.kernels.sim_loop import sim_loop_cuda
 
@@ -1052,7 +1093,10 @@ def kernel_entries():
             "rmsnorm": rmsnorm_cuda,
             "fused_swiglu": fused_swiglu_cuda,
             "flash_attention": flash_attention_cuda,
-            "motif_pcu": motif_pcu_cuda}
+            "motif_pcu": motif_pcu_cuda,
+            "rmsnorm_bwd": rmsnorm_bwd_cuda,
+            "swiglu_gate_bwd": swiglu_gate_bwd_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda}
 
 
 def read_counts():
@@ -1630,6 +1674,642 @@ def ops_phase() -> int:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Train path: the backward kernels, llama3_2_3b at full width
+# ---------------------------------------------------------------------------
+
+#: the backward kernels: the function of the JAX package each computes the
+#: gradient of (no TPU kernel had one: ``jax.value_and_grad`` differentiates
+#: these inline layers with XLA)
+BWD_REPLACES = {
+    "rmsnorm_bwd": "src/repro/models/layers.py:87",
+    "swiglu_gate_bwd": "src/repro/models/layers.py:359",
+    "flash_attention_bwd": "src/repro/models/layers.py:155",
+}
+BWD_SOURCE = {"rmsnorm_bwd": "rmsnorm", "swiglu_gate_bwd": "fused_swiglu",
+              "flash_attention_bwd": "flash_attention"}
+#: each backward kernel's CUDA kernels, asserted by name in a trace
+BWD_KERNEL_NAMES = {
+    "rmsnorm_bwd": ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"),
+    "swiglu_gate_bwd": ("swiglu_gate_bwd_kernel",),
+    "flash_attention_bwd": ("flash_bwd_delta_kernel",
+                            "flash_bwd_dkdv_tc_kernel<128>",
+                            "flash_bwd_dq_tc_kernel<128>"),
+}
+#: the CUDA kernels of the train path, held by name in a traced step: the
+#: forwards (flash's training instantiation) and the backwards
+TRAIN_KERNEL_NAMES = ("rmsnorm_kernel<__nv_bfloat16>",
+                      "fused_swiglu_tc_kernel",
+                      "flash_attention_tc_kernel<128, true>",
+                      *(n for names in BWD_KERNEL_NAMES.values()
+                        for n in names))
+#: the kinds a traced train step's device time is summed by (a kernel
+#: takes the first kind one of whose keys is in its name)
+TRACE_GROUPS = (
+    ("flash_attention_bwd (delta, dk/dv, dq)", ("flash_bwd_",)),
+    ("flash_attention forward (training form)", ("flash_attention_tc",)),
+    ("fused_swiglu forward", ("fused_swiglu_tc",)),
+    ("swiglu_gate_bwd", ("swiglu_gate_bwd",)),
+    ("rmsnorm forward and backward", ("rmsnorm",)),
+    ("cuBLAS products", ("nvjet", "gemm", "xmma", "cutlass")),
+)
+#: the trained model and its traffic: full width and depth, batch x
+#: sequence (train_4k's sequence; the global batch cut from 256 to 4)
+TRAINED = "llama3_2_3b"
+TRAIN_SHAPE = (4, 4096)
+TRAIN_STEPS = 4
+#: the card against the CPU in float32, gradients: the relative L2 error of
+#: each leaf.  The 2-layer slice is ill-conditioned (init_params divides a
+#: stacked weight by the square root of the layer count, so the residual
+#: stream reaches ~9000): the CPU's own float32 gradients miss a float64
+#: run by up to 1.14e-3 and the card's by 9.6e-4, card vs CPU 1.29e-3
+#: (``scripts/train_parity_conditioning.py`` on the card); held at 5e-3
+GRAD_REL_TOL = 5e-3
+#: the kernels' query rows of the flash plain gradient at a time (a slice
+#: of kv heads; the (S, S) float32 scores of all 96 heads would be 6.4 GB)
+PLAIN_FLASH_HEADS = 12
+
+
+def train_launches(cfg, steps: int):
+    """Each kernel's launches in ``steps`` training steps of the dense
+    model under ``remat="dots"`` (or ``"nothing"``): a forward (rmsnorm
+    twice a layer and ln_f; the gate and attention once a layer), every
+    layer's kernels again when its checkpoint is recomputed in the
+    backward (ln_f sits outside the layers' checkpoints and is not), and
+    one backward launch per forward call."""
+    L = cfg.n_layers
+    rec = L if cfg.remat in ("dots", "nothing") else 0
+    per = {"rmsnorm": 2 * L + 1 + 2 * rec, "rmsnorm_bwd": 2 * L + 1,
+           "fused_swiglu": L + rec, "swiglu_gate_bwd": L,
+           "flash_attention": L + rec, "flash_attention_bwd": L}
+    return {k: v * steps for k, v in per.items()}
+
+
+def _traced_names(call, wanted) -> set:
+    """The CUDA kernel names of up to five traces of three ``call()``s
+    each, until every name in ``wanted`` is seen (a trace can drop a
+    window's first kernels, or all of a short window's)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = set()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        seen |= {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if all(any(w in n for n in seen) for w in wanted):
+            break
+    return seen
+
+
+def _grads(fn, inputs, grad_out):
+    """Autograd of ``fn(*inputs)`` against ``grad_out``, one gradient per
+    input (fresh leaves)."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, grad_out)
+
+
+def _flash_plain_grads(q, k, v, dout, g, kw):
+    """The plain flash gradient, ``PLAIN_FLASH_HEADS`` query heads (their
+    kv heads) at a time."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    step = PLAIN_FLASH_HEADS
+    dq, dk, dv = [], [], []
+    for h0 in range(0, q.shape[0], step):
+        kv = slice(h0 // g, (h0 + step) // g)
+        a, b, c = _grads(lambda x, y, z: ref.flash_attention(
+            x, y, z, kv_group=g, **kw), (q[h0:h0 + step], k[kv], v[kv]),
+            dout[h0:h0 + step])
+        dq.append(a)
+        dk.append(b)
+        dv.append(c)
+    return torch.cat(dq), torch.cat(dk), torch.cat(dv)
+
+
+def _gate_plain(a, b):
+    import torch
+
+    return (torch.nn.functional.silu(a.float()) * b.float()).to(a.dtype)
+
+
+def bwd_kernel_cases():
+    """(name, label, kernel call -> gradients, plain call -> gradients,
+    library call or None, bytes, operations, operations rate) at the train
+    path's shapes in bf16: rmsnorm (16384, 3072) with rows at RMS 0.1 to
+    10, the gate's (16384, 8192), flash (96, 4096, 128) causal kv_group 3.
+    The library call is each yardstick's backward alone: autograd of
+    ``F.rms_norm`` and of SDPA (their forwards run once, outside the
+    timing)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.fused_swiglu import swiglu_gate_bwd_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    bf = torch.bfloat16
+    B, T = TRAIN_SHAPE
+    M, D, Ff, H, Hkv, d = B * T, 3072, 8192, 96, 32, 128
+    x = _randn((M, D), bf, 60, np.geomspace(0.1, 10.0, M)[:, None])
+    s, dy = _randn((D,), bf, 61), _randn((M, D), bf, 62)
+    xs, ss = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    y_lib = F.rms_norm(xs, (D,), ss, 1e-6)
+    cases = [(
+        "rmsnorm_bwd", f"({M},{D})", lambda: rmsnorm_bwd_cuda(x, s, dy),
+        lambda: _grads(ref.rmsnorm, (x, s), dy),
+        lambda: torch.autograd.grad(y_lib, (xs, ss), dy, retain_graph=True),
+        3 * M * D * 2 + 2 * D * 2, 10 * M * D, FP32_OPS_PER_S)]
+    a, b, dh = (_randn((M, Ff), bf, i) for i in (63, 64, 65))
+    cases.append((
+        "swiglu_gate_bwd", f"({M},{Ff})",
+        lambda: swiglu_gate_bwd_cuda(a, b, dh),
+        lambda: _grads(_gate_plain, (a, b), dh), None, 5 * M * Ff * 2,
+        12 * M * Ff, FP32_OPS_PER_S))
+    g = H // Hkv
+    q = _randn((H, T, d), bf, 66)
+    k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
+    dout = _randn((H, T, d), bf, 69)
+    _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g, train=True)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    y_sdpa = F.scaled_dot_product_attention(
+        ql[None], kl[None], vl[None], is_causal=True, enable_gqa=True)[0]
+    pairs = H * T * (T + 1) // 2
+    cases.append((
+        "flash_attention_bwd", f"({H},{T},{d}) causal kv_group {g}",
+        lambda: flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
+                                         kv_group=g),
+        lambda: _flash_plain_grads(q, k, v, dout, g, dict(causal=True)),
+        lambda: torch.autograd.grad(y_sdpa, (ql, kl, vl), dout,
+                                    retain_graph=True),
+        (4 * H + 4 * Hkv) * T * d * 2 + H * T * 4, 10 * d * pairs,
+        BF16_OPS_PER_S))
+    return cases
+
+
+def bwd_small_checks() -> None:
+    """The backward kernels and the forward's row log-sum-exp against the
+    plain gradients on ``tests/test_kernels.py``'s shapes in both dtypes
+    (under ``TOL``), flash also at d 160 and 256, with grouped kv heads
+    and in every mask mode; and flash's backward in bf16 at d 160 and 256
+    with a window at 1024 tokens, under ``PATH_TOL``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.fused_swiglu import swiglu_gate_bwd_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    def rel_l2(got, want):
+        return (torch.linalg.vector_norm(got.float() - want.float())
+                / torch.linalg.vector_norm(want.float())).item()
+
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        n = 0
+        worst = dict.fromkeys(BWD_KERNEL_NAMES, 0.0)
+        for M, D in [(128, 64), (256, 512), (64, 160)]:
+            x, s, dy = (_randn(sh, dt, i) for i, sh in
+                        ((70, (M, D)), (71, (D,)), (72, (M, D))))
+            for name, got, want in zip(("dx", "dscale"),
+                                       rmsnorm_bwd_cuda(x, s, dy),
+                                       _grads(ref.rmsnorm, (x, s), dy)):
+                _close(f"rmsnorm_bwd {dtype} ({M},{D}) {name}", got, want,
+                       TOL[dtype])
+                worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"],
+                                           rel_l2(got, want))
+                n += 1
+        for M, F in [(128, 128), (256, 128), (128, 256), (7, 33)]:
+            a, b, dh = (_randn((M, F), dt, i) for i in (73, 74, 75))
+            for name, got, want in zip(("da", "db"),
+                                       swiglu_gate_bwd_cuda(a, b, dh),
+                                       _grads(_gate_plain, (a, b), dh)):
+                _close(f"swiglu_gate_bwd {dtype} ({M},{F}) {name}", got,
+                       want, TOL[dtype])
+                worst["swiglu_gate_bwd"] = max(worst["swiglu_gate_bwd"],
+                                               rel_l2(got, want))
+                n += 1
+        for H, S, d, g in [(2, 128, 64, 1), (1, 256, 32, 1), (2, 128, 160, 1),
+                           (1, 100, 256, 1), (6, 100, 128, 3)]:
+            q = _randn((H, S, d), dt, 76)
+            k, v = (_randn((H // g, S, d), dt, i) for i in (77, 78))
+            dout = _randn((H, S, d), dt, 79)
+            for kw in (dict(causal=True), dict(causal=True, window=64),
+                       dict(causal=False)):
+                out, lse, out32 = flash_attention_cuda(
+                    q, k, v, kv_group=g, train=True, **kw)
+                require(torch.equal(out, out32.to(dt)),
+                        "flash's training output is not its float32 one cast")
+                _close(f"flash_attention training form {dtype} ({H},{S},{d}) "
+                       f"kv_group {g} {kw}", out, ref.flash_attention(
+                           q, k, v, kv_group=g, **kw), TOL[dtype])
+                got = flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
+                                               kv_group=g, **kw)
+                want = _grads(lambda a, b, c: ref.flash_attention(
+                    a, b, c, kv_group=g, **kw), (q, k, v), dout)
+                for name, u, w in zip(("dq", "dk", "dv"), got, want):
+                    _close(f"flash_attention_bwd {dtype} ({H},{S},{d}) "
+                           f"kv_group {g} {kw} {name}", u, w, TOL[dtype])
+                    worst["flash_attention_bwd"] = max(
+                        worst["flash_attention_bwd"], rel_l2(u, w))
+                    n += 1
+        print(f"train kernel rmsnorm_bwd, swiglu_gate_bwd, "
+              f"flash_attention_bwd {dtype}: {n} gradients equal to plain "
+              f"(autograd of the plain versions) on tests/test_kernels.py's "
+              f"shapes, flash at d 32-256, kv_group 1 and 3, causal, window "
+              f"64 and full (rtol {TOL[dtype]['rtol']} atol "
+              f"{TOL[dtype]['atol']}); worst relative L2 error "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    bf = torch.bfloat16
+    worst = 0.0
+    for H, S, d, g in [(32, 1024, 160, 4), (16, 1024, 256, 2)]:
+        q = _randn((H, S, d), bf, 80)
+        k, v = (_randn((H // g, S, d), bf, i) for i in (81, 82))
+        dout = _randn((H, S, d), bf, 83)
+        kw = dict(causal=True, window=256)
+        _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g,
+                                             train=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, out32, dout, lse, kv_group=g,
+                                       **kw)
+        want = _flash_plain_grads(q, k, v, dout, g, kw)
+        for name, u, w in zip(("dq", "dk", "dv"), got, want):
+            worst = max(worst, _close(
+                f"flash_attention_bwd bf16 ({H},{S},{d}) kv_group {g} "
+                f"window 256 {name}", u, w, PATH_TOL)[1])
+    print(f"train kernel flash_attention_bwd bf16 at (32,1024,160) kv_group "
+          f"4 and (16,1024,256) kv_group 2, causal window 256: equal to "
+          f"plain within rtol {PATH_TOL['rtol']} atol {PATH_TOL['atol']} "
+          f"({worst:.3f} of it at most)")
+
+
+def bwd_kernel_phase():
+    """The backward kernels against their plain gradients on the card,
+    deterministic (twice, bitwise), by name in a trace; at the train
+    shapes timed beside their plain versions, bounds and yardsticks (in
+    turns: kernel, library, kernel, library).  Returns each kernel's JSON
+    record minus ``launches``."""
+    import torch
+
+    bwd_small_checks()
+    records = {}
+    for name, label, kern, plain, lib, n_bytes, ops, rate in \
+            bwd_kernel_cases():
+        got = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        require(all(torch.equal(u, w) for u, w in zip(got, again)),
+                f"{name} is not deterministic at {label}")
+        want = plain()
+        err, share = 0.0, 0.0
+        for u, w in zip(got, want):
+            e, sh = _close(f"{name} bf16 {label}", u, w, PATH_TOL)
+            err, share = max(err, e), max(share, sh)
+        del got, again, want
+        # the names are held in the train step's trace (train_path_phase);
+        # a short window here can come back empty
+        names = _traced_names(kern, BWD_KERNEL_NAMES[name])
+        seen = [w for w in BWD_KERNEL_NAMES[name]
+                if any(w in n for n in names)]
+        # about 20 ms of calls a turn, 3 at least
+        reps = max(3, min(200, int(20.0 / max(cuda_ms(kern, 1), 1e-3))))
+        k_turns, k_devs, l_turns, l_devs = [], [], [], []
+        for _ in range(2):
+            k_turns.append(cuda_ms(kern, reps))
+            k_devs.append(device_ms(kern, reps, BWD_KERNEL_NAMES[name]))
+            if lib is not None:
+                l_turns.append(cuda_ms(lib, reps))
+                l_devs.append(device_ms(lib, reps))
+        k_ms, k_dev = _mean(k_turns), _mean(k_devs)
+        l_ms = _mean(l_turns) if lib is not None else None
+        p_ms = cuda_ms(plain, 1)
+        bound, by = _bound(n_bytes, ops, rate)
+        lib_txt = "none (no single PyTorch call computes it)" \
+            if lib is None else (f"{l_ms:.6f} ms (turns "
+                                 f"{_turns_txt(l_turns)}; device "
+                                 f"{_turns_txt(l_devs)}; runs "
+                                 f"{', '.join(sorted(n[:60] for n in _traced_names(lib, ())))})")
+        share_txt = "" if k_dev is None else \
+            f", {100 * bound / k_dev:.2f}% of the bound in device time"
+        print(f"train kernel {name} {label} bf16: {k_ms:.6f} ms (turns "
+              f"{_turns_txt(k_turns)}; {_device_txt(k_dev)}, turns "
+              f"{_turns_txt(k_devs)}), plain {p_ms:.6f} ms, bound "
+              f"{bound:.6f} ms ({by}){share_txt}, library {lib_txt}; "
+              f"deterministic (twice bitwise); max abs err {err:.6g}, "
+              f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
+              f"{PATH_TOL['atol']}); kernels seen in its trace: "
+              f"{', '.join(seen) or 'none (trace empty)'}")
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{BWD_SOURCE[name]}.cu",
+            "replaces": BWD_REPLACES[name], "max_abs_err": err, "ms": k_ms,
+            "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": l_ms, "shape": label}
+    return records
+
+
+def _history_state(params, seed: int):
+    """An optimizer state with history (step 7, moments of the scale past
+    gradients leave) shaped like ``params``: from a zero state AdamW's
+    first update is the sign of each gradient entry, which float32 noise
+    can flip at entries near zero."""
+    import torch
+
+    from repro_torch.train.tree import tree_map
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    draw = lambda p: torch.randn(p.shape, generator=gen)  # noqa: E731
+    return {"m": tree_map(lambda p: (draw(p) * 1e-2).to(p.device), params),
+            "v": tree_map(lambda p: ((draw(p) * 1e-2) ** 2 + 1e-6).to(
+                p.device), params),
+            "step": torch.tensor(7, dtype=torch.int32, device=params[
+                "emb"].device)}
+
+
+def train_path_phase():
+    """The train path at full width: ``python -m repro_torch.launch.train
+    --arch llama3_2_3b --batch 4 --seq 4096 --steps 4`` on the card (the
+    launch counters read just around it), then one more step traced.
+    Returns the launch counts of the run."""
+    import math
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.train import steps as steps_lib
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.loop import batch_to, deterministic
+
+    B, T = TRAIN_SHAPE
+    with tempfile.TemporaryDirectory() as ckpt:
+        args = ["--arch", TRAINED, "--batch", str(B), "--seq", str(T),
+                "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt,
+                "--ckpt-every", "0", "--device", "cuda"]
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = train_run(args)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    for line in buf.getvalue().splitlines():
+        print(f"train: {line}")
+    cfg = out["cfg"]
+    require({k: getattr(cfg, k) for k in SERVED[TRAINED]} == SERVED[TRAINED],
+            f"not the full {TRAINED} config: {cfg}")
+    require(cfg.remat == "dots", f"remat {cfg.remat}")
+    losses, norms = out["losses"], out["grad_norms"]
+    require(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+            f"losses {losses}")
+    require(abs(losses[0] - math.log(cfg.vocab_size)) < 0.1,
+            f"first loss {losses[0]}, ln V = {math.log(cfg.vocab_size)}")
+    require(all(map(math.isfinite, norms)), f"grad norms {norms}")
+    want = dict.fromkeys(counts, 0)
+    want.update(train_launches(cfg, TRAIN_STEPS))
+    require(counts == want, f"train launch counts {counts}, want {want}")
+    model, opt_state = out["model"], out["opt_state"]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train: {TRAINED} full width ({n_params} params, bf16, AdamW "
+          f"state float32), batch {B} x {T}, {TRAIN_STEPS} steps in "
+          f"{wall:.3f} s (set-up included); first loss {losses[0]:.6f} "
+          f"(ln V {math.log(cfg.vocab_size):.6f}); launches {counts}, "
+          f"exactly {TRAIN_STEPS} x train_launches")
+
+    # one more step, traced (its wall time unprofiled just before); every
+    # kernel of the path must be in the trace by name (a second traced
+    # step if the first comes back without them)
+    step_fn = steps_lib.make_train_step(cfg, _run_config(cfg, B, T))
+    batch = batch_to(batch_for_step(cfg, out["shape"], 0, TRAIN_STEPS),
+                     "cuda", torch.bfloat16)
+    with deterministic():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step_fn(model, opt_state, batch)
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            names = {e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA}
+            missing = [w for w in TRAIN_KERNEL_NAMES
+                       if not any(w in n for n in names)]
+            if not missing:
+                break
+    report_trace(prof, f"one train step ({TRAINED}, batch {B} x {T})",
+                 wall_ms, traced_ms)
+    require(not missing, f"the traced train step lacks {missing}")
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        group = next((g for g, keys in TRACE_GROUPS if any(
+            key in e.key for key in keys)), "other (elementwise, reductions, "
+            "copies)")
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile: train step by kind: {ms:10.3f} ms {n:6d}x {group}")
+    print(f"train: every kernel of the path in the traced step by name: "
+          f"{', '.join(TRAIN_KERNEL_NAMES)}")
+    del out, model, opt_state, step_fn
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _run_config(cfg, B: int, T: int):
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeSpec
+
+    return RunConfig(model=cfg, shape=ShapeSpec("train_4k", T, B, "train"),
+                     total_steps=10)
+
+
+def train_parity_phase() -> None:
+    """The card (kernels) against the CPU (plain versions) in float32 at
+    full width, the first 2 layers of the full draw, batch 2 x 256: the
+    loss within ``PARITY_TOL``, each gradient leaf within
+    ``GRAD_REL_TOL`` relative L2 error, the params after one AdamW step
+    within ``PARITY_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import zoo
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps as steps_lib
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.tree import items, tree_map
+
+    full = get_config(TRAINED)
+    card = first_layers(full, 2, torch.float32)
+    cfg = card.cfg
+    cpu = zoo.build(cfg, tree_map(lambda t: t.cpu(), card.params))
+    batch = batch_for_step(cfg, ShapeSpec("parity", 256, 2, "train"), SEED, 0)
+    from repro_torch.train.loop import batch_to
+
+    results = {}
+    for where, model in (("cuda", card), ("cpu", cpu)):
+        loss, _, grads = steps_lib.value_and_grad(
+            cfg, model, batch_to(batch, where, torch.float32))
+        state = _history_state(model.params, SEED)
+        grads_before = tree_map(lambda g: g.clone(), grads)
+        opt_lib.apply_updates(model.params, grads, state,
+                              steps_lib.adamw_config(cfg, _run_config(
+                                  cfg, 2, 256)))
+        results[where] = (loss, grads_before, model.params)
+    (lc, gc, pc), (lh, gh, ph) = results["cuda"], results["cpu"]
+    err = _close("train parity loss (f32, 2 layers)", lc.cpu(), lh,
+                 PARITY_TOL)[0]
+    rels = {key: (torch.linalg.vector_norm(a.cpu() - b)
+                  / torch.linalg.vector_norm(b)).item()
+            for (key, a), (_, b) in zip(items(gc), items(gh))}
+    print("parity: gradient relative L2 error, card vs CPU: " + ", ".join(
+        f"{key} {rel:.3g}" for key, rel in rels.items()))
+    worst_key = max(rels, key=rels.get)
+    worst_rel = rels[worst_key]
+    require(worst_rel <= GRAD_REL_TOL, f"train parity gradient {worst_key}: "
+            f"relative L2 error {worst_rel:.3g} > {GRAD_REL_TOL}")
+    p_err = max(_close(f"train parity params/{key} after one AdamW step",
+                       a.cpu(), b, PARITY_TOL)[0]
+                for (key, a), (_, b) in zip(items(pc), items(ph)))
+    print(f"parity: {TRAINED} train step full width, 2 layers of the full "
+          f"draw, f32, batch 2 x 256: loss {lc.item():.6f} (card) vs "
+          f"{lh.item():.6f} (CPU), diff {err:.3g} (rtol "
+          f"{PARITY_TOL['rtol']} atol {PARITY_TOL['atol']}); every gradient "
+          f"leaf within {GRAD_REL_TOL} relative L2 (worst {worst_rel:.3g}, "
+          f"{worst_key}); params after one AdamW step max abs diff "
+          f"{p_err:.3g}")
+    del card, cpu, results
+    torch.cuda.empty_cache()
+
+
+def train_smoke_phase() -> None:
+    """At smoke width on the card, as ``tests/test_torch_train.py`` runs
+    them on the CPU: the loss falls on a repeated batch; a run resumed from
+    a checkpoint is bit-identical to a straight one; the injected failure
+    is retried; a kernel's refused launch propagates out of the loop; the
+    grad-accumulation step agrees with one large step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.train.loop as loop
+    from repro_torch.configs import RunConfig, smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import fused_swiglu as fs
+    from repro_torch.models import zoo
+    from repro_torch.train import steps as steps_lib
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.tree import items
+
+    cfg = smoke_config(TRAINED)
+    shape = ShapeSpec("smoke", 32, 2, "train")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = lambda name, **kw: RunConfig(  # noqa: E731
+            model=cfg, shape=shape, checkpoint_dir=os.path.join(tmp, name),
+            **{"checkpoint_every": 0, "total_steps": 30, **kw})
+        real = loop.batch_for_step
+        loop.batch_for_step = lambda c, s, seed, step: real(c, s, seed, 0)
+        try:
+            out = loop.train(run("drop", learning_rate=1e-2, warmup_steps=2,
+                                 total_steps=24), steps=20, device="cuda")
+        finally:
+            loop.batch_for_step = real
+        drop = np.mean(out["losses"][:5]) - np.mean(out["losses"][-5:])
+        require(drop > 1.0, f"loss fell by {drop:.4f} on a repeated batch")
+
+        straight = loop.train(run("a", checkpoint_every=4), steps=8,
+                              device="cuda")
+        loop.train(run("b", checkpoint_every=4), steps=4, device="cuda")
+        resumed = loop.train(run("b", checkpoint_every=4), steps=8,
+                             device="cuda")
+        require(resumed["losses"] == straight["losses"][4:],
+                f"resumed losses {resumed['losses']} vs "
+                f"{straight['losses'][4:]}")
+        for tree in ("params", "opt_state"):
+            for (key, a), (_, b) in zip(items(straight[tree]),
+                                        items(resumed[tree])):
+                require(torch.equal(a, b), f"resume: {tree}/{key} differs")
+
+        boom = {"armed": True}
+
+        def fail_once(step):
+            if step == 2 and boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected node failure")
+
+        out = loop.train(run("retry"), steps=4, fail_hook=fail_once,
+                         device="cuda")
+        require(out["final_step"] == 4 and len(out["losses"]) == 4
+                and not boom["armed"], "the injected failure was not retried")
+
+        real_route = fs.route
+        fs.route = lambda *a, **kw: 7  # a route code the C entry refuses
+        refusal = "none"
+        try:
+            loop.train(run("refused"), steps=3, device="cuda")
+        except RuntimeError as e:
+            refusal = str(e)
+        finally:
+            fs.route = real_route
+        require("fused_swiglu launch failed" in refusal,
+                f"a refused fused_swiglu launch did not propagate out of the "
+                f"loop (raised: {refusal})")
+
+    f32 = cfg.replace(n_layers=1)
+    base = ShapeSpec("s", 32, 4, "train")
+    full = batch_for_step(f32, base, 1, 0)
+    kw = dict(learning_rate=1e-2, warmup_steps=1, total_steps=10)
+    models = []
+    for accum in (1, 2):
+        model = zoo.init_model(f32, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda", torch.float32)
+        state = _history_state(model.params, 5)
+        r = RunConfig(model=f32, shape=base, grad_accum=accum, **kw)
+        if accum == 1:
+            step = steps_lib.make_train_step(f32, r)
+            batch = full
+        else:
+            step = steps_lib.make_grad_accum_step(f32, r)
+            batch = {k: v.reshape((2, 2) + v.shape[1:])
+                     for k, v in full.items()}
+        _, _, metrics = step(model, state, loop.batch_to(batch, "cuda",
+                                                         torch.float32))
+        models.append((model, metrics))
+    for (key, a), (_, b) in zip(items(models[0][0].params),
+                                items(models[1][0].params)):
+        _close(f"grad accum vs one step: params/{key}", b, a, PARITY_TOL)
+    _close("grad accum vs one step: loss", models[1][1]["loss"],
+           models[0][1]["loss"], PARITY_TOL)
+    print(f"train smoke (card, {TRAINED} smoke width): loss fell {drop:.4f} "
+          f"over 20 steps on a repeated batch; resume from step 4 "
+          f"bit-identical to a straight 8-step run (losses, params, AdamW "
+          f"state); the injected failure retried; a refused launch "
+          f"propagated ({refusal}); 2 x 2 grad accumulation equal to one "
+          f"step of 4 in float32 (rtol {PARITY_TOL['rtol']} atol "
+          f"{PARITY_TOL['atol']})")
+
+
 def build_all(root: str) -> None:
     """Every kernel's nvcc build, one process each, all started together."""
     from repro_torch.kernels import _build
@@ -1658,6 +2338,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # the train path runs with deterministic algorithms, which need cuBLAS's
+    # deterministic workspace from its first use in the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # the plain versions' float32 products in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1710,11 +2393,27 @@ def main() -> int:
     counts["ops"] = ops_phase()
     print(f"phase: ops path {time.perf_counter() - t0:.3f} s")
     motif["launches"] = counts["ops"]["motif_pcu"]
+
+    t0 = time.perf_counter()
+    bwd = bwd_kernel_phase()
+    print(f"phase: train kernels {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    counts[f"train {TRAINED}"] = train_path_phase()
+    print(f"phase: train path {TRAINED} {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    train_parity_phase()
+    train_smoke_phase()
+    print(f"phase: train parity and smoke-width runs "
+          f"{time.perf_counter() - t0:.3f} s")
     for name, rec in records.items():
         rec["launches"] = counts["serve llama3_2_3b"][name]
         rec["launches_by_path"] = {path: c[name] for path, c in counts.items()}
+    for name, rec in bwd.items():
+        rec["launches"] = counts[f"train {TRAINED}"][name]
+        rec["launches_by_path"] = {path: c[name] for path, c in counts.items()}
 
-    print(json.dumps({"kernels": [alu, loop, *records.values(), motif]}))
+    print(json.dumps({"kernels": [alu, loop, *records.values(), motif,
+                                  *bwd.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

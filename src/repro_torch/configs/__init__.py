@@ -3,6 +3,7 @@ from repro_torch.configs.base import (
     ARCH_REGISTRY,
     PORTED_ARCH_IDS,
     SHAPES,
+    RunConfig,
     ModelConfig,
     ShapeSpec,
     get_config,
@@ -15,6 +16,7 @@ __all__ = [
     "ARCH_REGISTRY",
     "PORTED_ARCH_IDS",
     "SHAPES",
+    "RunConfig",
     "ModelConfig",
     "ShapeSpec",
     "get_config",

@@ -1,7 +1,8 @@
 """Model configurations of the port: a copy of ``repro.configs.base``.
 
 ``ModelConfig`` fully describes one architecture; ``ShapeSpec`` one
-(seq_len, global_batch, kind) input-shape cell.  Configs live in
+(seq_len, global_batch, kind) input-shape cell; ``RunConfig`` couples a
+model, a shape and the training knobs.  Configs live in
 ``repro_torch.configs.<arch_id>`` and register themselves in
 ``ARCH_REGISTRY`` via ``register``.  Every served architecture's config
 is copied (dense, vlm, moe, ssm, hybrid and encdec); :func:`get_config`
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import os
+import tempfile
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -253,3 +256,36 @@ def smoke_config(arch_id: str) -> ModelConfig:
         t = half - 2 * (half // 3)
         kw.update(m_rope_sections=(t, half // 3, half // 3))
     return cfg.replace(**kw)
+
+
+def default_checkpoint_dir() -> str:
+    """Where a run keeps its checkpoints unless told: ``repro_torch_ckpt``
+    in the temporary directory (``$TMPDIR``); the JAX package's default is
+    ``/tmp/repro_ckpt``."""
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """One launchable run = model x shape x training knobs
+    (``repro/configs/base.py:256-276``; the JAX package's ``multi_pod`` is
+    left out: the port runs on one card)."""
+
+    model: ModelConfig
+    shape: ShapeSpec
+    # training knobs
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    seed: int = 0
+    # fault tolerance
+    checkpoint_every: int = 100
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=default_checkpoint_dir)
+    keep_checkpoints: int = 3
+    # distributed-optimization tricks
+    grad_compression: str = "none"  # none | int8
+    straggler_threshold: float = 3.0  # x median step time -> flagged

@@ -28,18 +28,20 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _entries: Dict[str, Tuple[Callable[..., int], Callable[[int], bytes]]] = {}
 
 
-def entry(name: str, argtypes: Sequence):
-    """The C entry ``<name>_launch`` of ``csrc/<name>.cu`` and its
-    ``<name>_error_string``, with their signatures set (``argtypes``
-    excludes the trailing device and stream); built, loaded and bound at
-    first use, then cached."""
+def entry(name: str, argtypes: Sequence, library: str = ""):
+    """The C entry ``<name>_launch`` of ``csrc/<library>.cu`` (``library``
+    defaults to ``name``; a backward entry lives beside its forward) and
+    the library's ``<library>_error_string``, with their signatures set
+    (``argtypes`` excludes the trailing device and stream); built, loaded
+    and bound at first use, then cached."""
     bound = _entries.get(name)
     if bound is None:
-        lib = _build.load(name)
+        library = library or name
+        lib = _build.load(library)
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
+        err = getattr(lib, f"{library}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         bound = _entries[name] = (fn, err)
@@ -71,13 +73,15 @@ def check_operands(name: str, names: Sequence[str],
     return code, index
 
 
-def launch(name: str, argtypes: Sequence, index: int, *args) -> None:
+def launch(name: str, argtypes: Sequence, index: int, *args,
+           library: str = "") -> None:
     """Call ``<name>_launch(*args, index, stream)`` (C signature
-    ``argtypes`` plus the device and the stream) on CUDA device ``index``'s
-    current stream; raise ``RuntimeError`` if the launch was refused.  The
-    stream is the lookup PyTorch's own Triton launcher makes: a raw handle,
-    no ``torch.cuda.Stream`` object."""
-    fn, err = _entries.get(name) or entry(name, argtypes)
+    ``argtypes`` plus the device and the stream, in ``csrc/<library>.cu``,
+    by default ``<name>.cu``) on CUDA device ``index``'s current stream;
+    raise ``RuntimeError`` if the launch was refused.  The stream is the
+    lookup PyTorch's own Triton launcher makes: a raw handle, no
+    ``torch.cuda.Stream`` object."""
+    fn, err = _entries.get(name) or entry(name, argtypes, library)
     rc = fn(*args, index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "

@@ -59,7 +59,36 @@
 //
 // Both paths raise the block's dynamic shared-memory limit above the 48 KB
 // default before the launch.  dtype code: 0 = float32, 1 = bfloat16 (q, k,
-// v and out share it).
+// v and out share it).  Where the caller passes an `lse` buffer (float32,
+// H x S; training), both paths also write each row's log-sum-exp of its
+// scaled, masked scores, m + log(max(l, 1e-30)); serving passes null.
+//
+// Backward (flash_attention_bwd_launch), which the TPU kernel never had
+// (the JAX models differentiate an inline blockwise attention with XLA,
+// repro/models/layers.py:155).  From q, k, v, the output o in float32
+// (the training forward keeps it: P V in bf16 rounds P, so the training
+// instantiation adds the product of P's bf16 remainder, and delta is taken
+// from o before its cast), its gradient dO and lse: P = exp(s * scale -
+// lse) on the live pairs (0 elsewhere), delta = rowsum(dO * o),
+// dS = P * (dO v^T - delta), and
+//   dq = scale * dS k,   dk = scale * dS^T q,   dv = P^T dO,
+// summed over a kv head's kv_group query heads for dk and dv.  Three
+// kernels, no atomics, so every run gives the same bits: delta, one warp a
+// row; dk/dv, one block per (kv head, tile of 16 RI keys) holding that
+// tile's k and v and its dk and dv accumulators, looping over its query
+// heads and the 64-row query tiles that meet the tile (the forward's
+// causal / window test); dq, one block per (query head, 64-row tile)
+// looping over the key tiles it meets, causal tails first.  Each
+// recomputes S and dO v^T for its tile pair.  bfloat16 with d <= 128 runs
+// on tensor cores (see "backward on tensor cores" below); float32, and
+// bfloat16 past d 128, on SIMT: float32 from bf16 or float32 loads, all
+// tiles in shared memory as float32 with rows padded to 16 DJ + 1 floats;
+// a thread owns 4 query rows x RI keys of a score tile and RI (dk/dv) or
+// 4 (dq) rows x DJ columns of an accumulator (DJ = 4, 8, 16 for d <= 64,
+// 128, 256).  Bound: operations at training shapes: at (96, 4096, 128)
+// causal the five products over the live pairs are 1.03 TFLOP (1.04 ms
+// at the bf16 tensor-core peak) against 0.25 GB of inputs and outputs.
+// Head dims up to 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,9 +124,9 @@ size_t smem_bytes(int d) {
 template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
-                       int d, int causal, int window, int kv_group,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int S, int d, int causal,
+                       int window, int kv_group, float scale) {
   extern __shared__ float smem[];
   float* qt = smem;                   // [d][BQ + 1]  q tile, transposed
   float* kt = qt + d * (BQ + 1);      // [d][BK + 1]  k tile, transposed
@@ -217,6 +246,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + ty + 16 * i;
     if (qp >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(long long)h * S + qp] = m[i] + logf(den);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int col = tx + 16 * j;
@@ -291,6 +321,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// what rounding (lo, hi) to the bf16 pair `rounded` left out, as a bf16 pair
+__device__ __forceinline__ uint32_t pack_rem(float lo, float hi,
+                                             uint32_t rounded) {
+  const float2 r =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rounded));
+  return pack_bf16(lo - r.x, hi - r.y);
+}
+
 // Rows [r0, r0 + ROWS) of a row-major (S, d) matrix into a ROWS x
 // (DP + kPad) shared tile, 16 bytes (8 columns) per step: cp.async where
 // `vec` (d a multiple of 8, 16-byte aligned pointers), element by element
@@ -316,14 +354,20 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
   }
 }
 
-template <int DP>
+// TRAIN (the training forward, lse and out32 not null): P V runs as two
+// products, P rounded to bf16 and its remainder p - bf16(p) also in bf16,
+// so P carries about 16 bits into the float32 sum; each row's lse and the
+// float32 output (out32) are written beside the bf16 one.  Serving's
+// instantiation (TRAIN false) is the kernel as it was.
+template <int DP, bool TRAIN>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(DP))
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, int S, int d,
-                          int causal, int window, int kv_group, float scale,
-                          int vec) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, float* __restrict__ out32,
+                          int S, int d, int causal, int window, int kv_group,
+                          float scale, int vec) {
   constexpr int LD = DP + kPad;  // shared row stride, in bf16
   constexpr int KD = DP / 16;    // 16-wide steps over the head dim
   constexpr int BQ = kTcBQ, BK = kTcBK;
@@ -455,6 +499,13 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pr[4];
+      if constexpr (TRAIN) {
+        pr[0] = pack_rem(s[2 * kk][0], s[2 * kk][1], pa[0]);
+        pr[1] = pack_rem(s[2 * kk][2], s[2 * kk][3], pa[1]);
+        pr[2] = pack_rem(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2]);
+        pr[3] = pack_rem(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3]);
+      }
 #pragma unroll
       for (int nd2 = 0; nd2 < KD; ++nd2) {
         uint32_t b[4];
@@ -463,6 +514,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                   nd2 * 16 + (lane / 16) * 8);
         mma_bf16(o[2 * nd2], pa, b[0], b[1]);
         mma_bf16(o[2 * nd2 + 1], pa, b[2], b[3]);
+        if constexpr (TRAIN) {
+          mma_bf16(o[2 * nd2], pr, b[0], b[1]);
+          mma_bf16(o[2 * nd2 + 1], pr, b[2], b[3]);
+        }
       }
     }
   }
@@ -474,6 +529,19 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float den = fmaxf(l[r], 1e-30f);
+    const int qp = q0 + warp * 16 + gr + 8 * r;
+    if constexpr (TRAIN) {
+      if (qp < S) {
+        if (tq == 0) lse[(long long)h * S + qp] = m[r] + logf(den);
+        float* orow = out32 + ((long long)h * S + qp) * d;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          const int c = j * 8 + 2 * tq;
+          if (c < d) orow[c] = o[j][2 * r] / den;
+          if (c + 1 < d) orow[c + 1] = o[j][2 * r + 1] / den;
+        }
+      }
+    }
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
       *reinterpret_cast<uint32_t*>(so + (gr + 8 * r) * LD + j * 8 + 2 * tq) =
@@ -499,9 +567,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <typename T, int DJ>
-int launch_simt(const void* q, const void* k, const void* v, void* out, int H,
-                int S, int d, int causal, int window, int kv_group,
-                float scale, cudaStream_t s) {
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                void* lse, int H, int S, int d, int causal, int window,
+                int kv_group, float scale, cudaStream_t s) {
   const size_t bytes = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)flash_attention_kernel<T, DJ>,
@@ -509,28 +577,724 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int H,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, (S + BQ - 1) / BQ);
   flash_attention_kernel<T, DJ><<<grid, kThreads, bytes, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, d, causal, window,
-      kv_group, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, S, d,
+      causal, window, kv_group, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int H,
-              int S, int d, int causal, int window, int kv_group, float scale,
-              cudaStream_t s) {
+template <int DP, bool TRAIN>
+int launch_tc_as(const void* q, const void* k, const void* v, void* out,
+                 void* lse, void* out32, int H, int S, int d, int causal,
+                 int window, int kv_group, float scale, cudaStream_t s) {
   constexpr size_t bytes = tc_smem_bytes(DP);
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)flash_attention_tc_kernel<DP>,
+      (const void*)flash_attention_tc_kernel<DP, TRAIN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int vec =
       d % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                      (uintptr_t)out) % 16 == 0;
   const dim3 grid(H, (S + kTcBQ - 1) / kTcBQ);
-  flash_attention_tc_kernel<DP><<<grid, kTcThreads, bytes, s>>>(
+  flash_attention_tc_kernel<DP, TRAIN><<<grid, kTcThreads, bytes, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, d, causal, window,
-      kv_group, scale, vec);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)lse,
+      (float*)out32, S, d, causal, window, kv_group, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+// serving (lse null) or training (lse and out32 given)
+template <int DP>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              void* lse, void* out32, int H, int S, int d, int causal,
+              int window, int kv_group, float scale, cudaStream_t s) {
+  return lse == nullptr
+             ? launch_tc_as<DP, false>(q, k, v, out, lse, out32, H, S, d,
+                                       causal, window, kv_group, scale, s)
+             : launch_tc_as<DP, true>(q, k, v, out, lse, out32, H, S, d,
+                                      causal, window, kv_group, scale, s);
+}
+
+// ---- backward (SIMT, float32 math) ----
+
+constexpr int kBwdThreads = 256;
+constexpr int BQB = 64;  // query rows of a backward tile
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// whether query qp attends to key kp (both inside the sequence)
+__device__ __forceinline__ bool live(int qp, int kp, int S, int causal,
+                                     int window) {
+  return qp < S && kp < S && !(causal && kp > qp) &&
+         !(window && qp - kp >= window);
+}
+
+// whether any pair of query tile [q0, q0 + nq) and key tile [k0, k0 + nk)
+// is live (the forward's tile test; uniform over the block)
+__device__ __forceinline__ bool tiles_meet(int q0, int nq, int k0, int nk,
+                                           int causal, int window) {
+  if (causal && q0 + nq - 1 < k0) return false;
+  if (window && q0 - (k0 + nk - 1) >= window) return false;
+  return true;
+}
+
+// rows [r0, r0 + ROWS) of a row-major (S, d) matrix into a ROWS x ld
+// float32 tile: zeros past S and in columns [d, ld - 1)
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
+                                          int S, int d, int ld) {
+  const int w = ld - 1;
+  for (int idx = threadIdx.x; idx < ROWS * w; idx += kBwdThreads) {
+    const int r = idx / w, c = idx % w;
+    dst[r * ld + c] = r0 + r < S && c < d
+                          ? to_f32(src[(long long)(r0 + r) * d + c])
+                          : 0.0f;
+  }
+}
+
+// delta[row] = dO[row] . o[row] with o the float32 output, one warp a row
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta_kernel(const float* __restrict__ o,
+                       const T* __restrict__ dout, float* __restrict__ delta,
+                       long long rows, int d) {
+  const long long row =
+      (long long)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // whole warps
+  float acc = 0.0f;
+  for (int c = lane; c < d; c += 32)
+    acc += o[row * d + c] * to_f32(dout[row * d + c]);
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// One query tile against one key tile: a thread's scores and dO v^T for
+// query rows ty + 16 i (i < 4) and keys tx + 16 j (j < RI), then P and dS
+// into shared memory (rows of BK + 1).
+template <int RI>
+__device__ __forceinline__ void tile_p_ds(const float* qs, const float* gs,
+                                          const float* ks, const float* vs,
+                                          const float* ls, const float* dl,
+                                          float* ps, float* ds, int ld, int d,
+                                          int q0, int k0, int S, int causal,
+                                          int window, float scale) {
+  constexpr int BK = 16 * RI;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float sc[4][RI], dp[4][RI];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < RI; ++j) sc[i][j] = dp[i][j] = 0.0f;
+  for (int c = 0; c < d; ++c) {
+    float qa[4], ga[4], kb[RI], vb[RI];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = qs[(ty + 16 * i) * ld + c];
+      ga[i] = gs[(ty + 16 * i) * ld + c];
+    }
+#pragma unroll
+    for (int j = 0; j < RI; ++j) {
+      kb[j] = ks[(tx + 16 * j) * ld + c];
+      vb[j] = vs[(tx + 16 * j) * ld + c];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
+        dp[i][j] = fmaf(ga[i], vb[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < RI; ++j) {
+      const int c = tx + 16 * j;
+      float p = 0.0f;
+      if (live(q0 + r, k0 + c, S, causal, window))
+        p = expf(sc[i][j] * scale - ls[r]);
+      ps[r * (BK + 1) + c] = p;
+      ds[r * (BK + 1) + c] = p * (dp[i][j] - dl[r]);
+    }
+  }
+}
+
+// query tile [q0, q0 + 64) of head h: q, dO, lse and delta into shared
+template <typename T>
+__device__ __forceinline__ void load_q_tile(float* qs, float* gs, float* ls,
+                                            float* dl, const T* q,
+                                            const T* dout, const float* lse,
+                                            const float* delta, int h, int q0,
+                                            int S, int d, int ld) {
+  const long long base = (long long)h * S * d;
+  load_rows<T, BQB>(qs, q + base, q0, S, d, ld);
+  load_rows<T, BQB>(gs, dout + base, q0, S, d, ld);
+  for (int r = threadIdx.x; r < BQB; r += kBwdThreads) {
+    const bool in = q0 + r < S;
+    ls[r] = in ? lse[(long long)h * S + q0 + r] : 0.0f;
+    dl[r] = in ? delta[(long long)h * S + q0 + r] : 0.0f;
+  }
+}
+
+// dk, dv: one block per (kv head, key tile of 16 RI)
+template <typename T, int RI, int DJ>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int S, int d, int causal,
+                      int window, int kv_group, float scale) {
+  constexpr int BK = 16 * RI;
+  constexpr int ld = 16 * DJ + 1;
+  extern __shared__ float smem[];
+  float* ks = smem;                 // [BK][ld]
+  float* vs = ks + BK * ld;         // [BK][ld]
+  float* qs = vs + BK * ld;         // [BQB][ld]
+  float* gs = qs + BQB * ld;        // [BQB][ld]  dO
+  float* ps = gs + BQB * ld;        // [BQB][BK + 1]
+  float* ds = ps + BQB * (BK + 1);  // [BQB][BK + 1]
+  float* ls = ds + BQB * (BK + 1);  // [BQB]
+  float* dl = ls + BQB;             // [BQB]
+
+  const int kvh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long kbase = (long long)kvh * S * d;
+  load_rows<T, BK>(ks, k + kbase, k0, S, d, ld);
+  load_rows<T, BK>(vs, v + kbase, k0, S, d, ld);
+
+  float dka[RI][DJ], dva[RI][DJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.0f;
+
+  const int n_q = (S + BQB - 1) / BQB;
+  for (int g = 0; g < kv_group; ++g) {
+    const int h = kvh * kv_group + g;
+    for (int qi = 0; qi < n_q; ++qi) {
+      const int q0 = qi * BQB;
+      if (!tiles_meet(q0, BQB, k0, BK, causal, window)) continue;
+      __syncthreads();  // the previous tile's readers are done
+      load_q_tile<T>(qs, gs, ls, dl, q, dout, lse, delta, h, q0, S, d, ld);
+      __syncthreads();
+      tile_p_ds<RI>(qs, gs, ks, vs, ls, dl, ps, ds, ld, d, q0, k0, S, causal,
+                    window, scale);
+      __syncthreads();
+      // keys ty + 16 i, columns tx + 16 j
+      for (int r = 0; r < BQB; ++r) {
+        float pa[RI], da[RI], gb[DJ], qb[DJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          pa[i] = ps[r * (BK + 1) + ty + 16 * i];
+          da[i] = ds[r * (BK + 1) + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          gb[j] = gs[r * ld + tx + 16 * j];
+          qb[j] = qs[r * ld + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) {
+            dva[i][j] = fmaf(pa[i], gb[j], dva[i][j]);
+            dka[i][j] = fmaf(da[i], qb[j], dka[i][j]);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int kp = k0 + ty + 16 * i;
+    if (kp >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int c = tx + 16 * j;
+      if (c < d) {
+        dk[kbase + (long long)kp * d + c] = from_f32<T>(dka[i][j] * scale);
+        dv[kbase + (long long)kp * d + c] = from_f32<T>(dva[i][j]);
+      }
+    }
+  }
+}
+
+// dq: one block per (query head, 64-row tile), causal tails first
+template <typename T, int RI, int DJ>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int S, int d, int causal, int window, int kv_group,
+                    float scale) {
+  constexpr int BK = 16 * RI;
+  constexpr int ld = 16 * DJ + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;                 // [BQB][ld]
+  float* gs = qs + BQB * ld;        // [BQB][ld]
+  float* ks = gs + BQB * ld;        // [BK][ld]
+  float* vs = ks + BK * ld;         // [BK][ld]
+  float* ps = vs + BK * ld;         // [BQB][BK + 1] (P, unused here)
+  float* ds = ps + BQB * (BK + 1);  // [BQB][BK + 1]
+  float* ls = ds + BQB * (BK + 1);  // [BQB]
+  float* dl = ls + BQB;             // [BQB]
+
+  const int h = blockIdx.x;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQB;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long kbase = (long long)(h / kv_group) * S * d;
+  load_q_tile<T>(qs, gs, ls, dl, q, dout, lse, delta, h, q0, S, d, ld);
+
+  float dqa[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dqa[i][j] = 0.0f;
+
+  const int n_k = (S + BK - 1) / BK;
+  for (int ki = 0; ki < n_k; ++ki) {
+    const int k0 = ki * BK;
+    if (!tiles_meet(q0, BQB, k0, BK, causal, window)) continue;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<T, BK>(ks, k + kbase, k0, S, d, ld);
+    load_rows<T, BK>(vs, v + kbase, k0, S, d, ld);
+    __syncthreads();
+    tile_p_ds<RI>(qs, gs, ks, vs, ls, dl, ps, ds, ld, d, q0, k0, S, causal,
+                  window, scale);
+    __syncthreads();
+    // rows ty + 16 i, columns tx + 16 j
+    for (int c = 0; c < BK; ++c) {
+      float da[4], kb[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) da[i] = ds[(ty + 16 * i) * (BK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kb[j] = ks[c * ld + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) dqa[i][j] = fmaf(da[i], kb[j], dqa[i][j]);
+    }
+  }
+  const long long qbase = (long long)h * S * d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int c = tx + 16 * j;
+      if (c < d) dq[qbase + (long long)qp * d + c] = from_f32<T>(dqa[i][j] * scale);
+    }
+  }
+}
+
+constexpr size_t bwd_smem_bytes(int RI, int DJ) {
+  return sizeof(float) * ((size_t)(2 * 16 * RI + 2 * BQB) * (16 * DJ + 1) +
+                          (size_t)2 * BQB * (16 * RI + 1) + 2 * BQB);
+}
+
+template <typename T, int RI, int DJ>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const void* lse, void* dq, void* dk,
+               void* dv, void* delta, int H, int S, int d, int causal,
+               int window, int kv_group, float scale, cudaStream_t s) {
+  constexpr size_t bytes = bwd_smem_bytes(RI, DJ);
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)flash_bwd_dkdv_kernel<T, RI, DJ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute((const void*)flash_bwd_dq_kernel<T, RI, DJ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)H * S;
+  const long long blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
+  flash_bwd_delta_kernel<T><<<(unsigned)blocks, kBwdThreads, 0, s>>>(
+      (const float*)out, (const T*)dout, (float*)delta, rows, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 kv_grid(H / kv_group, (S + 16 * RI - 1) / (16 * RI));
+  flash_bwd_dkdv_kernel<T, RI, DJ><<<kv_grid, kBwdThreads, bytes, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, S, d, causal,
+      window, kv_group, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 q_grid(H, (S + BQB - 1) / BQB);
+  flash_bwd_dq_kernel<T, RI, DJ><<<q_grid, kBwdThreads, bytes, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq, S, d, causal, window,
+      kv_group, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- backward on tensor cores (bf16, head dims up to 128) ----
+//
+// The same three passes as the SIMT backward (delta, then dk/dv, then dq;
+// no atomics), with the five products as mma.sync.m16n8k16 bf16 products
+// accumulating in float32, the fragments loaded as the forward loads them:
+// S = Q K^T and dP = dO V^T (and their transposes in the dk/dv kernel)
+// take bf16 inputs exactly; the products of P and dS each run
+// twice, once with P (or dS) rounded to bf16 and once with its bf16
+// remainder, so they carry about 16 bits of P and dS into the float32
+// sums.  Built with -DFLASH_BWD_SPLIT=0 they run once, on P and dS
+// rounded to bf16 (as cuDNN and FlashAttention-2 round them): at the
+// train shape (96, 4096, 128) that form, like SDPA's backward, misses the
+// plain gradient by more than the train path's tolerance in dk and dv,
+// where the split stays inside it (scripts/flash_bwd_rounding.py holds
+// both builds and SDPA against the plain gradient).  A block is 4 warps
+// of 16 rows: 64 keys of a kv head for dk/dv,
+// stepping over 32-query tiles of its kv_group query heads; 64 queries of
+// a query head for dq, stepping over 32-key tiles.  Tiles come in with
+// cp.async into shared rows padded by 16 bytes (the forward's load_tile);
+// the accumulators (dk and dv, or dq) stay in registers.
+
+constexpr int kTbStep = 32;  // queries (dk/dv) or keys (dq) a step
+
+#ifndef FLASH_BWD_SPLIT
+#define FLASH_BWD_SPLIT 1
+#endif
+
+template <int DP>
+constexpr size_t tb_smem_bytes() {
+  return (size_t)(2 * 64 + 2 * kTbStep) * (DP + kPad) *
+             sizeof(__nv_bfloat16) +
+         2 * 64 * sizeof(float);
+}
+
+// A fragment rows of a 16-row, DP-wide shared tile for this lane
+__device__ __forceinline__ const __nv_bfloat16* a_rows(
+    const __nv_bfloat16* tile, int ld, int row0) {
+  const int lane = threadIdx.x % 32;
+  return tile + (row0 + lane % 16) * ld + (lane / 16) * 8;
+}
+
+// B fragments of rows n0 .. n0 + 15 of a [n][k] shared tile at k0
+__device__ __forceinline__ void b_rows(uint32_t (&b)[4],
+                                       const __nv_bfloat16* tile, int ld,
+                                       int n0, int k0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(b, tile + (n0 + lane % 8 + (lane / 16) * 8) * ld + k0 +
+                     ((lane / 8) % 2) * 8);
+}
+
+// B fragments of columns n0 .. n0 + 15 of a [k][n] shared tile at rows
+// k0 .. k0 + 15 (transposed on load)
+__device__ __forceinline__ void b_cols(uint32_t (&b)[4],
+                                       const __nv_bfloat16* tile, int ld,
+                                       int k0, int n0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4_trans(b, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * ld +
+                           n0 + (lane / 16) * 8);
+}
+
+// acc[j] += (x rounded + its remainder) @ B over columns 16 nd2 .. + 15
+// of a [k][n] tile, for the 16 k rows kk: x the C fragments c[2 kk],
+// c[2 kk + 1] of a 16 x 16 block
+template <int KD>
+__device__ __forceinline__ void mma_split(float (&acc)[2 * KD][4],
+                                          const float (&c0)[4],
+                                          const float (&c1)[4],
+                                          const __nv_bfloat16* tile, int ld,
+                                          int kk) {
+  const uint32_t hi[4] = {pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]),
+                          pack_bf16(c1[0], c1[1]), pack_bf16(c1[2], c1[3])};
+  const uint32_t lo[4] = {pack_rem(c0[0], c0[1], hi[0]),
+                          pack_rem(c0[2], c0[3], hi[1]),
+                          pack_rem(c1[0], c1[1], hi[2]),
+                          pack_rem(c1[2], c1[3], hi[3])};
+#pragma unroll
+  for (int nd2 = 0; nd2 < KD; ++nd2) {
+    uint32_t b[4];
+    b_cols(b, tile, ld, kk * 16, nd2 * 16);
+    mma_bf16(acc[2 * nd2], hi, b[0], b[1]);
+    mma_bf16(acc[2 * nd2 + 1], hi, b[2], b[3]);
+    if (FLASH_BWD_SPLIT) {
+      mma_bf16(acc[2 * nd2], lo, b[0], b[1]);
+      mma_bf16(acc[2 * nd2 + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+// rows r0 .. r0 + n of a float32 (S,) row of lse / delta into shared
+__device__ __forceinline__ void load_stats(float* dst, const float* src,
+                                           int r0, int n, int S) {
+  for (int r = threadIdx.x; r < n; r += kTcThreads)
+    dst[r] = r0 + r < S ? src[r0 + r] : 0.0f;
+}
+
+// one thread's 16 x (DP / 8 x 8) accumulator rows (gr, gr + 8) of a warp's
+// 16 rows starting at `row0` into a row-major (S, d) bf16 matrix, times mul
+template <int DP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* g,
+                                           const float (&acc)[DP / 8][4],
+                                           int row0, int S, int d,
+                                           float mul) {
+  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + gr + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = j * 8 + 2 * tq;
+      if (c < d) g[(long long)row * d + c] = __float2bfloat16(acc[j][2 * r] * mul);
+      if (c + 1 < d)
+        g[(long long)row * d + c + 1] =
+            __float2bfloat16(acc[j][2 * r + 1] * mul);
+    }
+  }
+}
+
+// dk, dv: one block per (kv head, 64 keys); warp w owns keys 16 w .. + 15
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int S, int d,
+                         int causal, int window, int kv_group, float scale,
+                         int vec) {
+  constexpr int LD = DP + kPad, KD = DP / 16, BQ = kTbStep, NB = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sv = sk + 64 * LD;
+  __nv_bfloat16* sq = sv + 64 * LD;
+  __nv_bfloat16* sg = sq + BQ * LD;  // dO
+  float* ls = reinterpret_cast<float*>(sg + BQ * LD);
+  float* dl = ls + 64;
+
+  const int kvh = blockIdx.x, k0 = blockIdx.y * 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const long long kbase = (long long)kvh * S * d;
+  load_tile<DP, 64>(sk, k + kbase, k0, S, d, vec);
+  load_tile<DP, 64>(sv, v + kbase, k0, S, d, vec);
+  cp_async_commit();
+  const __nv_bfloat16* krow = a_rows(sk, LD, warp * 16);
+  const __nv_bfloat16* vrow = a_rows(sv, LD, warp * 16);
+
+  float dka[DP / 8][4], dva[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+
+  const int n_q = (S + BQ - 1) / BQ;
+  for (int g = 0; g < kv_group; ++g) {
+    const int h = kvh * kv_group + g;
+    const long long qbase = (long long)h * S * d;
+    for (int qi = 0; qi < n_q; ++qi) {
+      const int q0 = qi * BQ;
+      if (!tiles_meet(q0, BQ, k0, 64, causal, window)) continue;
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<DP, BQ>(sq, q + qbase, q0, S, d, vec);
+      load_tile<DP, BQ>(sg, dout + qbase, q0, S, d, vec);
+      load_stats(ls, lse + (long long)h * S, q0, BQ, S);
+      load_stats(dl, delta + (long long)h * S, q0, BQ, S);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
+      float st[NB][4], dpt[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t kf[4], vf[4];
+        ldmatrix_x4(kf, krow + kd * 16);
+        ldmatrix_x4(vf, vrow + kd * 16);
+#pragma unroll
+        for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+          uint32_t b[4];
+          b_rows(b, sq, LD, nb2 * 16, kd * 16);
+          mma_bf16(st[2 * nb2], kf, b[0], b[1]);
+          mma_bf16(st[2 * nb2 + 1], kf, b[2], b[3]);
+          b_rows(b, sg, LD, nb2 * 16, kd * 16);
+          mma_bf16(dpt[2 * nb2], vf, b[0], b[1]);
+          mma_bf16(dpt[2 * nb2 + 1], vf, b[2], b[3]);
+        }
+      }
+      // P^T into st, dS^T into dpt (rows keys, columns queries)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kp = k0 + warp * 16 + gr + 8 * r;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = nb * 8 + 2 * tq + c;
+            float p = 0.0f;
+            if (live(q0 + col, kp, S, causal, window))
+              p = expf(st[nb][2 * r + c] * scale - ls[col]);
+            st[nb][2 * r + c] = p;
+            dpt[nb][2 * r + c] = p * (dpt[nb][2 * r + c] - dl[col]);
+          }
+      }
+      // dV += P^T dO, dK += dS^T Q over the BQ queries
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        mma_split<KD>(dva, st[2 * kk], st[2 * kk + 1], sg, LD, kk);
+        mma_split<KD>(dka, dpt[2 * kk], dpt[2 * kk + 1], sq, LD, kk);
+      }
+    }
+  }
+  cp_async_wait_all();
+  store_rows<DP>(dk + kbase, dka, k0 + warp * 16, S, d, scale);
+  store_rows<DP>(dv + kbase, dva, k0 + warp * 16, S, d, 1.0f);
+}
+
+// dq: one block per (query head, 64 queries), causal tails first; warp w
+// owns queries 16 w .. + 15
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int S, int d,
+                       int causal, int window, int kv_group, float scale,
+                       int vec) {
+  constexpr int LD = DP + kPad, KD = DP / 16, BK = kTbStep, NB = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sg = sq + 64 * LD;  // dO
+  __nv_bfloat16* sk = sg + 64 * LD;
+  __nv_bfloat16* sv = sk + BK * LD;
+  float* ls = reinterpret_cast<float*>(sv + BK * LD);
+  float* dl = ls + 64;
+
+  const int h = blockIdx.x;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const long long qbase = (long long)h * S * d;
+  const long long kbase = (long long)(h / kv_group) * S * d;
+  load_tile<DP, 64>(sq, q + qbase, q0, S, d, vec);
+  load_tile<DP, 64>(sg, dout + qbase, q0, S, d, vec);
+  load_stats(ls, lse + (long long)h * S, q0, 64, S);
+  load_stats(dl, delta + (long long)h * S, q0, 64, S);
+  cp_async_commit();
+  const __nv_bfloat16* qrow = a_rows(sq, LD, warp * 16);
+  const __nv_bfloat16* grow = a_rows(sg, LD, warp * 16);
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  const int n_k = (S + BK - 1) / BK;
+  for (int ki = 0; ki < n_k; ++ki) {
+    const int k0 = ki * BK;
+    if (!tiles_meet(q0, 64, k0, BK, causal, window)) continue;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<DP, BK>(sk, k + kbase, k0, S, d, vec);
+    load_tile<DP, BK>(sv, v + kbase, k0, S, d, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 queries x BK keys
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qf[4], gf[4];
+      ldmatrix_x4(qf, qrow + kd * 16);
+      ldmatrix_x4(gf, grow + kd * 16);
+#pragma unroll
+      for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+        uint32_t b[4];
+        b_rows(b, sk, LD, nb2 * 16, kd * 16);
+        mma_bf16(s[2 * nb2], qf, b[0], b[1]);
+        mma_bf16(s[2 * nb2 + 1], qf, b[2], b[3]);
+        b_rows(b, sv, LD, nb2 * 16, kd * 16);
+        mma_bf16(dp[2 * nb2], gf, b[0], b[1]);
+        mma_bf16(dp[2 * nb2 + 1], gf, b[2], b[3]);
+      }
+    }
+    // dS into s
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + gr + 8 * r;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p = 0.0f;
+          if (live(q0 + row, k0 + nb * 8 + 2 * tq + c, S, causal, window))
+            p = expf(s[nb][2 * r + c] * scale - ls[row]);
+          s[nb][2 * r + c] = p * (dp[nb][2 * r + c] - dl[row]);
+        }
+    }
+    // dQ += dS K over the BK keys
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk)
+      mma_split<KD>(acc, s[2 * kk], s[2 * kk + 1], sk, LD, kk);
+  }
+  cp_async_wait_all();
+  store_rows<DP>(dq + qbase, acc, q0 + warp * 16, S, d, scale);
+}
+
+template <int DP>
+int launch_bwd_tc(const void* q, const void* k, const void* v,
+                  const void* out32, const void* dout, const void* lse,
+                  void* dq, void* dk, void* dv, void* delta, int H, int S,
+                  int d, int causal, int window, int kv_group, float scale,
+                  cudaStream_t s) {
+  constexpr size_t bytes = tb_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)flash_bwd_dkdv_tc_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute((const void*)flash_bwd_dq_tc_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int vec =
+      d % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                     (uintptr_t)dout) % 16 == 0;
+  const long long rows = (long long)H * S;
+  const long long blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
+  flash_bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kBwdThreads, 0,
+                                          s>>>(
+      (const float*)out32, (const __nv_bfloat16*)dout, (float*)delta, rows,
+      d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 kv_grid(H / kv_group, (S + 63) / 64);
+  flash_bwd_dkdv_tc_kernel<DP><<<kv_grid, kTcThreads, bytes, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+      (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, S, d, causal, window, kv_group, scale, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 q_grid(H, (S + 63) / 64);
+  flash_bwd_dq_tc_kernel<DP><<<q_grid, kTcThreads, bytes, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+      (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, S, d,
+      causal, window, kv_group, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -541,37 +1305,89 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int H,
 // d outside [1, 256], a kv_group that does not divide H, or a grid the card
 // cannot take.  float32 runs the SIMT kernel (8 or 16 output columns a
 // thread), bfloat16 the tensor-core kernel with the head dim padded to 32,
-// 64, 128, 160 or 256.
+// 64, 128, 160 or 256.  `lse` (float32, H x S) is written when not null;
+// in bfloat16 it comes with `out32` (float32, H x S x d, the output before
+// its cast; null in float32) and the training instantiation (see
+// flash_attention_tc_kernel).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int H, int S,
-                                      int d, int causal, int window,
-                                      int kv_group, float scale, int dtype,
-                                      int device, void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      void* out32, int H, int S, int d,
+                                      int causal, int window, int kv_group,
+                                      float scale, int dtype, int device,
+                                      void* stream) {
   if (H <= 0 || S <= 0) return 0;
   if (d < 1 || d > DMAX || kv_group < 1 || H % kv_group != 0 ||
-      (S + BQ - 1) / BQ > 65535 || (dtype != 0 && dtype != 1))
+      (S + BQ - 1) / BQ > 65535 || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && (lse == nullptr) != (out32 == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return on_device(device, [&] {
     if (dtype == 0)
-      return d <= 128 ? launch_simt<float, 8>(q, k, v, out, H, S, d, causal,
-                                              window, kv_group, scale, s)
-                      : launch_simt<float, 16>(q, k, v, out, H, S, d, causal,
-                                               window, kv_group, scale, s);
+      return d <= 128 ? launch_simt<float, 8>(q, k, v, out, lse, H, S, d,
+                                              causal, window, kv_group, scale,
+                                              s)
+                      : launch_simt<float, 16>(q, k, v, out, lse, H, S, d,
+                                               causal, window, kv_group,
+                                               scale, s);
     if (d <= 32)
-      return launch_tc<32>(q, k, v, out, H, S, d, causal, window, kv_group,
-                           scale, s);
+      return launch_tc<32>(q, k, v, out, lse, out32, H, S, d, causal, window,
+                           kv_group, scale, s);
     if (d <= 64)
-      return launch_tc<64>(q, k, v, out, H, S, d, causal, window, kv_group,
-                           scale, s);
+      return launch_tc<64>(q, k, v, out, lse, out32, H, S, d, causal, window,
+                           kv_group, scale, s);
     if (d <= 128)
-      return launch_tc<128>(q, k, v, out, H, S, d, causal, window, kv_group,
-                            scale, s);
+      return launch_tc<128>(q, k, v, out, lse, out32, H, S, d, causal, window,
+                            kv_group, scale, s);
     if (d <= 160)
-      return launch_tc<160>(q, k, v, out, H, S, d, causal, window, kv_group,
-                            scale, s);
-    return launch_tc<256>(q, k, v, out, H, S, d, causal, window, kv_group,
-                          scale, s);
+      return launch_tc<160>(q, k, v, out, lse, out32, H, S, d, causal, window,
+                            kv_group, scale, s);
+    return launch_tc<256>(q, k, v, out, lse, out32, H, S, d, causal, window,
+                          kv_group, scale, s);
+  });
+}
+
+// The backward (see the note at the top): dq (H, S, d), dk and dv (H /
+// kv_group, S, d) from q, k, v, out32 (the forward's output in float32:
+// its out32, or its out in float32), dout (the gradient of out) and lse
+// (float32, H x S, from the forward), with `delta` a float32 H x S scratch
+// the caller allocates.  Same types, layouts, masks and returns as
+// flash_attention_launch.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* out32,
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, int H, int S, int d, int causal, int window, int kv_group,
+    float scale, int dtype, int device, void* stream) {
+  if (H <= 0 || S <= 0) return 0;
+  if (d < 1 || d > DMAX || kv_group < 1 || H % kv_group != 0 ||
+      (S + BQB - 1) / BQB > 65535 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return on_device(device, [&] {
+    if (dtype == 0) {
+      if (d <= 64)
+        return launch_bwd<float, 4, 4>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                       delta, H, S, d, causal, window,
+                                       kv_group, scale, s);
+      if (d <= 128)
+        return launch_bwd<float, 4, 8>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                       delta, H, S, d, causal, window,
+                                       kv_group, scale, s);
+      return launch_bwd<float, 2, 16>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                      delta, H, S, d, causal, window,
+                                      kv_group, scale, s);
+    }
+    if (d <= 32)
+      return launch_bwd_tc<32>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
+                               H, S, d, causal, window, kv_group, scale, s);
+    if (d <= 64)
+      return launch_bwd_tc<64>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
+                               H, S, d, causal, window, kv_group, scale, s);
+    if (d <= 128)
+      return launch_bwd_tc<128>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
+                                H, S, d, causal, window, kv_group, scale, s);
+    return launch_bwd<__nv_bfloat16, 2, 16>(q, k, v, out32, dout, lse, dq, dk,
+                                            dv, delta, H, S, d, causal,
+                                            window, kv_group, scale, s);
   });
 }
 

@@ -72,6 +72,20 @@
 //
 // dtype code: 0 = float32, 1 = bfloat16 (x, w1, w3 and out share it).
 // route code: 0 = stream, 1 = tensor cores, 2 = SIMT.
+//
+// Backward of the gate (swiglu_gate_bwd_launch), which the TPU kernel never
+// had (the JAX models differentiate an inline SwiGLU with XLA,
+// repro/models/layers.py:359).  From dh and the two products a = x @ w1 and
+// b = x @ w3 (recomputed by the caller with torch.matmul in the input
+// type, so a bf16 caller's a and b are rounded to bf16 first), with
+// s = 1 / (1 + exp(-a)), all in float32 and cast once:
+//   da = dh * b * s * (1 + a * (1 - s))      (silu'(a))
+//   db = dh * a * s                           (silu(a))
+// The products dx, dw1 and dw3 stay with the caller (torch.matmul), as the
+// JAX package leaves them to XLA.  Bound: memory, 3 reads and 2 writes an
+// element (1.34 GB at (16384, 8192) bf16, 0.40 ms over 3.35 TB/s).  A
+// grid-stride loop over the flat buffers, 16 bytes a load where every
+// pointer is 16-byte aligned, one element at a time otherwise.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
@@ -700,7 +714,91 @@ bool route_fits(int route, int M, int D, int F, int dtype, const void* x,
   }
 }
 
+// ------------------------------------------------------- gate backward --
+
+__device__ __forceinline__ void gate_bwd(float a, float b, float g, float* da,
+                                         float* db) {
+  const float s = 1.0f / (1.0f + expf(-a));
+  *da = g * b * (s * (1.0f + a * (1.0f - s)));
+  *db = g * (a * s);
+}
+
+// VEC elements a step: a 16-byte vector (VEC = 16 / sizeof(T)) or one
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256)
+swiglu_gate_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                       const T* __restrict__ dh, T* __restrict__ da,
+                       T* __restrict__ db, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x * VEC;
+  for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+       i < n; i += stride) {
+    if (VEC > 1 && i + VEC <= n) {
+      const uint4 va = *reinterpret_cast<const uint4*>(a + i);
+      const uint4 vb = *reinterpret_cast<const uint4*>(b + i);
+      const uint4 vg = *reinterpret_cast<const uint4*>(dh + i);
+      uint4 oa, ob;
+      const T* ea = reinterpret_cast<const T*>(&va);
+      const T* eb = reinterpret_cast<const T*>(&vb);
+      const T* eg = reinterpret_cast<const T*>(&vg);
+      T* pa = reinterpret_cast<T*>(&oa);
+      T* pb = reinterpret_cast<T*>(&ob);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float x, y;
+        gate_bwd(to_f32(ea[e]), to_f32(eb[e]), to_f32(eg[e]), &x, &y);
+        pa[e] = from_f32<T>(x);
+        pb[e] = from_f32<T>(y);
+      }
+      *reinterpret_cast<uint4*>(da + i) = oa;
+      *reinterpret_cast<uint4*>(db + i) = ob;
+    } else {
+      for (long long j = i; j < i + VEC && j < n; ++j) {
+        float x, y;
+        gate_bwd(to_f32(a[j]), to_f32(b[j]), to_f32(dh[j]), &x, &y);
+        da[j] = from_f32<T>(x);
+        db[j] = from_f32<T>(y);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_gate_bwd(const void* a, const void* b, const void* dh, void* da,
+                    void* db, long long n, cudaStream_t s) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  const bool vec = (((uintptr_t)a | (uintptr_t)b | (uintptr_t)dh |
+                     (uintptr_t)da | (uintptr_t)db) & 15) == 0;
+  const int per = vec ? kVec : 1;
+  long long blocks = (n + 256LL * per - 1) / (256LL * per);
+  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks an SM, then stride
+  if (vec)
+    swiglu_gate_bwd_kernel<T, kVec><<<(unsigned)blocks, 256, 0, s>>>(
+        (const T*)a, (const T*)b, (const T*)dh, (T*)da, (T*)db, n);
+  else
+    swiglu_gate_bwd_kernel<T, 1><<<(unsigned)blocks, 256, 0, s>>>(
+        (const T*)a, (const T*)b, (const T*)dh, (T*)da, (T*)db, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The gate's backward over n elements of a, b, dh into da, db (see the note
+// at the top).  Launches on `stream` with `device` current; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a dtype
+// code other than 0 or 1.
+extern "C" int swiglu_gate_bwd_launch(const void* a, const void* b,
+                                      const void* dh, void* da, void* db,
+                                      long long n, int dtype, int device,
+                                      void* stream) {
+  if (n <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return on_device(device, [&] {
+    return dtype == 0
+               ? launch_gate_bwd<float>(a, b, dh, da, db, n, s)
+               : launch_gate_bwd<__nv_bfloat16>(a, b, dh, da, db, n, s);
+  });
+}
 
 // Launches route `route` on `stream` with `device` current; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a dtype

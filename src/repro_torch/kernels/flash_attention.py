@@ -14,8 +14,16 @@ dtype.  Head dims run up to 256.
 
 :func:`flash_attention` is the wrapper the attention layer calls: a CPU
 tensor takes the plain version (:func:`repro_torch.kernels.ref.
-flash_attention`), a CUDA tensor launches the kernel or raises.  Importing
-this module needs no ``nvcc`` and no card.
+flash_attention`, which autograd differentiates), a CUDA tensor launches
+the kernel or raises.  Where a gradient is wanted on a CUDA tensor the call
+goes through :class:`FlashAttentionFn`: its forward is the kernel's
+training form (each row's log-sum-exp and the output in float32 beside
+it; in bfloat16 the P V product also adds P's bf16 remainder, so the output
+comes within about 2**-16 of the float32 one before its cast, where
+serving's P V rounds P to bf16), its backward is the kernel
+``flash_attention_bwd`` (:func:`flash_attention_bwd_cuda`, in the same
+source; no atomics, so the same bits on every run).  Importing this module
+needs no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
@@ -28,41 +36,60 @@ from repro_torch.kernels import _launch, ref
 
 #: the largest head dim the kernel takes
 MAX_HEAD_DIM = 256
-#: q, k, v, out, H, S, d, causal, window, kv_group, scale, dtype code (then
-#: the device and the stream)
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
+#: q, k, v, out, lse, out32, H, S, d, causal, window, kv_group, scale,
+#: dtype code (then the device and the stream)
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                       ctypes.c_int]
 _NAMES = ("q", "k", "v")
+#: q, k, v, out32, dout, lse, dq, dk, dv, delta, H, S, d, causal, window,
+#: kv_group, scale, dtype code (then the device and the stream)
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                           ctypes.c_int]
+
+
+def _check_shapes(name: str, q, k, v, kv_group: int):
+    """(H, S, d) of ``q``; raise ``ValueError`` unless k and v are (H //
+    kv_group, S, d) with d in [1, 256]."""
+    if q.dim() != 3 or kv_group < 1 or q.shape[0] % kv_group:
+        raise ValueError(f"{name} takes q (H, S, d) with H divisible by "
+                         f"kv_group={kv_group}, got {tuple(q.shape)}")
+    H, S, d = q.shape
+    kv_shape = (H // kv_group, S, d)
+    if k.shape != kv_shape or v.shape != kv_shape:
+        raise ValueError(f"{name}: k and v must be {kv_shape}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name} takes head dims up to {MAX_HEAD_DIM}, got "
+                         f"{d}")
+    return H, S, d
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         kv_group: int = 1) -> torch.Tensor:
+                         kv_group: int = 1, train: bool = False):
     """Launch the kernel: ``q`` (H, S, d), ``k`` and ``v`` (H // kv_group,
     S, d) with d <= 256, all float32 or all bfloat16, contiguous, on one
-    CUDA device.  Returns a new (H, S, d) tensor of ``q``'s dtype.  Raises
-    ``ValueError`` on any other input and ``RuntimeError`` when the launch
-    is refused."""
+    CUDA device.  Returns a new (H, S, d) tensor of ``q``'s dtype; with
+    ``train``, the kernel's training form (see the module note) and
+    ``(out, lse, out32)``: each row's log-sum-exp of its scaled, masked
+    scores, float32 (H, S), and the output in float32 (``out`` itself in
+    float32).  Raises ``ValueError`` on any other input and
+    ``RuntimeError`` when the launch is refused."""
     code, dev = _launch.check_operands("flash_attention", _NAMES, q, k, v)
-    if q.dim() != 3 or kv_group < 1 or q.shape[0] % kv_group:
-        raise ValueError(f"flash_attention takes q (H, S, d) with H "
-                         f"divisible by kv_group={kv_group}, got "
-                         f"{tuple(q.shape)}")
-    H, S, d = q.shape
-    kv_shape = (H // kv_group, S, d)
-    if k.shape != kv_shape or v.shape != kv_shape:
-        raise ValueError(f"flash_attention: k and v must be {kv_shape}, got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention takes head dims up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    H, S, d = _check_shapes("flash_attention", q, k, v, kv_group)
     out = torch.empty_like(q)
+    lse = out32 = None
+    if train:
+        lse = torch.empty((H, S), dtype=torch.float32, device=q.device)
+        out32 = out if q.dtype == torch.float32 else torch.empty(
+            q.shape, dtype=torch.float32, device=q.device)
+    ptr = lambda t: 0 if t is None or t is out else t.data_ptr()  # noqa
     _launch.launch("flash_attention", _ARGS, dev, q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), out.data_ptr(), H, S, d,
-                   int(causal), int(window), kv_group, 1.0 / math.sqrt(d),
-                   code)
+                   k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(lse),
+                   ptr(out32), H, S, d, int(causal), int(window), kv_group,
+                   1.0 / math.sqrt(d), code)
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse, out32) if train else out
 
 
 #: kernel launches since the last reset (``flash_attention_cuda.launches =
@@ -70,13 +97,82 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out32: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             kv_group: int = 1):
+    """Launch the backward kernels: q, k, v as for the forward, ``out32``
+    and ``lse`` from its training form (the output and each row's
+    log-sum-exp, float32, (H, S, d) and (H, S)), ``dout`` the gradient of
+    the output (H, S, d, q's dtype), on one CUDA device.  Returns (dq, dk,
+    dv) in q's dtype, dk and dv summed over each kv head's ``kv_group``
+    query heads.  Raises ``ValueError`` on any other input and
+    ``RuntimeError`` when the launch is refused."""
+    code, dev = _launch.check_operands(
+        "flash_attention_bwd", ("q", "k", "v", "dout"), q, k, v, dout)
+    H, S, d = _check_shapes("flash_attention_bwd", q, k, v, kv_group)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: dout must be "
+                         f"{tuple(q.shape)}, got {tuple(dout.shape)}")
+    for name, t, shape in (("out32", out32, (H, S, d)), ("lse", lse, (H, S))):
+        if (t.dtype != torch.float32 or t.shape != shape
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"contiguous float32 {shape} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((H, S), dtype=torch.float32, device=q.device)
+    _launch.launch("flash_attention_bwd", _BWD_ARGS, dev, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), out32.data_ptr(),
+                   dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), H, S, d,
+                   int(causal), int(window), kv_group, 1.0 / math.sqrt(d),
+                   code, library="flash_attention")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+#: kernel launches since the last reset
+#: (``flash_attention_bwd_cuda.launches = 0``)
+flash_attention_bwd_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's training form with the backward kernel as its gradient
+    (CUDA tensors): the forward keeps its float32 output and row
+    log-sum-exp for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_group):
+        out, lse, out32 = flash_attention_cuda(
+            q, k, v, causal=causal, window=window, kv_group=kv_group,
+            train=True)
+        ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.mask = (causal, window, kv_group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out32, lse = ctx.saved_tensors
+        causal, window, kv_group = ctx.mask
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, out32, dout.contiguous(), lse, causal=causal,
+            window=window, kv_group=kv_group)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     kv_group: int = 1) -> torch.Tensor:
     """Masked softmax attention over (H, S, d): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+    tensors, the CUDA kernel for CUDA tensors (through
+    :class:`FlashAttentionFn` when a gradient is wanted)."""
     if q.is_cpu:
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    kv_group=kv_group)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, kv_group)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 kv_group=kv_group)

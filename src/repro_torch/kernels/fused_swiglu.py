@@ -12,9 +12,16 @@ dtype and the operands' alignment: a byte-bound stream for decode
 (``TENSOR_CORES``) and the SIMT kernel for the rest (``SIMT``).
 
 :func:`fused_swiglu` is the wrapper the MLP calls: a CPU tensor takes the
-plain version (:func:`repro_torch.kernels.ref.fused_swiglu`), a CUDA tensor
-launches the kernel or raises.  Importing this module needs no ``nvcc`` and
-no card.
+plain version (:func:`repro_torch.kernels.ref.fused_swiglu`, which autograd
+differentiates), a CUDA tensor launches the kernel or raises.  Where a
+gradient is wanted on a CUDA tensor the call goes through
+:class:`SwiGLUFn`: its backward recomputes ``a = x @ w1`` and ``b = x @
+w3`` with ``torch.matmul`` in the input type (so in bfloat16 both are
+rounded to bfloat16 before the gate's backward; the forward keeps them in
+float32), runs the gate's backward kernel ``swiglu_gate_bwd``
+(:func:`swiglu_gate_bwd_cuda`, in the same source) and leaves dx, dw1 and
+dw3 to ``torch.matmul``, as the JAX package leaves every product of its
+gradient to XLA.  Importing this module needs no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
@@ -86,10 +93,67 @@ def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
 fused_swiglu_cuda.launches = 0
 
 
+#: a, b, dh, da, db, n, dtype code (then the device and the stream)
+_GATE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
+
+
+def swiglu_gate_bwd_cuda(a: torch.Tensor, b: torch.Tensor,
+                         dh: torch.Tensor):
+    """Launch the gate's backward kernel on same-shape ``a`` (x @ w1), ``b``
+    (x @ w3) and ``dh`` (the gradient of the gate), one dtype, contiguous,
+    on one CUDA device: returns (da, db) = (dh * b * silu'(a), dh *
+    silu(a)), computed in float32 and cast once.  Raises ``ValueError`` on
+    any other input and ``RuntimeError`` when the launch is refused."""
+    code, dev = _launch.check_operands("swiglu_gate_bwd", ("a", "b", "dh"),
+                                       a, b, dh)
+    if b.shape != a.shape or dh.shape != a.shape:
+        raise ValueError(f"swiglu_gate_bwd takes same-shape a, b, dh, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(dh.shape)}")
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    _launch.launch("swiglu_gate_bwd", _GATE_ARGS, dev, a.data_ptr(),
+                   b.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
+                   a.numel(), code, library="fused_swiglu")
+    swiglu_gate_bwd_cuda.launches += 1
+    return da, db
+
+
+#: kernel launches since the last reset (``swiglu_gate_bwd_cuda.launches =
+#: 0``)
+swiglu_gate_bwd_cuda.launches = 0
+
+
+class SwiGLUFn(torch.autograd.Function):
+    """The fused gate with the gate's backward kernel in its gradient (CUDA
+    tensors); see the module note."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3):
+        ctx.save_for_backward(x, w1, w3)
+        return fused_swiglu_cuda(x, w1, w3)
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w1, w3 = ctx.saved_tensors
+        da, db = swiglu_gate_bwd_cuda(x @ w1, x @ w3, dh.contiguous())
+        dx = dw1 = dw3 = None
+        if ctx.needs_input_grad[0]:
+            dx = (da @ w1.T).addmm_(db, w3.T)
+        if ctx.needs_input_grad[1]:
+            dw1 = x.T @ da
+        if ctx.needs_input_grad[2]:
+            dw3 = x.T @ db
+        return dx, dw1, dw3
+
+
 def fused_swiglu(x: torch.Tensor, w1: torch.Tensor,
                  w3: torch.Tensor) -> torch.Tensor:
     """``silu(x @ w1) * (x @ w3)``: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
+    CUDA kernel for CUDA tensors (through :class:`SwiGLUFn` when a gradient
+    is wanted)."""
     if x.is_cpu:
         return ref.fused_swiglu(x, w1, w3)
+    if torch.is_grad_enabled() and (x.requires_grad or w1.requires_grad
+                                    or w3.requires_grad):
+        return SwiGLUFn.apply(x, w1, w3)
     return fused_swiglu_cuda(x, w1, w3)

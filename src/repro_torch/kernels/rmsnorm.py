@@ -8,8 +8,12 @@ bound are documented there), built at first use
 PyTorch's current stream.
 
 :func:`rmsnorm` is the wrapper the model calls: a CPU tensor takes the plain
-version (:func:`repro_torch.kernels.ref.rmsnorm`), a CUDA tensor launches
-the kernel or raises.  Importing this module needs no ``nvcc`` and no card.
+version (:func:`repro_torch.kernels.ref.rmsnorm`, which autograd
+differentiates), a CUDA tensor launches the kernel or raises.  Where a
+gradient is wanted on a CUDA tensor the call goes through
+:class:`RMSNormFn`, whose backward is the kernel ``rmsnorm_bwd``
+(:func:`rmsnorm_bwd_cuda`, in the same source).  Importing this module
+needs no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
@@ -47,10 +51,78 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
 rmsnorm_cuda.launches = 0
 
 
+#: x, scale, dy, dx, dscale, partial, M, D, blocks, eps, dtype code (then
+#: the device and the stream)
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_int]
+#: rows a block of the backward walks (the last block may take fewer)
+BWD_ROWS = 64
+#: the widest row the backward takes (its dscale partial row lives in
+#: shared memory)
+BWD_MAX_D = 32768
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-6):
+    """Launch the backward kernel: ``x`` and ``dy`` (M, D), ``scale`` (D,),
+    one dtype, contiguous, on one CUDA device.  Returns (dx, dscale) in
+    that dtype: dscale sums per-block partials (a float32 (blocks, D)
+    scratch) in block order, so it is the same bits on every run.  Raises
+    ``ValueError`` on any other input and ``RuntimeError`` when the launch
+    is refused."""
+    code, dev = _launch.check_operands("rmsnorm_bwd", ("x", "scale", "dy"),
+                                       x, scale, dy)
+    if x.dim() != 2 or scale.shape != (x.shape[1],) or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd takes x and dy (M, D), scale (D,), "
+                         f"got {tuple(x.shape)}, {tuple(scale.shape)}, "
+                         f"{tuple(dy.shape)}")
+    M, D = x.shape
+    if D > BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd takes rows up to {BWD_MAX_D} wide, "
+                         f"got {D}")
+    dx = torch.empty_like(x)
+    if M == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    blocks = -(-M // BWD_ROWS)
+    partial = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+    _launch.launch("rmsnorm_bwd", _BWD_ARGS, dev, x.data_ptr(),
+                   scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                   dscale.data_ptr(), partial.data_ptr(), M, D, blocks, eps,
+                   code, library="rmsnorm")
+    rmsnorm_bwd_cuda.launches += 1
+    return dx, dscale
+
+
+#: kernel launches since the last reset (``rmsnorm_bwd_cuda.launches = 0``)
+rmsnorm_bwd_cuda.launches = 0
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The kernel's function with the backward kernel as its gradient
+    (CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_cuda(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of the rows of (M, D) ``x``: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+    tensors, the CUDA kernel for CUDA tensors (through :class:`RMSNormFn`
+    when a gradient is wanted)."""
     if x.is_cpu:
         return ref.rmsnorm(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFn.apply(x, scale, eps)
     return rmsnorm_cuda(x, scale, eps)

@@ -1,0 +1,154 @@
+"""Training launcher of the port: random weights from a seed, synthetic
+batches from (seed, step), AdamW, checkpoints, on the card.
+
+    python -m repro_torch.launch.train --arch llama3_2_3b --batch 4 \\
+        --seq 4096 --steps 4                 # full config, cuda
+    python -m repro_torch.launch.train --arch llama3_2_3b --smoke \\
+        --steps 3 --device cpu               # reduced, on the host
+
+The flags are ``repro/launch/train.py``'s plus ``--device``.  Without
+``--smoke`` the full config runs (the JAX launcher's smoke flag is the only
+way it runs; here it is off unless given) at ``--shape``'s sequence and
+global batch (:data:`repro_torch.configs.SHAPES`), and ``--seq`` and
+``--batch``, where given, replace them: that is how a full config is cut
+to one card (the JAX launcher reads them only with ``--smoke``).  With
+``--smoke`` the shape is ``--seq`` x ``--batch``, 64 x 4 unless given.  Prints the final step, the losses and the stragglers, then a
+``time:`` line: the median step seconds over the steps after the first
+(each ends in a device synchronisation), tokens a second, and on a card
+the model FLOPs a step over the step time as a share of
+:data:`PEAK_BF16_FLOPS` and the peak device memory.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import statistics
+import sys
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs import SHAPES, RunConfig, get_config, smoke_config
+from repro_torch.configs.base import ShapeSpec, default_checkpoint_dir
+from repro_torch.device import resolve_device
+from repro_torch.train.loop import CUBLAS_WORKSPACE, train
+
+#: an H100 SXM's dense bf16 tensor-core rate (NVIDIA's data sheet, at its
+#: 700 W power limit)
+PEAK_BF16_FLOPS = 989e12
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k", choices=sorted(SHAPES),
+                    help="the full config's sequence and global batch")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced same-family config (smoke_config)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--seq", type=int, default=None,
+                    help="the sequence length (replaces --shape's)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="the global batch (replaces --shape's)")
+    ap.add_argument("--ckpt-dir", default=default_checkpoint_dir())
+    ap.add_argument("--ckpt-every", type=int, default=5)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8"])
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    return ap.parse_args(argv)
+
+
+def resolve_shape(args: argparse.Namespace) -> ShapeSpec:
+    """The run's shape: with ``--smoke`` ``--seq`` x ``--batch`` (64 x 4
+    unless given), else ``SHAPES[--shape]`` with ``--seq`` and ``--batch``
+    replacing its sequence and global batch where given (the name gains
+    the cut, as ``train_4k@4x4096``)."""
+    if args.smoke:
+        return ShapeSpec("smoke", args.seq or 64, args.batch or 4, "train")
+    base = SHAPES[args.shape]
+    seq = args.seq or base.seq_len
+    batch = args.batch or base.global_batch
+    name = base.name if (seq, batch) == (base.seq_len, base.global_batch) \
+        else f"{base.name}@{batch}x{seq}"
+    return ShapeSpec(name, seq, batch, base.kind)
+
+
+def causal_pairs(T: int, window: int = 0) -> int:
+    """The (query, key) pairs a causal (windowed) attention over T tokens
+    computes."""
+    if not window or window >= T:
+        return T * (T + 1) // 2
+    return window * (window + 1) // 2 + (T - window) * window
+
+
+def model_flops(cfg, batch: int, seq: int) -> Dict[str, float]:
+    """The model FLOPs of one training step of ``batch`` x ``seq`` tokens:
+    6 x parameters x tokens for the products (the tied embedding counts
+    once, as the output head), and 12 x head dim x live pairs x query
+    heads x layers x batch for attention's two products, forward and
+    backward."""
+    tokens = batch * seq
+    dense = 6.0 * cfg.param_count() * tokens
+    attn = 12.0 * cfg.resolved_head_dim * causal_pairs(
+        seq, cfg.sliding_window) * cfg.n_heads * cfg.n_layers * batch
+    return {"products": dense, "attention": attn, "total": dense + attn}
+
+
+def run(argv: Optional[List[str]] = None) -> Dict:
+    """Parse ``argv``, train, print the report; returns the training
+    result with the config, the shape and the timing figures."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    shape = resolve_shape(args)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    run_cfg = RunConfig(model=cfg, shape=shape, checkpoint_dir=args.ckpt_dir,
+                        checkpoint_every=args.ckpt_every,
+                        total_steps=max(args.steps, 10),
+                        grad_compression=args.grad_compression)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = train(run_cfg, steps=args.steps, device=device)
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    print(f"model: {cfg.arch_id} ({'smoke' if args.smoke else 'full'}) "
+          f"{cfg.n_layers}L d_model={cfg.d_model} vocab={cfg.vocab_size}, "
+          f"{n_params} params, remat={cfg.remat}, {shape.name}: batch "
+          f"{shape.global_batch} x {shape.seq_len} on {device}")
+    print(f"final step {out['final_step']}  losses: "
+          f"{[round(v, 4) for v in out['losses']]}  grad norms: "
+          f"{[round(v, 4) for v in out['grad_norms']]}  stragglers: "
+          f"{out['stragglers']}")
+    times = out["step_s"][1:] or out["step_s"]
+    report = {"cfg": cfg, "shape": shape, **out}
+    if times:
+        step_s = statistics.median(times)
+        tokens = shape.global_batch * shape.seq_len
+        flops = model_flops(cfg, shape.global_batch, shape.seq_len)
+        line = (f"time: median step {step_s:.6f} s over {len(times)} steps "
+                f"after the first; {tokens / step_s:.1f} tokens/s")
+        report.update(step_s_median=step_s, tokens_per_s=tokens / step_s,
+                      model_flops=flops)
+        if device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            mfu = flops["total"] / step_s / PEAK_BF16_FLOPS
+            line += (f"; model FLOPs {flops['total']:.4g} a step "
+                     f"({flops['products']:.4g} products + "
+                     f"{flops['attention']:.4g} attention), "
+                     f"{100 * mfu:.2f}% of the {PEAK_BF16_FLOPS / 1e12:.0f} "
+                     f"TFLOP/s dense bf16 peak (H100 SXM data sheet); peak "
+                     f"device memory {peak:.3f} GiB")
+            report.update(mfu=mfu, peak_gib=peak)
+        print(line)
+    return report
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

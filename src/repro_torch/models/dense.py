@@ -8,8 +8,14 @@ h2o-danube-3-4b with SWA) and the VLM backbone (qwen2-vl-72b: token
 :class:`DenseLM` holds the leaves of :func:`param_spec` as parameters, with
 the ``layers`` axis unstacked into a ``ModuleList`` (each layer's tensors
 are views of the stacked ones, so nothing is copied); ``lax.scan`` over
-layers becomes a Python loop.  The module serves only: its parameters do
-not require gradients.
+layers becomes a Python loop.  It serves (``prefill``, ``decode_step``)
+and trains (``forward`` under the config's ``remat`` policy, and
+:func:`loss_fn`).  Its parameters want no gradient until
+:meth:`DenseLM.grad_views` turns training on: then each layer's
+parameters are leaves whose ``.grad`` is a view of one stacked gradient
+tree, so the optimizer and the checkpoint see one gradient per stacked
+leaf (``params/layers/mlp/w1``) and the forward never indexes a stacked
+leaf (each ``select``'s backward would write a full-size zero tensor).
 """
 from __future__ import annotations
 
@@ -107,6 +113,10 @@ class DenseLM(nn.Module):
     def __init__(self, cfg, params: Dict):
         super().__init__()
         self.cfg = cfg
+        #: the stacked tree the parameters view (training updates it in
+        #: place; ``Module.to`` moves the per-layer copies only, so build a
+        #: new model to move a trainable one)
+        self.params = params
         self.emb = nn.Parameter(params["emb"], requires_grad=False)
         self.ln_f = nn.Parameter(params["ln_f"], requires_grad=False)
         self.layers = nn.ModuleList(
@@ -137,12 +147,48 @@ class DenseLM(nn.Module):
         m, aux = self._ffn(w, L.rms_norm(x, w["ln2"]))
         return x + m, kv, aux
 
+    def _block_out(self, w, x, positions) -> torch.Tensor:
+        return self._block(w, x, positions)[0]
+
     def forward(self, batch) -> torch.Tensor:
-        """Final hidden states (B, T, D)."""
+        """Final hidden states (B, T, D).  Where a gradient is recorded each
+        block runs under the config's ``remat`` policy
+        (:func:`repro_torch.models.layers.remat_policy`)."""
         x, positions = self._inputs(batch)
+        policy = L.remat_policy(self.cfg.remat)
         for w in self.layers:
-            x, _, _ = self._block(w, x, positions)
+            x = L.remat(self._block_out, policy, w, x, positions)
         return L.rms_norm(x, self.ln_f)
+
+    def grad_views(self) -> Dict:
+        """Turn training on: every parameter wants a gradient, and its
+        ``.grad`` is a view of a stacked gradient tree shaped like
+        :attr:`params` (zeros, each leaf in its parameter's dtype), which
+        is returned.  Autograd adds into an existing ``.grad`` in place, so
+        a backward fills each stacked leaf layer by layer; zero the tree
+        (``zero_``) between steps, and keep the views attached."""
+        grads = {}
+
+        def walk(tree, out, modules):
+            for key, val in tree.items():
+                if isinstance(val, dict):
+                    walk(val, out.setdefault(key, {}),
+                         [m[key] for m in modules])
+                    continue
+                out[key] = torch.zeros_like(val)
+                for i, m in enumerate(modules):
+                    p = m[key]
+                    p.requires_grad_(True)
+                    p.grad = out[key][i]
+
+        walk(self.params["layers"], grads.setdefault("layers", {}),
+             list(self.layers))
+        for key in ("emb", "ln_f"):
+            grads[key] = torch.zeros_like(self.params[key])
+            p = getattr(self, key)
+            p.requires_grad_(True)
+            p.grad = grads[key]
+        return grads
 
     def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
         """Run the full prompt; return (cache, last-token logits (B, 1, V)
@@ -201,6 +247,17 @@ class DenseLM(nn.Module):
         logits = (x @ self.emb.T).float()
         cache["length"] = cache["length"] + 1
         return cache, logits
+
+
+def loss_fn(cfg, model: DenseLM, batch) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token cross-entropy of ``batch`` (``repro/models/
+    dense.py:83``): the final hidden states against ``labels`` through the
+    tied embedding, :func:`repro_torch.models.layers.chunked_xent` in
+    chunks of ``cfg.logits_chunk`` tokens.  Returns (loss, {"loss":
+    loss})."""
+    h = model(batch)
+    nll = L.chunked_xent(h, model.emb, batch["labels"], cfg.logits_chunk)
+    return nll, {"loss": nll}
 
 
 def decode_slots(cfg, cache: Dict) -> Dict:

@@ -18,16 +18,23 @@ bfloat16 rounds in other places than the JAX layers do (the JAX
 rounds ``x @ w1`` before the silu).  In float32 the two agree up to the
 order of sums.
 
-Training pieces (``chunked_xent``, ``remat_policy``) are not ported yet;
-``lax.scan`` over layers is a Python loop in the model modules.
+Training: :func:`chunked_xent` is the loss (one ``torch.utils.checkpoint``
+a token chunk, so one chunk's float32 logits and their gradient are alive
+at a time) and :func:`remat_policy` maps the config's ``remat`` onto
+``torch.utils.checkpoint`` (:func:`remat`).  On a CUDA tensor that wants a
+gradient each kernel goes through its ``torch.autograd.Function``, whose
+backward is a kernel too.  ``lax.scan`` over layers is a Python loop in
+the model modules.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_swiglu import fused_swiglu
@@ -338,3 +345,84 @@ def embed_param_spec(cfg) -> Dict[str, Spec]:
 
 def embed_lookup(emb, tokens):
     return emb[tokens]
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy and rematerialisation (training)
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(hh: torch.Tensor, yy: torch.Tensor,
+                emb: torch.Tensor) -> torch.Tensor:
+    """Sum over a chunk of ``logsumexp(logits) - logits[label]``, logits in
+    float32: one ``cross_entropy`` (log-softmax, then the label's pick;
+    both backwards are deterministic on CUDA).
+    ``scripts/xent_peak.py`` measures its memory on the card."""
+    logits = (hh @ emb.T).float()  # (chunk, V)
+    return torch.nn.functional.cross_entropy(logits, yy, reduction="sum")
+
+
+def chunked_xent(hidden: torch.Tensor, emb: torch.Tensor,
+                 labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Next-token cross-entropy without building (tokens, vocab) in float32
+    (``repro/models/layers.py:378``): the tokens run in chunks of
+    ``chunk``, each under its own ``torch.utils.checkpoint``, so at most one
+    chunk's (chunk, V) float32 logits and their gradient are alive at a
+    time (the backward recomputes them).  As in the JAX package the last
+    chunk is padded with zero hidden states and label 0, each pad row adds
+    log V to the sum (its logits are all 0), and the sum is divided by the
+    true token count; the pad rows add nothing to any gradient."""
+    B, T, D = hidden.shape
+    h = hidden.reshape(B * T, D)
+    y = labels.reshape(B * T).long()
+    n = h.shape[0]
+    chunk = min(chunk, n)
+    pad = (-n) % chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        y = torch.nn.functional.pad(y, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for hh, yy in zip(h.split(chunk), y.split(chunk)):
+        total = total + _ckpt.checkpoint(_xent_chunk, hh, yy, emb,
+                                         use_reentrant=False)
+    return total / n
+
+
+#: the products the ``"dots"`` policy keeps: every matrix product without
+#: batch dimensions, as ``jax.checkpoint_policies.
+#: dots_with_no_batch_dims_saveable`` keeps them (a projection ``x @ w`` of
+#: a (B, T, D) activation folds into one ``mm``)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = _ckpt.CheckpointPolicy
+    return policy.MUST_SAVE if op in _SAVED_DOTS else \
+        policy.PREFER_RECOMPUTE
+
+
+def remat_policy(name: str) -> Optional[Callable]:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a config's
+    ``remat`` (``repro/models/layers.py:409``): ``"dots"`` saves the
+    outputs of ``aten.mm`` / ``aten.addmm`` (selective checkpointing, the
+    counterpart of ``dots_with_no_batch_dims_saveable``) and recomputes the
+    rest, ``"nothing"`` recomputes everything (full checkpointing), and any
+    other name (``"full"``) gives ``None``: no wrapper, everything kept.
+    A kernel launched through ``ctypes`` is not an aten op, so it is
+    recomputed in the backward under both wrapping policies."""
+    if name == "dots":
+        return functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                 _save_dots)
+    if name == "nothing":
+        return _ckpt.noop_context_fn
+    return None
+
+
+def remat(fn: Callable, policy: Optional[Callable], *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``policy`` (a
+    :func:`remat_policy` result) when a gradient is being recorded and the
+    policy is not ``None``; a plain call otherwise."""
+    if policy is None or not torch.is_grad_enabled():
+        return fn(*args)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=policy)

@@ -3,7 +3,8 @@
 
 Every family module exposes ``param_spec``, ``cache_spec`` and its model
 class as ``Model``, with ``forward``, ``prefill`` and ``decode_step``
-methods; callers hold the built model and call those methods.  Every
+methods; callers hold the built model and call those methods.  The dense
+module (dense and vlm) also trains: :func:`loss_fn`.  Every
 family of the JAX package's zoo is ported; an unknown family raises
 ``NotImplementedError``.
 """
@@ -51,6 +52,22 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     """A model with seeded random weights drawn on ``device`` (see
     :func:`repro_torch.models.layers.init_params`)."""
     return build(cfg, init_params(param_spec(cfg), generator, device, dtype))
+
+
+#: the families that train so far (the others serve only)
+TRAINED_FAMILIES = ("dense", "vlm")
+
+
+def loss_fn(cfg: ModelConfig, model: torch.nn.Module, batch: Dict):
+    """(loss, metrics) of ``model`` on a training ``batch`` of tensors
+    (``repro/models/zoo.py``'s ``loss_fn``).  The dense and vlm families
+    train; moe, ssm, hybrid and encdec serve only and raise
+    ``NotImplementedError``."""
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.arch_id}) does not train in the "
+            f"port yet; training families: {list(TRAINED_FAMILIES)}")
+    return get_module(cfg).loss_fn(cfg, model, batch)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int):

@@ -10,7 +10,11 @@ serving on ``cuda`` against the CPU run (one layer each of the MoE and
 Mamba-1 families too, and the MoE dispatch route for route); the PCU
 kernel ``motif_pcu``
 against its plain version, bit for bit in float32, and the ``ops``
-dispatchers through the kernels.
+dispatchers through the kernels; the training kernels (``rmsnorm_bwd``,
+``swiglu_gate_bwd``, ``flash_attention_bwd`` on tensor cores in bf16 up
+to head dim 128 and on SIMT past it and in float32, and flash's training
+forward with its row log-sum-exp and float32 output) against autograd of
+the plain versions, twice bit for bit, each by name.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -393,8 +397,10 @@ def _kernel_names(fn):
 @pytest.mark.parametrize("S,g", [(100, 1), (500, 4)])
 def test_flash_attention_head_dims_to_256(cuda, dtype, d, kernel, kw, S, g):
     """Head dims past 128 (stablelm_12b's 160; 192 pads to 256): bf16 on
-    the tensor-core kernel at its padded width, float32 on the SIMT kernel
-    with 16 output columns a thread, each asserted by the kernel's name."""
+    the tensor-core kernel at its padded width (serving's instantiation,
+    ``<DP, false>``; the training form is ``<DP, true>``), float32 on the
+    SIMT kernel with 16 output columns a thread, each asserted by the
+    kernel's name."""
     H = 2 * g
     q = _randn((H, S, d), dtype, cuda, d + S)
     k, v = (_randn((H // g, S, d), dtype, cuda, d + S + i) for i in (1, 2))
@@ -404,6 +410,8 @@ def test_flash_attention_head_dims_to_256(cuda, dtype, d, kernel, kw, S, g):
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
     names = _kernel_names(call)
+    if "tc_kernel" in kernel:
+        kernel = kernel.replace(">", ", false>")
     assert any(kernel in n for n in names), names
     assert got.dtype == dtype and got.shape == (H, S, d)
     _assert_close(got, ref.flash_attention(q, k, v, kv_group=g, **kw), dtype)
@@ -755,3 +763,255 @@ def test_ops_dispatch_to_the_kernels(cuda):
     for g, w in zip(got[:3], want[:3]):
         _assert_close(g, w, torch.float32)
     assert _bits_equal(got[3], want[3])
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward kernels and the forward's row log-sum-exp
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+from repro_torch.kernels.fused_swiglu import swiglu_gate_bwd_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+FLASH_KW = [dict(causal=True), dict(causal=True, window=64),
+            dict(causal=False)]
+FLASH_KW_IDS = ["causal", "window64", "full"]
+
+
+def _plain_grads(fn, inputs, grad_out):
+    """Autograd of the plain version ``fn(*inputs)`` against ``grad_out``:
+    one gradient per input, in the input's dtype."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, grad_out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D", [(128, 64), (64, 160), (100, 3072),
+                                 (300, 512), (1, 200)])
+def test_rmsnorm_backward_matches_plain(cuda, dtype, M, D):
+    x, s = _randn((M, D), dtype, cuda, 0), _randn((D,), dtype, cuda, 1)
+    dy = _randn((M, D), dtype, cuda, 2)
+    before = rmsnorm_bwd_cuda.launches
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd_cuda.launches == before + 1
+    want_dx, want_ds = _plain_grads(ref.rmsnorm, (x, s), dy)
+    assert dx.dtype == dtype and ds.dtype == dtype
+    _assert_close(dx, want_dx, dtype)
+    _assert_close(ds, want_ds, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gradient_runs_the_backward_kernel(cuda, dtype):
+    """``rmsnorm`` on a CUDA tensor that wants a gradient goes through
+    ``RMSNormFn``: one forward and one backward launch."""
+    x = _randn((64, 256), dtype, cuda, 3).requires_grad_(True)
+    s = _randn((256,), dtype, cuda, 4).requires_grad_(True)
+    f0, b0 = rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches
+    y = rmsnorm(x, s)
+    dy = _randn((64, 256), dtype, cuda, 5)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches) == \
+        (f0 + 1, b0 + 1)
+    want_dx, want_ds = _plain_grads(ref.rmsnorm, (x, s), dy)
+    _assert_close(x.grad, want_dx, dtype)
+    _assert_close(s.grad, want_ds, dtype)
+
+
+def _gate(a, b):
+    return (torch.nn.functional.silu(a.float()) * b.float()).to(a.dtype)
+
+
+def _flat_offset(n, dtype, device, seed):
+    """n values one element into their storage (misaligned for 16-byte
+    vectors)."""
+    base = _randn((n + 1,), dtype, device, seed)
+    return base[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 33), (128, 256), (300, 520), (1, 1)])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_swiglu_gate_backward_matches_plain(cuda, dtype, shape, aligned):
+    n = shape[0] * shape[1]
+    if aligned:
+        a, b, dh = (_randn(shape, dtype, cuda, i) for i in (6, 7, 8))
+    else:
+        a, b, dh = (_flat_offset(n, dtype, cuda, i).view(shape)
+                    for i in (6, 7, 8))
+    before = swiglu_gate_bwd_cuda.launches
+    da, db = swiglu_gate_bwd_cuda(a, b, dh)
+    torch.cuda.synchronize()
+    assert swiglu_gate_bwd_cuda.launches == before + 1
+    want_da, want_db = _plain_grads(_gate, (a, b), dh)
+    _assert_close(da, want_da, dtype)
+    _assert_close(db, want_db, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(128, 128, 128), (300, 256, 520)])
+def test_swiglu_gradients_through_the_kernels(cuda, dtype, M, D, F):
+    """``fused_swiglu`` on CUDA tensors that want gradients: the kernel
+    forward, the gate's backward kernel, dx / dw1 / dw3 against autograd
+    of the plain version (bf16 rounds x @ w1 and x @ w3 before the gate's
+    backward, within ``TOL``)."""
+    x = _randn((M, D), dtype, cuda, 9)
+    w1, w3 = (_randn((D, F), dtype, cuda, i) * D ** -0.5 for i in (10, 11))
+    dh = _randn((M, F), dtype, cuda, 12)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1, w3)]
+    before = (fused_swiglu_cuda.launches, swiglu_gate_bwd_cuda.launches)
+    fused_swiglu(*leaves).backward(dh)
+    torch.cuda.synchronize()
+    assert (fused_swiglu_cuda.launches, swiglu_gate_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in zip(leaves, _plain_grads(ref.fused_swiglu,
+                                              (x, w1, w3), dh)):
+        _assert_close(got.grad, want, dtype)
+
+
+def _plain_lse(q, k, *, causal, window=0, kv_group=1):
+    """Each row's log-sum-exp of its scaled, masked scores (float32)."""
+    H, S, d = q.shape
+    k = k.float().repeat_interleave(kv_group, dim=0)
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k) / d ** 0.5
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    return torch.logsumexp(torch.where(mask, s, torch.full_like(s, ref.NEG)),
+                           dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", FLASH_KW, ids=FLASH_KW_IDS)
+@pytest.mark.parametrize("H,S,d,g", [(2, 128, 64, 1), (6, 100, 128, 3),
+                                     (2, 65, 160, 2), (1, 100, 256, 1)])
+def test_flash_attention_training_form(cuda, dtype, kw, H, S, d, g):
+    """The forward's training form: the row log-sum-exp close to the plain
+    one in float32; the float32 output within float32's ``TOL`` of the
+    plain output computed in float32 (bf16 adds P's remainder to P V), the
+    output its cast; in float32 the output is serving's, bit for bit."""
+    q = _randn((H, S, d), dtype, cuda, 13)
+    k, v = (_randn((H // g, S, d), dtype, cuda, i) for i in (14, 15))
+    out, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g, train=True,
+                                           **kw)
+    serve_out = flash_attention_cuda(q, k, v, kv_group=g, **kw)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (H, S)
+    torch.testing.assert_close(lse, _plain_lse(q, k, kv_group=g, **kw),
+                               **TOL[torch.float32])
+    assert out32.dtype == torch.float32 and out32.shape == (H, S, d)
+    assert torch.equal(out, out32.to(dtype))
+    plain32 = ref.flash_attention(q.float(), k.float(), v.float(),
+                                  kv_group=g, **kw)
+    torch.testing.assert_close(out32, plain32, **TOL[torch.float32])
+    if dtype == torch.float32:
+        assert torch.equal(out, serve_out)
+    else:
+        _assert_close(serve_out, out, dtype)
+
+
+def _flash_grads(q, k, v, dout, g, kw):
+    """(dq, dk, dv) through ``flash_attention`` on the card (the kernels)
+    and through autograd of the plain version."""
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*leaves, kv_group=g, **kw).backward(dout)
+    plain = _plain_grads(lambda a, b, c: ref.flash_attention(
+        a, b, c, kv_group=g, **kw), (q, k, v), dout)
+    return [t.grad for t in leaves], plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", FLASH_KW, ids=FLASH_KW_IDS)
+@pytest.mark.parametrize("H,S,d,g", [(2, 128, 64, 1), (1, 256, 32, 1),
+                                     (6, 100, 128, 3), (4, 333, 80, 2),
+                                     (2, 128, 160, 1), (2, 100, 256, 2),
+                                     (1, 1, 64, 1)])
+def test_flash_attention_backward_matches_plain(cuda, dtype, kw, H, S, d, g):
+    q = _randn((H, S, d), dtype, cuda, 16)
+    k, v = (_randn((H // g, S, d), dtype, cuda, i) for i in (17, 18))
+    dout = _randn((H, S, d), dtype, cuda, 19)
+    before = (flash_attention_cuda.launches,
+              flash_attention_bwd_cuda.launches)
+    got, want = _flash_grads(q, k, v, dout, g, kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_bwd_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype, name
+        _assert_close(a, b, dtype)
+
+
+def test_backward_kernels_are_deterministic_and_named(cuda):
+    """Each backward kernel twice on the same inputs: the same bits (no
+    atomics), and the profiler sees each kernel by name."""
+    bf = torch.bfloat16
+    x, dy = _randn((4096, 3072), bf, cuda, 20), _randn((4096, 3072), bf,
+                                                      cuda, 21)
+    s = _randn((3072,), bf, cuda, 22)
+    a, b, dh = (_randn((2048, 8192), bf, cuda, i) for i in (23, 24, 25))
+    q = _randn((24, 1024, 128), bf, cuda, 26)
+    k, v = (_randn((8, 1024, 128), bf, cuda, i) for i in (27, 28))
+    _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=3, train=True)
+    dout = _randn((24, 1024, 128), bf, cuda, 29)
+    calls = {
+        ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"):
+            lambda: rmsnorm_bwd_cuda(x, s, dy),
+        ("swiglu_gate_bwd_kernel",):
+            lambda: swiglu_gate_bwd_cuda(a, b, dh),
+        ("flash_bwd_delta_kernel", "flash_bwd_dkdv_tc_kernel<128>",
+         "flash_bwd_dq_tc_kernel<128>"): lambda: flash_attention_bwd_cuda(
+            q, k, v, out32, dout, lse, kv_group=3),
+    }
+    for wanted, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for u, w in zip(first, second):
+            assert torch.equal(u, w), wanted
+        # a trace can drop a window's first kernels: up to three traces
+        seen = set()
+        for _ in range(3):
+            seen |= _kernel_names(call)
+            if all(any(w in n for n in seen) for w in wanted):
+                break
+        assert all(any(w in n for n in seen) for w in wanted), seen
+
+
+@pytest.mark.parametrize("dtype,d,kernels", [
+    (torch.bfloat16, 32, ("flash_bwd_dkdv_tc_kernel<32>",
+                          "flash_bwd_dq_tc_kernel<32>")),
+    (torch.bfloat16, 64, ("flash_bwd_dkdv_tc_kernel<64>",
+                          "flash_bwd_dq_tc_kernel<64>")),
+    (torch.bfloat16, 80, ("flash_bwd_dkdv_tc_kernel<128>",
+                          "flash_bwd_dq_tc_kernel<128>")),
+    (torch.bfloat16, 160, ("flash_bwd_dkdv_kernel<__nv_bfloat16, 2, 16>",
+                           "flash_bwd_dq_kernel<__nv_bfloat16, 2, 16>")),
+    (torch.float32, 128, ("flash_bwd_dkdv_kernel<float, 4, 8>",
+                          "flash_bwd_dq_kernel<float, 4, 8>")),
+])
+def test_flash_backward_route_by_dtype_and_head_dim(cuda, dtype, d, kernels):
+    """bf16 up to d 128 on tensor cores (the head dim padded to 32, 64 or
+    128), past it and in float32 on SIMT, each asserted by name; the
+    gradients within ``TOL`` of the plain ones."""
+    H, S, g = 4, 200, 2
+    q = _randn((H, S, d), dtype, cuda, 30)
+    k, v = (_randn((H // g, S, d), dtype, cuda, i) for i in (31, 32))
+    dout = _randn((H, S, d), dtype, cuda, 33)
+    _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g, train=True)
+    call = lambda: flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out32, dout, lse, kv_group=g)
+    seen = set()
+    for _ in range(3):
+        seen |= _kernel_names(call)
+        if all(any(w in n for n in seen) for w in kernels):
+            break
+    assert all(any(w in n for n in seen) for w in kernels), seen
+    want = _plain_grads(lambda a, b, c: ref.flash_attention(
+        a, b, c, kv_group=g), (q, k, v), dout)
+    for got, w in zip(call(), want):
+        _assert_close(got, w, dtype)

@@ -1,6 +1,8 @@
 """The import boundary of the port: ``repro_torch`` and ``chip_smoke.py``
 import ``torch``, numpy and the standard library, never ``jax`` and never
-any module of the JAX package ``repro`` (not even one without JAX in it).
+any module of the JAX package ``repro`` (not even one without JAX in it),
+and never ``ml_dtypes`` (the card machine has none: bf16 checkpoints go
+through ``uint16`` bits).
 """
 import ast
 import os
@@ -13,15 +15,24 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 PKG = os.path.join(SRC, "repro_torch")
+#: the top-level packages the port never imports
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in FORBIDDEN
+
+
+#: the scripts that run the port on the card, where no JAX is installed
+CARD_SCRIPTS = ("flash_bwd_rounding.py", "ssd_parity_conditioning.py",
+                "ssm_parity_conditioning.py", "train_parity_conditioning.py",
+                "xent_peak.py")
 
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "scripts", f) for f in CARD_SCRIPTS]
     for dirpath, _dirs, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -44,7 +55,7 @@ def test_every_module_imports_without_jax_or_repro():
         f"{os.path.join(ROOT, 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print('loaded:', len(sys.modules), 'forbidden:', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -79,7 +90,11 @@ def test_module_list_covers_the_package():
                  "repro_torch.models.hybrid", "repro_torch.models.encdec",
                  "repro_torch.models.zoo", "repro_torch.models.convert",
                  "repro_torch.serve.kvcache", "repro_torch.serve.loop",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train",
+                 "repro_torch.train.data", "repro_torch.train.optimizer",
+                 "repro_torch.train.steps", "repro_torch.train.checkpoint",
+                 "repro_torch.train.loop", "repro_torch.train.tree",
+                 "repro_torch.parallel.compression"):
         assert want in mods
 
 

@@ -88,12 +88,14 @@ def test_check_operands_returns_code_and_device(dtype, index, code):
         (code, index)
 
 
-def _c_signature(name):
-    """The parameter types and names of ``<name>_launch`` in its source."""
-    with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+def _c_signature(name, library=None):
+    """The parameter types and names of ``<name>_launch`` in its source,
+    ``csrc/<library>.cu`` (by default ``<name>.cu``)."""
+    library = library or name
+    with open(os.path.join(_build.CSRC, f"{library}.cu")) as f:
         src = f.read()
     m = re.search(rf'extern "C" int {name}_launch\((.*?)\)', src, re.S)
-    assert m, f"no {name}_launch in csrc/{name}.cu"
+    assert m, f"no {name}_launch in csrc/{library}.cu"
     params = []
     for p in m.group(1).split(","):
         words = " ".join(p.replace("*", "* ").split()).split()
@@ -113,6 +115,50 @@ def test_c_entry_matches_the_bound_signature(name):
     assert [n for _, n in params[-2:]] == ["device", "stream"]
     with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
         assert '#include "device_guard.cuh"' in f.read()
+
+
+#: the backward entries: (library, entry, the wrapper's argtypes attribute)
+BACKWARD = [("rmsnorm", "rmsnorm_bwd", "_BWD_ARGS"),
+            ("fused_swiglu", "swiglu_gate_bwd", "_GATE_ARGS"),
+            ("flash_attention", "flash_attention_bwd", "_BWD_ARGS")]
+
+
+@pytest.mark.parametrize("library,name,attr", BACKWARD)
+def test_backward_entry_matches_the_bound_signature(library, name, attr):
+    """A backward kernel's C entry sits in its forward's source and takes
+    what its wrapper binds, device and stream last."""
+    module = importlib.import_module(f"repro_torch.kernels.{library}")
+    params = _c_signature(name, library)
+    assert [t for t, _ in params] == \
+        list(getattr(module, attr)) + [ctypes.c_int, ctypes.c_void_p]
+    assert [n for _, n in params[-2:]] == ["device", "stream"]
+
+
+def test_flash_forward_entry_takes_the_training_outputs():
+    """The forward's fifth and sixth pointers are the training form's row
+    log-sum-exp and float32 output."""
+    params = _c_signature("flash_attention")
+    assert [n for _, n in params[:6]] == ["q", "k", "v", "out", "lse",
+                                          "out32"]
+
+
+@pytest.mark.parametrize("call", ["rmsnorm_bwd", "swiglu_gate_bwd",
+                                  "flash_attention_bwd"])
+def test_backward_wrappers_refuse_cpu_tensors(call):
+    """A backward wrapper launches on CUDA tensors only; on the CPU the
+    plain versions' autograd stands in and the wrapper refuses."""
+    from repro_torch.kernels import flash_attention, fused_swiglu, rmsnorm
+
+    x = torch.zeros(4, 8)
+    fns = {
+        "rmsnorm_bwd": lambda: rmsnorm.rmsnorm_bwd_cuda(x, x[0], x),
+        "swiglu_gate_bwd": lambda: fused_swiglu.swiglu_gate_bwd_cuda(x, x, x),
+        "flash_attention_bwd": lambda: flash_attention.
+        flash_attention_bwd_cuda(x[None], x[None], x[None], x[None],
+                                 x[None], x[None, :, 0]),
+    }
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fns[call]()
 
 
 def test_sim_loop_fit_query_matches_its_c_signature():
