@@ -84,10 +84,12 @@ Phases, in order; any failure exits non-zero before the last line:
    both dtypes under ``TOL`` (flash at d 32-256, kv_group 1 and 3, every
    mask), flash's backward at d 160 and 256 with a window under
    ``PATH_TOL``; at the train path's bf16 shapes ((16384, 3072),
-   (16384, 8192), (96, 4096, 128) kv_group 3) under ``PATH_TOL``, twice
+   (16384, 8192), (96, 4096, 128) kv_group 3: ``rmsnorm_bwd`` a warp a
+   row, flash's backward on ``wgmma`` + TMA) under ``PATH_TOL``, twice
    bitwise (no atomics), each kernel by name in a trace, timed beside its
-   plain version, its bound and its yardstick (the backward of
-   ``F.rms_norm`` and of SDPA, in turns);
+   plain version, its bound (flash's also beside its design's floor) and
+   its yardstick (the backward of ``F.rms_norm`` and of SDPA, in turns,
+   device times from traces that name their kernels);
 11. train path: ``python -m repro_torch.launch.train --arch llama3_2_3b
    --batch 4 --seq 4096 --steps 4`` on ``cuda`` at full width and depth
    (the fourth main path, the launch counters read just around it):
@@ -611,11 +613,13 @@ def device_ms(fn, iters: int, expect=()):
     ``iters`` calls (``torch.profiler``; the host's dispatch is left out,
     unlike :func:`cuda_ms`), from the first of five traces that is whole:
     each of its kernels launched a multiple of ``iters`` times, and each
-    name of ``expect`` among them.  Each trace opens and closes with a
-    spin kernel of about a millisecond that the sum leaves out, because the
-    profiler can drop the kernels at either end of a window.  None when no
-    trace is whole (a partial sum would understate the time: not
-    measured), after a ``device_ms:`` line with the last trace's counts."""
+    name of ``expect`` among them.  The profiler can drop the first
+    kernels of a window, and those at its end: each trace waits 50 ms on
+    the host once it has started, then opens with eight short spin kernels
+    and closes with one of about a millisecond, all left out of the sum.
+    None when no trace is whole (a partial sum would understate the time:
+    not measured), after a ``device_ms:`` line with the last trace's
+    counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -624,7 +628,9 @@ def device_ms(fn, iters: int, expect=()):
     torch.cuda.synchronize()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(2_000_000)
+            time.sleep(0.05)
+            for _ in range(8):
+                torch.cuda._sleep(200_000)
             for _ in range(iters):
                 fn()
             torch.cuda._sleep(2_000_000)
@@ -1690,12 +1696,21 @@ BWD_SOURCE = {"rmsnorm_bwd": "rmsnorm", "swiglu_gate_bwd": "fused_swiglu",
               "flash_attention_bwd": "flash_attention"}
 #: each backward kernel's CUDA kernels, asserted by name in a trace
 BWD_KERNEL_NAMES = {
-    "rmsnorm_bwd": ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"),
+    "rmsnorm_bwd": ("rmsnorm_bwd_warp_kernel", "rmsnorm_dscale_kernel"),
     "swiglu_gate_bwd": ("swiglu_gate_bwd_kernel",),
     "flash_attention_bwd": ("flash_bwd_delta_kernel",
-                            "flash_bwd_dkdv_tc_kernel<128>",
-                            "flash_bwd_dq_tc_kernel<128>"),
+                            "flash_bwd_dkdv_wgmma_kernel<128>",
+                            "flash_bwd_dq_wgmma_kernel<128>"),
 }
+#: each yardstick's kernels, asserted by name in the traces that time it
+#: (the backward of ``F.rms_norm``: layer norm's with the mean left out;
+#: SDPA's: cuDNN's flash backward)
+LIB_KERNEL_NAMES = {"rmsnorm_bwd": ("layer_norm", "GammaBeta"),
+                    "flash_attention_bwd": ("flash_bprop",)}
+#: flash's backward does its P and dS products twice (the bf16 value and
+#: its remainder): 10 products where the function needs 5, so its design
+#: cannot go below twice the function's bound
+FLASH_BWD_DESIGN_PRODUCTS = 10
 #: the CUDA kernels of the train path, held by name in a traced step: the
 #: forwards (flash's training instantiation) and the backwards
 TRAIN_KERNEL_NAMES = ("rmsnorm_kernel<__nv_bfloat16>",
@@ -1706,7 +1721,7 @@ TRAIN_KERNEL_NAMES = ("rmsnorm_kernel<__nv_bfloat16>",
 #: the kinds a traced train step's device time is summed by (a kernel
 #: takes the first kind one of whose keys is in its name)
 TRACE_GROUPS = (
-    ("flash_attention_bwd (delta, dk/dv, dq)", ("flash_bwd_",)),
+    ("flash_attention_bwd (delta, dk/dv, dq on wgmma)", ("flash_bwd_",)),
     ("flash_attention forward (training form)", ("flash_attention_tc",)),
     ("fused_swiglu forward", ("fused_swiglu_tc",)),
     ("swiglu_gate_bwd", ("swiglu_gate_bwd",)),
@@ -1881,7 +1896,8 @@ def bwd_small_checks() -> None:
         dt = getattr(torch, dtype)
         n = 0
         worst = dict.fromkeys(BWD_KERNEL_NAMES, 0.0)
-        for M, D in [(128, 64), (256, 512), (64, 160)]:
+        # (64, 5120) is past the register kernel in both dtypes: the wide one
+        for M, D in [(128, 64), (256, 512), (64, 160), (64, 5120)]:
             x, s, dy = (_randn(sh, dt, i) for i, sh in
                         ((70, (M, D)), (71, (D,)), (72, (M, D))))
             for name, got, want in zip(("dx", "dscale"),
@@ -1991,7 +2007,7 @@ def bwd_kernel_phase():
             k_devs.append(device_ms(kern, reps, BWD_KERNEL_NAMES[name]))
             if lib is not None:
                 l_turns.append(cuda_ms(lib, reps))
-                l_devs.append(device_ms(lib, reps))
+                l_devs.append(device_ms(lib, reps, LIB_KERNEL_NAMES[name]))
         k_ms, k_dev = _mean(k_turns), _mean(k_devs)
         l_ms = _mean(l_turns) if lib is not None else None
         p_ms = cuda_ms(plain, 1)
@@ -2003,6 +2019,14 @@ def bwd_kernel_phase():
                                  f"{', '.join(sorted(n[:60] for n in _traced_names(lib, ())))})")
         share_txt = "" if k_dev is None else \
             f", {100 * bound / k_dev:.2f}% of the bound in device time"
+        if name == "flash_attention_bwd":
+            # the design's own floor: its products at the bf16 peak (the
+            # bound counts the function's 5)
+            floor = bound * FLASH_BWD_DESIGN_PRODUCTS / 5
+            share_txt += (f"; design floor {floor:.6f} ms "
+                          f"({FLASH_BWD_DESIGN_PRODUCTS} products with the "
+                          f"split)" + ("" if k_dev is None else
+                                       f", {100 * floor / k_dev:.2f}% of it"))
         print(f"train kernel {name} {label} bf16: {k_ms:.6f} ms (turns "
               f"{_turns_txt(k_turns)}; {_device_txt(k_dev)}, turns "
               f"{_turns_txt(k_devs)}), plain {p_ms:.6f} ms, bound "
@@ -2016,7 +2040,8 @@ def bwd_kernel_phase():
             "source": f"src/repro_torch/kernels/csrc/{BWD_SOURCE[name]}.cu",
             "replaces": BWD_REPLACES[name], "max_abs_err": err, "ms": k_ms,
             "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": l_ms, "shape": label}
+            "bound_by": by, "library_ms": l_ms, "library_device_ms":
+            _mean(l_devs) if lib is not None else None, "shape": label}
     return records
 
 
@@ -2327,7 +2352,7 @@ def build_all(root: str) -> None:
         with open(f"{lib}.log") as f:
             for line in f.read().splitlines():
                 if ("registers" in line or "spill" in line
-                        or "entry function" in line):
+                        or "entry function" in line or "wgmma" in line):
                     print(f"build: {line.strip()}")
 
 

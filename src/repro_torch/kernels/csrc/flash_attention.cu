@@ -74,21 +74,65 @@
 //   dq = scale * dS k,   dk = scale * dS^T q,   dv = P^T dO,
 // summed over a kv head's kv_group query heads for dk and dv.  Three
 // kernels, no atomics, so every run gives the same bits: delta, one warp a
-// row; dk/dv, one block per (kv head, tile of 16 RI keys) holding that
-// tile's k and v and its dk and dv accumulators, looping over its query
-// heads and the 64-row query tiles that meet the tile (the forward's
-// causal / window test); dq, one block per (query head, 64-row tile)
-// looping over the key tiles it meets, causal tails first.  Each
-// recomputes S and dO v^T for its tile pair.  bfloat16 with d <= 128 runs
-// on tensor cores (see "backward on tensor cores" below); float32, and
-// bfloat16 past d 128, on SIMT: float32 from bf16 or float32 loads, all
-// tiles in shared memory as float32 with rows padded to 16 DJ + 1 floats;
-// a thread owns 4 query rows x RI keys of a score tile and RI (dk/dv) or
-// 4 (dq) rows x DJ columns of an accumulator (DJ = 4, 8, 16 for d <= 64,
-// 128, 256).  Bound: operations at training shapes: at (96, 4096, 128)
-// causal the five products over the live pairs are 1.03 TFLOP (1.04 ms
-// at the bf16 tensor-core peak) against 0.25 GB of inputs and outputs.
+// row; dk/dv, one block per (kv head, key tile) holding that tile's k and
+// v and its dk and dv accumulators, looping over its query heads and the
+// query tiles that meet the tile (the forward's causal / window test);
+// dq, one block per (query head, query tile) looping over the key tiles
+// it meets, causal tails first.  Each recomputes S and dO v^T for its tile
+// pair.  Bound: operations at training shapes: at (96, 4096, 128) causal
+// the five products over the live pairs are 1.03 TFLOP (1.04 ms at the
+// bf16 tensor-core peak) against 0.25 GB of inputs and outputs.  The
+// products of P and dS run twice in bf16 (the value and its remainder,
+// see "backward on mma.sync" below), so the tensor-core designs do 10
+// products where the function needs 5: their own floor is 2.08 ms there.
 // Head dims up to 256.
+//
+// Three routes, picked by the caller from the dtype, the head dim and the
+// operands' 16-byte alignment (repro_torch/kernels/flash_attention.py::
+// bwd_route; a route the call cannot take is refused with
+// cudaErrorInvalidValue, never replaced by another):
+//
+// 0. wgmma + TMA: bf16 at d 64 and 128, q, k, v, dout and the gradients on
+//    16-byte boundaries ("backward on wgmma + TMA" below).  Design and
+//    what it does about each difficulty:
+//    * Blocks of 128 rows in two warpgroups of 64, 256 threads, and no
+//      producer warp.  dk/dv holds 64 + 64 accumulators and the 32 + 32
+//      of S^T and dP^T a thread.  A first build of this kernel with a
+//      producer warpgroup and setmaxnreg (232 for the consumers) was
+//      compiled to 168 registers a thread, the share of a 384-thread
+//      block, spilled and had its wgmma serialized by ptxas, slower than
+//      mma.sync; why setmaxnreg did not lift the consumers' allocation
+//      there is not known.  At 256 threads ptxas takes up to 255 and
+//      spills nothing.  Thread 0 issues the loads, refilling a stage one
+//      tile after its use.  scripts/bwd_design_probes.py builds the
+//      kernels for a 384-thread bound (-DFLASH_BWD_WG_BOUND) and with a
+//      later refill (-DFLASH_BWD_WG_LEAD) and times them against this.
+//    * Ragged S and head boundaries: q, k, v and dO are read through 3-D
+//      tensor maps (d, S, heads) in 64 x 64 boxes, so a tile at a head's
+//      ragged tail reads zeros, not the next head's rows; the live() mask
+//      stays on P (zeros in K give S = 0, not -inf).  Tiles wholly inside
+//      the causal band and the window skip the mask (tile_live).
+//    * Swizzle: a 128-wide bf16 row is two 64-column boxes under the
+//      128-byte swizzle; K-major operands step 32 bytes a k16 inside a
+//      box and a box (8 KB) every 4 steps, MN-major ones 2048 bytes (16
+//      rows) a step with the leading byte offset one box, the next 64
+//      columns.
+//    * Accumulator to A operand: the m64nNk16 accumulator's registers 8 kk
+//      .. 8 kk + 7 are exactly the m16n8k16 A fragment of k-step kk, so P
+//      and dS pack pairwise into bf16x2 (value, then remainder) as
+//      mma_split packs them; the packed registers are fenced until the
+//      products reading them are done.
+//    * lse and delta: each warpgroup's threads load one row each a tile
+//      ahead and share them through a double buffer behind one named
+//      barrier a tile; dq keeps its two rows' in registers.
+//    * dq overlaps the next tile's S and dP with this tile's dS.
+// 1. mma.sync: the other bf16 head dims up to 128 and misaligned bf16
+//    ("backward on mma.sync" below).
+// 2. SIMT: float32, and bf16 past d 128: float32 from bf16 or float32
+//    loads, all tiles in shared memory as float32 with rows padded to
+//    16 DJ + 1 floats; a thread owns 4 query rows x RI keys of a score
+//    tile and RI (dk/dv) or 4 (dq) rows x DJ columns of an accumulator
+//    (DJ = 4, 8, 16 for d <= 64, 128, 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +140,7 @@
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -271,13 +316,9 @@ constexpr size_t tc_smem_bytes(int dp) {
   return (size_t)(kTcBQ + 4 * kTcBK) * (dp + kPad) * sizeof(__nv_bfloat16);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
+                   smem_addr(dst)),
                "l"(src));
 }
 
@@ -293,7 +334,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -302,7 +343,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(smem_addr(p)));
 }
 
 // c (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
@@ -936,7 +977,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
-// ---- backward on tensor cores (bf16, head dims up to 128) ----
+// ---- backward on mma.sync (bf16, head dims up to 128) ----
 //
 // The same three passes as the SIMT backward (delta, then dk/dv, then dq;
 // no atomics), with the five products as mma.sync.m16n8k16 bf16 products
@@ -1298,6 +1339,684 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- backward on wgmma + TMA (bf16, head dims 64 and 128) ----
+//
+// The same three passes (delta, dk/dv, dq; no atomics), with blocks of two
+// warpgroups.  A block holds 128 rows of its own operands (keys for dk/dv,
+// queries for dq), loaded once by TMA, and streams 64-row tiles of the
+// others (Q and dO for dk/dv, K and V for dq) through kWgStages stages of
+// shared memory, each completing on an mbarrier; thread 0 issues every
+// load (see "design" in the note at the top).  Warpgroup wg owns 64 of
+// the block's rows and runs its products with wgmma: S^T = K Q^T and
+// dP^T = V dO^T (dq: S = Q K^T, dP = dO V^T) with both operands in shared
+// memory (K-major, 128-byte swizzle), then P and dS in registers, split
+// into bf16 and remainder as mma_split does, as the register A operand of
+// dV += P^T dO, dK += dS^T Q (dq: dQ += dS K), whose B operands are the
+// stage's tiles read MN-major through the descriptor's transpose bit.
+// The accumulators stay in float32 registers until the one store.
+
+constexpr int kWgThreads = 256;  // two warpgroups; thread 0 also loads
+constexpr int kWgRows = 128;      // keys (dk/dv) or queries (dq) a block
+constexpr int kWgStep = 64;       // queries (dk/dv) or keys (dq) a stage
+constexpr int kWgStages = 4;
+// a stage is refilled kWgLead tile after its use, kWgStages - kWgLead
+// tiles ahead of the warpgroups; scripts/bwd_design_probes.py builds 2
+// and 3 with -DFLASH_BWD_WG_LEAD to time them against 1
+#ifndef FLASH_BWD_WG_LEAD
+#define FLASH_BWD_WG_LEAD 1
+#endif
+constexpr int kWgLead = FLASH_BWD_WG_LEAD;
+static_assert(kWgLead >= 1 && kWgLead < kWgStages, "lead in [1, stages)");
+// the block size ptxas sizes the kernels' registers for (65536 / bound a
+// thread, at most 255); the probes build 384, the block of a producer
+// warpgroup beside the two consumers, with -DFLASH_BWD_WG_BOUND=384
+#ifndef FLASH_BWD_WG_BOUND
+#define FLASH_BWD_WG_BOUND kWgThreads
+#endif
+static_assert(FLASH_BWD_WG_BOUND >= kWgThreads, "bound below the block");
+constexpr uint32_t kWgBox = 64 * 128;  // a TMA box: 64 rows x 128 bytes
+
+// a 64-row tile, DP wide: DP / 64 boxes
+template <int DP>
+__host__ __device__ constexpr uint32_t wg_tile() { return DP / 64 * kWgBox; }
+
+// the block's 2 x 2 tiles, the stages' 2 tiles, each warpgroup's two
+// lse / delta rows, the mbarriers and the slack that puts the tiles on a
+// 1024-byte boundary
+template <int DP>
+__host__ __device__ constexpr size_t wg_smem_bytes() {
+  return 4 * wg_tile<DP>() + kWgStages * 2 * wg_tile<DP>() +
+         2 * 2 * 2 * kWgStep * 4 + (2 * kWgStages + 1) * 8 + 1024;
+}
+
+// [lo, hi): the tiles of `step` rows out of n that meet the block's rows
+// [r0, r0 + rows) (keys when the tiles are queries, and back): the causal
+// band and the window each bound the run on one side
+__device__ __forceinline__ void meeting_tiles(int n, int step, int r0,
+                                              int rows, bool tiles_are_q,
+                                              int causal, int window,
+                                              int* lo, int* hi) {
+  *lo = 0;
+  *hi = 0;
+  for (int i = 0; i < n; ++i) {
+    const bool meet =
+        tiles_are_q ? tiles_meet(i * step, step, r0, rows, causal, window)
+                    : tiles_meet(r0, rows, i * step, step, causal, window);
+    if (meet) {
+      if (*hi == 0) *lo = i;
+      *hi = i + 1;
+    }
+  }
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d (64 x 64 float32 a warpgroup) {=, +=} A (64 x 16) B (16 x 64), both
+// K-major in shared memory; `acc` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 64 float32 a warpgroup) += A (64 x 16, bf16 pairs in registers,
+// the m16n8k16 A fragment of each warp's 16 rows) B (16 x 64, MN-major in
+// shared memory: the descriptor's transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 float32 a warpgroup) += A (64 x 16, bf16 pairs in registers,
+// the m16n8k16 A fragment of each warp's 16 rows) B (16 x 128, MN-major in
+// shared memory: the descriptor's transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// whether every (query, key) pair of [qa, qa + 64) x [ka, ka + 64) is live
+// (uniform over a warpgroup): such a tile needs no mask
+__device__ __forceinline__ bool tile_live(int qa, int ka, int S, int causal,
+                                          int window) {
+  return qa + 64 <= S && ka + 64 <= S && !(causal && ka + 63 > qa) &&
+         !(window && qa + 63 - ka >= window);
+}
+
+// P^T into st and dS^T into dpt for a warpgroup's 64 keys x 64 queries
+// (the dk/dv kernel): this thread's keys kp0 (+ 8), queries q0 + 8 i +
+// 2 tq (+ 1); ls and dl the tile's lse and delta rows.  MASK: the tile is
+// not wholly live
+template <bool MASK>
+__device__ __forceinline__ void p_ds_t(float (&st)[32], float (&dpt)[32],
+                                       const float* ls, const float* dl,
+                                       int q0, int kp0, int S, int causal,
+                                       int window, float scale) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * i + 2 * tq + c, e = 4 * i + 2 * r + c;
+        float p = 0.0f;
+        if (!MASK || live(q0 + col, kp0 + 8 * r, S, causal, window))
+          p = expf(st[e] * scale - ls[col]);
+        st[e] = p;
+        dpt[e] = p * (dpt[e] - dl[col]);
+      }
+}
+
+// dS into sc for a warpgroup's 64 queries x 64 keys (the dq kernel): this
+// thread's queries rows[r], keys k0 + 8 i + 2 tq (+ 1), with their lse and
+// delta in ls and dl
+template <bool MASK>
+__device__ __forceinline__ void ds_rows(float (&sc)[32], const float (&dp)[32],
+                                        const int (&rows)[2],
+                                        const float (&ls)[2],
+                                        const float (&dl)[2], int k0, int S,
+                                        int causal, int window, float scale) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * i + 2 * r + c;
+        float p = 0.0f;
+        if (!MASK || live(rows[r], k0 + 8 * i + 2 * tq + c, S, causal, window))
+          p = expf(sc[e] * scale - ls[r]);
+        sc[e] = p * (dp[e] - dl[r]);
+      }
+}
+
+// s (the 64 x 64 accumulator of a warpgroup) as the A fragments of its 4
+// k16 steps: the bf16 value and its bf16 remainder (the pairs mma_split
+// packs; fragment kk is registers 8 kk .. 8 kk + 7 of the accumulator)
+__device__ __forceinline__ void split_a(const float (&s)[32],
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    hi[j / 4][j % 4] = pack_bf16(s[2 * j], s[2 * j + 1]);
+    lo[j / 4][j % 4] = pack_rem(s[2 * j], s[2 * j + 1], hi[j / 4][j % 4]);
+  }
+}
+
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(f[kk]);
+}
+
+// acc (64 x 64) = A (64 rows x DP, K-major at a) B^T (64 rows x DP,
+// K-major at b): 16 columns a step, +32 bytes inside a swizzled 128-byte
+// row, the next 64 columns a box on; 8-row groups 1024 bytes apart
+template <int DP>
+__device__ __forceinline__ void wgmma_abt(float (&acc)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kWgBox + 32 * (kk % 4);
+    wgmma_ss_n64(acc, wgmma_desc(a + off, 16, 1024),
+                 wgmma_desc(b + off, 16, 1024), kk);
+  }
+}
+
+// acc (64 x DP) += (hi + lo) (64 x 64, registers) B (64 rows x DP at b,
+// MN-major: 16 rows, 2048 bytes, a step; 64-column boxes kWgBox apart)
+template <int DP>
+__device__ __forceinline__ void wgmma_split_b(float (&acc)[DP / 2],
+                                              const uint32_t (&hi)[4][4],
+                                              const uint32_t (&lo)[4][4],
+                                              uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = wgmma_desc(b + 2048 * kk, kWgBox, 1024);
+    wgmma_rs<DP>(acc, hi[kk], db);
+    if (FLASH_BWD_SPLIT) wgmma_rs<DP>(acc, lo[kk], db);
+  }
+}
+
+// a warpgroup's 64 x DP accumulator rows into a row-major (S, DP) bf16
+// matrix from row `row0`, times mul: warp w holds rows 16 w + lane / 4
+// (+ 8), register 4 i + {0, 1} (+ {2, 3}) columns 8 i + 2 (lane % 4) + {0, 1}
+template <int DP>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* g,
+                                          const float (&acc)[DP / 2],
+                                          int row0, int S, float mul) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (t / 32) * 16 + lane / 4 + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(g + (long long)row * DP + 8 * i +
+                                         2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * mul,
+                                acc[4 * i + 2 * r + 1] * mul);
+  }
+}
+
+// dk, dv: one block per (kv head, 128 keys); consumer warpgroup wg owns
+// keys 64 wg .. + 63 and walks every 64-query tile of the kv head's
+// kv_group query heads that meets the block: tile j is query tile
+// qlo + j % per of query head kvh * kv_group + j / per
+template <int DP>
+__global__ void __launch_bounds__(FLASH_BWD_WG_BOUND, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int S, int causal,
+                            int window, int kv_group, float scale) {
+  constexpr uint32_t TILE = wg_tile<DP>();
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base, sv = base + 2 * TILE;  // the block's keys
+  const uint32_t stages = base + 4 * TILE;  // [stage] Q tile, dO tile
+  // [wg][2][lse, delta] rows
+  const uint32_t stats = stages + kWgStages * 2 * TILE;
+  const uint32_t full = stats + 2 * 2 * 2 * kWgStep * 4;
+  const uint32_t empty = full + kWgStages * 8;
+  const uint32_t fixed = empty + kWgStages * 8;
+  const int kvh = blockIdx.x, k0 = blockIdx.y * kWgRows;
+  int qlo, qhi;
+  meeting_tiles((S + kWgStep - 1) / kWgStep, kWgStep, k0, kWgRows, true,
+                causal, window, &qlo, &qhi);
+  const int per = qhi - qlo, tiles = per * kv_group;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + 8 * s, 1);   // the issuer's expect_tx + the bytes
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init(fixed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile j's Q and dO into its stage
+  auto issue = [&](int j) {
+    const int s = j % kWgStages;
+    const uint32_t bar = full + 8 * s, tile = stages + s * 2 * TILE;
+    const int h = kvh * kv_group + j / per, q0 = (qlo + j % per) * kWgStep;
+    mbar_expect_tx(bar, 2 * TILE);
+    for (int b = 0; b < DP / 64; ++b) {
+      tma_load_3d(tile + b * kWgBox, &map_q, bar, 64 * b, q0, h);
+      tma_load_3d(tile + TILE + b * kWgBox, &map_do, bar, 64 * b, q0, h);
+    }
+  };
+  // the stage of tile j is free once both warpgroups are done with tile
+  // j - kWgStages
+  auto wait_free = [&](int j) {
+    mbar_wait(empty + 8 * (j % kWgStages),
+              ((uint32_t)(j / kWgStages) & 1u) ^ 1u);
+  };
+  const bool issuer = threadIdx.x == 0;
+  if (issuer) {
+    mbar_expect_tx(fixed, 4 * TILE);
+    for (int t = 0; t < 2; ++t)
+      for (int b = 0; b < DP / 64; ++b) {
+        tma_load_3d(sk + t * TILE + b * kWgBox, &map_k, fixed, 64 * b,
+                    k0 + 64 * t, kvh);
+        tma_load_3d(sv + t * TILE + b * kWgBox, &map_v, fixed, 64 * b,
+                    k0 + 64 * t, kvh);
+      }
+    for (int j = 0; j < tiles && j < kWgStages; ++j) issue(j);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int gr = lane / 4;
+  const int kw0 = k0 + 64 * wg;  // this warpgroup's 64 keys
+  const uint32_t ka = sk + wg * TILE, va = sv + wg * TILE;
+  float* stat_rows = reinterpret_cast<float*>(wg_smem + (stats - raw)) +
+                     wg * 2 * 2 * kWgStep;
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.0f;
+  // this thread's lse (t < 64) or delta row of tile j, 0 past S
+  auto stat = [&](int j) {
+    const int r = (qlo + j % per) * kWgStep + t % 64;
+    return r < S ? (t < 64 ? lse : delta)[(long long)(kvh * kv_group +
+                                                      j / per) * S + r]
+                 : 0.0f;
+  };
+  float next = tiles > 0 ? stat(0) : 0.0f;
+  mbar_wait(fixed, 0);
+  int done = 0;  // tiles this warpgroup computed: its stat buffer's parity
+  for (int it = 0; it < tiles; ++it) {
+    const int j = it + kWgStages - kWgLead;
+    if (issuer && it >= kWgLead && j < tiles) {
+      wait_free(j);
+      issue(j);
+    }
+    const int s = it % kWgStages, q0 = (qlo + it % per) * kWgStep;
+    // the stats are loaded a tile ahead, so their latency hides
+    const float mine = next;
+    if (it + 1 < tiles) next = stat(it + 1);
+    mbar_wait(full + 8 * s, (uint32_t)(it / kWgStages) & 1u);
+    if (tiles_meet(q0, kWgStep, kw0, 64, causal, window)) {
+      const uint32_t qs = stages + s * 2 * TILE, gs = qs + TILE;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      float st[32], dpt[32];
+      wgmma_fence();
+      wgmma_abt<DP>(st, ka, qs);
+      wgmma_abt<DP>(dpt, va, gs);
+      wgmma_commit();
+      // the tile's lse and delta rows through the warpgroup's own buffer,
+      // one of two by the parity of its computed tiles, so that one
+      // barrier a tile keeps a write from overtaking the last reads of
+      // that buffer
+      float* ls = stat_rows + (done++ & 1) * 2 * kWgStep;
+      ls[t] = mine;
+      named_barrier(1 + wg, 128);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      const int kp0 = kw0 + (t / 32) * 16 + gr;
+      if (tile_live(q0, kw0, S, causal, window))
+        p_ds_t<false>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
+                      scale);
+      else
+        p_ds_t<true>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
+                     scale);
+      uint32_t ph[4][4], pl[4][4], dh[4][4], dlo[4][4];
+      split_a(st, ph, pl);
+      split_a(dpt, dh, dlo);
+      // dV += P^T dO, dK += dS^T Q over the 64 queries
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+      wgmma_split_b<DP>(dva, ph, pl, gs);
+      wgmma_split_b<DP>(dka, dh, dlo, qs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_frags(ph);
+      fence_frags(pl);
+      fence_frags(dh);
+      fence_frags(dlo);
+    }
+    if (t == 0) mbar_arrive(empty + 8 * s);
+  }
+  const long long kbase = (long long)kvh * S * DP;
+  store_acc<DP>(dk + kbase, dka, kw0, S, scale);
+  store_acc<DP>(dv + kbase, dva, kw0, S, 1.0f);
+}
+
+// dq: one block per (query head, 128 queries), causal tails first;
+// consumer warpgroup wg owns queries 64 wg .. + 63 and walks every 64-key
+// tile that meets the block: tile j is key tile klo + j
+template <int DP>
+__global__ void __launch_bounds__(FLASH_BWD_WG_BOUND, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int S, int causal,
+                          int window, int kv_group, float scale) {
+  constexpr uint32_t TILE = wg_tile<DP>();
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t sq = base, sg = base + 2 * TILE;  // the block's queries
+  const uint32_t stages = base + 4 * TILE;  // [stage] K tile, V tile
+  const uint32_t full =
+      stages + kWgStages * 2 * TILE + 2 * 2 * 2 * kWgStep * 4;
+  const uint32_t empty = full + kWgStages * 8;
+  const uint32_t fixed = empty + kWgStages * 8;
+  const int h = blockIdx.x, kvh = h / kv_group;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kWgRows;
+  int klo, khi;
+  meeting_tiles((S + kWgStep - 1) / kWgStep, kWgStep, q0, kWgRows, false,
+                causal, window, &klo, &khi);
+  const int tiles = khi - klo;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    mbar_init(fixed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int j) {
+    const int s = j % kWgStages, k0 = (klo + j) * kWgStep;
+    const uint32_t bar = full + 8 * s, tile = stages + s * 2 * TILE;
+    mbar_expect_tx(bar, 2 * TILE);
+    for (int b = 0; b < DP / 64; ++b) {
+      tma_load_3d(tile + b * kWgBox, &map_k, bar, 64 * b, k0, kvh);
+      tma_load_3d(tile + TILE + b * kWgBox, &map_v, bar, 64 * b, k0, kvh);
+    }
+  };
+  auto wait_free = [&](int j) {
+    mbar_wait(empty + 8 * (j % kWgStages),
+              ((uint32_t)(j / kWgStages) & 1u) ^ 1u);
+  };
+  const bool issuer = threadIdx.x == 0;
+  if (issuer) {
+    mbar_expect_tx(fixed, 4 * TILE);
+    for (int t = 0; t < 2; ++t)
+      for (int b = 0; b < DP / 64; ++b) {
+        tma_load_3d(sq + t * TILE + b * kWgBox, &map_q, fixed, 64 * b,
+                    q0 + 64 * t, h);
+        tma_load_3d(sg + t * TILE + b * kWgBox, &map_do, fixed, 64 * b,
+                    q0 + 64 * t, h);
+      }
+    for (int j = 0; j < tiles && j < kWgStages; ++j) issue(j);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int gr = lane / 4;
+  const int qw0 = q0 + 64 * wg;  // this warpgroup's 64 queries
+  const uint32_t qa = sq + wg * TILE, ga = sg + wg * TILE;
+  int rows[2];
+  float ls[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rows[r] = qw0 + (t / 32) * 16 + gr + 8 * r;
+    const bool in = rows[r] < S;
+    ls[r] = in ? lse[(long long)h * S + rows[r]] : 0.0f;
+    dl[r] = in ? delta[(long long)h * S + rows[r]] : 0.0f;
+  }
+  // [a, b): the block's tiles that meet this warpgroup's queries
+  int a = 0, b = 0;
+  for (int it = 0; it < tiles; ++it)
+    if (tiles_meet(qw0, 64, (klo + it) * kWgStep, kWgStep, causal, window)) {
+      if (b == 0) a = it;
+      b = it + 1;
+    }
+  float dqa[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.0f;
+  // S = Q K^T and dP = dO V^T of tile `it` (64 queries x 64 keys) into
+  // sc and dp, asynchronously
+  float sc[32], dp[32];
+  auto products = [&](int it) {
+    const uint32_t ks = stages + (it % kWgStages) * 2 * TILE;
+    wgmma_fence();
+    wgmma_abt<DP>(sc, qa, ks);
+    wgmma_abt<DP>(dp, ga, ks + TILE);
+    wgmma_commit();
+  };
+  mbar_wait(fixed, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int j = it + kWgStages - kWgLead;
+    if (issuer && it >= kWgLead && j < tiles) {
+      wait_free(j);
+      issue(j);
+    }
+    const int s = it % kWgStages, k0 = (klo + it) * kWgStep;
+    mbar_wait(full + 8 * s, (uint32_t)(it / kWgStages) & 1u);
+    if (it >= a && it < b) {
+      if (it == a) {
+        products(it);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+      }
+      // this tile's products out of the way of the next tile's, which run
+      // while dS is formed
+      float cs[32], cd[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        cs[e] = sc[e];
+        cd[e] = dp[e];
+      }
+      if (it + 1 < b) {
+        mbar_wait(full + 8 * ((it + 1) % kWgStages),
+                  (uint32_t)((it + 1) / kWgStages) & 1u);
+        products(it + 1);
+      }
+      if (tile_live(qw0, k0, S, causal, window))
+        ds_rows<false>(cs, cd, rows, ls, dl, k0, S, causal, window, scale);
+      else
+        ds_rows<true>(cs, cd, rows, ls, dl, k0, S, causal, window, scale);
+      uint32_t hi[4][4], lo[4][4];
+      split_a(cs, hi, lo);
+      // dQ += dS K over the 64 keys (waits for the next tile's products
+      // too: wgmma groups complete in order)
+      fence_regs(dqa);
+      wgmma_fence();
+      wgmma_split_b<DP>(dqa, hi, lo, stages + s * 2 * TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      fence_regs(sc);
+      fence_regs(dp);
+      fence_frags(hi);
+      fence_frags(lo);
+    }
+    if (t == 0) mbar_arrive(empty + 8 * s);
+  }
+  store_acc<DP>(dq + (long long)h * S * DP, dqa, qw0, S, scale);
+}
+
+// a contiguous (heads, S, DP) bf16 tensor as a 3-D map (DP, S, heads) read
+// in 64 x 64 boxes: rows past S read zeros, not the next head's
+template <int DP>
+bool head_map(CUtensorMap* map, const void* ptr, int heads, int S) {
+  const cuuint64_t dims[3] = {(cuuint64_t)DP, (cuuint64_t)S,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)DP * 2, (cuuint64_t)S * DP * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return bf16_tensor_map(map, ptr, 3, dims, strides, box);
+}
+
+template <int DP>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* out32, const void* dout, const void* lse,
+                     void* dq, void* dk, void* dv, void* delta, int H, int S,
+                     int causal, int window, int kv_group, float scale,
+                     cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mg;
+  if (!head_map<DP>(&mq, q, H, S) || !head_map<DP>(&mk, k, H / kv_group, S) ||
+      !head_map<DP>(&mv, v, H / kv_group, S) || !head_map<DP>(&mg, dout, H, S))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t bytes = wg_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)flash_bwd_dkdv_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute((const void*)flash_bwd_dq_wgmma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)H * S;
+  const long long blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
+  flash_bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kBwdThreads, 0,
+                                          s>>>(
+      (const float*)out32, (const __nv_bfloat16*)dout, (float*)delta, rows,
+      DP);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int tiles = (S + kWgRows - 1) / kWgRows;
+  flash_bwd_dkdv_wgmma_kernel<DP><<<dim3(H / kv_group, tiles), kWgThreads,
+                                    bytes, s>>>(
+      mq, mk, mv, mg, (const float*)lse, (const float*)delta,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, causal, window, kv_group,
+      scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  flash_bwd_dq_wgmma_kernel<DP><<<dim3(H, tiles), kWgThreads, bytes, s>>>(
+      mq, mk, mv, mg, (const float*)lse, (const float*)delta,
+      (__nv_bfloat16*)dq, S, causal, window, kv_group, scale);
+  return (int)cudaGetLastError();
+}
+
+// Whether backward route `route` takes this call (see the note at the top):
+// 0 wgmma + TMA, 1 mma.sync, 2 SIMT
+bool bwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
+                    const void* v, const void* dout, const void* dq,
+                    const void* dk, const void* dv) {
+  switch (route) {
+    case 0:
+      return dtype == 1 && (d == 64 || d == 128) &&
+             (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+               (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15) == 0;
+    case 1:
+      return dtype == 1 && d <= 128;
+    case 2:
+      return dtype == 0 || d > 128;
+    default:
+      return false;
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` with `device` current; returns cudaGetLastError() (0
@@ -1350,44 +2069,58 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // kv_group, S, d) from q, k, v, out32 (the forward's output in float32:
 // its out32, or its out in float32), dout (the gradient of out) and lse
 // (float32, H x S, from the forward), with `delta` a float32 H x S scratch
-// the caller allocates.  Same types, layouts, masks and returns as
-// flash_attention_launch.
+// the caller allocates, on route `route` (0 wgmma + TMA, 1 mma.sync, 2
+// SIMT; the caller's rule is repro_torch.kernels.flash_attention.
+// bwd_route).  Same types, layouts, masks and returns as
+// flash_attention_launch, and cudaErrorInvalidValue for a route this call
+// cannot take.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out32,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* delta, int H, int S, int d, int causal, int window, int kv_group,
-    float scale, int dtype, int device, void* stream) {
+    float scale, int dtype, int route, int device, void* stream) {
   if (H <= 0 || S <= 0) return 0;
   if (d < 1 || d > DMAX || kv_group < 1 || H % kv_group != 0 ||
-      (S + BQB - 1) / BQB > 65535 || (dtype != 0 && dtype != 1))
+      (S + BQB - 1) / BQB > 65535 || (dtype != 0 && dtype != 1) ||
+      !bwd_route_fits(route, dtype, d, q, k, v, dout, dq, dk, dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return on_device(device, [&] {
-    if (dtype == 0) {
+    if (route == 0)
+      return d == 64
+                 ? launch_bwd_wgmma<64>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                        delta, H, S, causal, window, kv_group,
+                                        scale, s)
+                 : launch_bwd_wgmma<128>(q, k, v, out32, dout, lse, dq, dk,
+                                         dv, delta, H, S, causal, window,
+                                         kv_group, scale, s);
+    if (route == 1) {
+      if (d <= 32)
+        return launch_bwd_tc<32>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                 delta, H, S, d, causal, window, kv_group,
+                                 scale, s);
       if (d <= 64)
-        return launch_bwd<float, 4, 4>(q, k, v, out32, dout, lse, dq, dk, dv,
-                                       delta, H, S, d, causal, window,
-                                       kv_group, scale, s);
-      if (d <= 128)
-        return launch_bwd<float, 4, 8>(q, k, v, out32, dout, lse, dq, dk, dv,
-                                       delta, H, S, d, causal, window,
-                                       kv_group, scale, s);
-      return launch_bwd<float, 2, 16>(q, k, v, out32, dout, lse, dq, dk, dv,
-                                      delta, H, S, d, causal, window,
-                                      kv_group, scale, s);
-    }
-    if (d <= 32)
-      return launch_bwd_tc<32>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
-                               H, S, d, causal, window, kv_group, scale, s);
-    if (d <= 64)
-      return launch_bwd_tc<64>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
-                               H, S, d, causal, window, kv_group, scale, s);
-    if (d <= 128)
+        return launch_bwd_tc<64>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                 delta, H, S, d, causal, window, kv_group,
+                                 scale, s);
       return launch_bwd_tc<128>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
                                 H, S, d, causal, window, kv_group, scale, s);
-    return launch_bwd<__nv_bfloat16, 2, 16>(q, k, v, out32, dout, lse, dq, dk,
-                                            dv, delta, H, S, d, causal,
-                                            window, kv_group, scale, s);
+    }
+    if (dtype == 1)
+      return launch_bwd<__nv_bfloat16, 2, 16>(q, k, v, out32, dout, lse, dq,
+                                              dk, dv, delta, H, S, d, causal,
+                                              window, kv_group, scale, s);
+    if (d <= 64)
+      return launch_bwd<float, 4, 4>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                     delta, H, S, d, causal, window,
+                                     kv_group, scale, s);
+    if (d <= 128)
+      return launch_bwd<float, 4, 8>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                     delta, H, S, d, causal, window,
+                                     kv_group, scale, s);
+    return launch_bwd<float, 2, 16>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                    delta, H, S, d, causal, window, kv_group,
+                                    scale, s);
   });
 }
 

@@ -88,12 +88,12 @@
 // pointer is 16-byte aligned, one element at a time otherwise.
 
 #include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -416,60 +416,6 @@ constexpr uint32_t kTcBoxBytes = kTcBK * 64 * 2;    // 8 KB: 64 rows x 64 cols
 constexpr uint32_t kTcStageBytes = kTcABytes + 4 * kTcBoxBytes;  // 48 KB
 constexpr size_t kTcSmem = kTcStages * kTcStageBytes + 2 * kTcStages * 8 +
                            1024;  // stages, mbarriers, alignment slack
-// a deadlocked pipeline traps (a launch failure) instead of hanging the card
-constexpr uint32_t kTcMaxSpins = 1u << 26;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == kTcMaxSpins) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
 
 // d (64 x 256 float32 per warpgroup) += A (64 x 16, K-major) * B (16 x 256,
 // MN-major)
@@ -534,13 +480,6 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 __global__ void __launch_bounds__(kTcThreads, 1)
 fused_swiglu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_w1,
@@ -595,8 +534,8 @@ fused_swiglu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
       mbar_wait(full + 8 * s, (uint32_t)(kt / kTcStages) & 1u);
       const uint32_t a = base + s * kTcStageBytes + wg * 64 * 128;
       const uint32_t b = base + s * kTcStageBytes + kTcABytes;
-      fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTcBK / 16; ++kk)
         // A: +32 bytes per 16 columns inside the swizzled 128-byte rows,
@@ -604,15 +543,15 @@ fused_swiglu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
         // groups 1024 bytes apart, 64-column boxes kTcBoxBytes apart.
         wgmma_256(acc, wgmma_desc(a + 32 * kk, 16, 1024),
                   wgmma_desc(b + 2048 * kk, kTcBoxBytes, 1024));
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_commit();
       // the group before this one is done: free its stage
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      fence_acc(acc);
+      wgmma_wait<1>();
+      fence_regs(acc);
       if (kt > 0 && threadIdx.x % 128 == 0)
         mbar_arrive(empty + 8 * ((kt - 1) % kTcStages));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(acc);
+    wgmma_wait<0>();
+    fence_regs(acc);
 
     // accumulator layout of m64nNk16: warp w of the group holds rows
     // 16 w + lane / 4 (+ 8); register 4 i + {0, 1} (+ {2, 3} for the row
@@ -636,48 +575,6 @@ fused_swiglu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once at run time: the library is not
-// linked against libcuda
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? (EncodeTiled)p : (EncodeTiled) nullptr;
-  }();
-  return fn;
-}
-
-// A row-major (rows, cols) bf16 matrix read in boxes of box_rows x 64
-// columns (128 bytes, the swizzle's width); reads outside it give zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int launch_tc(const void* x, const void* w1, const void* w3, void* out, int M,

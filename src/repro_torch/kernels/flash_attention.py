@@ -22,8 +22,11 @@ it; in bfloat16 the P V product also adds P's bf16 remainder, so the output
 comes within about 2**-16 of the float32 one before its cast, where
 serving's P V rounds P to bf16), its backward is the kernel
 ``flash_attention_bwd`` (:func:`flash_attention_bwd_cuda`, in the same
-source; no atomics, so the same bits on every run).  Importing this module
-needs no ``nvcc`` and no card.
+source; no atomics, so the same bits on every run) on one of three routes
+that :func:`bwd_route` picks from the dtype, the head dim and the
+operands' alignment: ``wgmma`` + TMA for bf16 at d 64 and 128,
+``mma.sync`` for the other bf16 head dims up to 128, SIMT for the rest.
+Importing this module needs no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
@@ -42,9 +45,28 @@ _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                       ctypes.c_int]
 _NAMES = ("q", "k", "v")
 #: q, k, v, out32, dout, lse, dq, dk, dv, delta, H, S, d, causal, window,
-#: kv_group, scale, dtype code (then the device and the stream)
+#: kv_group, scale, dtype code, route code (then the device and the stream)
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                           ctypes.c_int,
                                                            ctypes.c_int]
+
+#: the backward's route codes (the C entry's)
+WGMMA, MMA_SYNC, SIMT = 0, 1, 2
+
+
+def bwd_route(dtype: torch.dtype, d: int, aligned: bool = True) -> int:
+    """The backward's route for head dim ``d`` in ``dtype``: ``WGMMA``
+    (``wgmma`` + TMA) for bfloat16 at d 64 or 128 when ``aligned``,
+    ``MMA_SYNC`` (``mma.sync``, the head dim padded to 32, 64 or 128 on
+    chip) for the other bfloat16 head dims up to 128 and for bfloat16
+    operands TMA cannot take, ``SIMT`` for float32 (whose products on
+    tensor cores would round to TF32) and for bfloat16 past d 128.
+    ``aligned``: whether q, k, v and dout all start on 16-byte boundaries,
+    as TMA needs (dq, dk and dv, which the wrapper allocates, always
+    do)."""
+    if dtype == torch.bfloat16 and d <= 128:
+        return WGMMA if d in (64, 128) and aligned else MMA_SYNC
+    return SIMT
 
 
 def _check_shapes(name: str, q, k, v, kv_group: int):
@@ -102,13 +124,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
                              kv_group: int = 1):
-    """Launch the backward kernels: q, k, v as for the forward, ``out32``
-    and ``lse`` from its training form (the output and each row's
-    log-sum-exp, float32, (H, S, d) and (H, S)), ``dout`` the gradient of
-    the output (H, S, d, q's dtype), on one CUDA device.  Returns (dq, dk,
-    dv) in q's dtype, dk and dv summed over each kv head's ``kv_group``
-    query heads.  Raises ``ValueError`` on any other input and
-    ``RuntimeError`` when the launch is refused."""
+    """Launch the backward kernels on their :func:`bwd_route`: q, k, v as
+    for the forward, ``out32`` and ``lse`` from its training form (the
+    output and each row's log-sum-exp, float32, (H, S, d) and (H, S)),
+    ``dout`` the gradient of the output (H, S, d, q's dtype), on one CUDA
+    device.  Returns (dq, dk, dv) in q's dtype, dk and dv summed over each
+    kv head's ``kv_group`` query heads.  Raises ``ValueError`` on any other
+    input and ``RuntimeError`` when the launch is refused."""
     code, dev = _launch.check_operands(
         "flash_attention_bwd", ("q", "k", "v", "dout"), q, k, v, dout)
     H, S, d = _check_shapes("flash_attention_bwd", q, k, v, kv_group)
@@ -123,12 +145,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((H, S), dtype=torch.float32, device=q.device)
-    _launch.launch("flash_attention_bwd", _BWD_ARGS, dev, q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), out32.data_ptr(),
-                   dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
+    aligned = (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0
+    _launch.launch("flash_attention_bwd", _BWD_ARGS, dev, *ptrs[:3],
+                   out32.data_ptr(), ptrs[3], lse.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), H, S, d,
                    int(causal), int(window), kv_group, 1.0 / math.sqrt(d),
-                   code, library="flash_attention")
+                   code, bwd_route(q.dtype, d, aligned),
+                   library="flash_attention")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 

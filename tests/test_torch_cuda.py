@@ -10,11 +10,14 @@ serving on ``cuda`` against the CPU run (one layer each of the MoE and
 Mamba-1 families too, and the MoE dispatch route for route); the PCU
 kernel ``motif_pcu``
 against its plain version, bit for bit in float32, and the ``ops``
-dispatchers through the kernels; the training kernels (``rmsnorm_bwd``,
-``swiglu_gate_bwd``, ``flash_attention_bwd`` on tensor cores in bf16 up
-to head dim 128 and on SIMT past it and in float32, and flash's training
-forward with its row log-sum-exp and float32 output) against autograd of
-the plain versions, twice bit for bit, each by name.
+dispatchers through the kernels; the training kernels (``rmsnorm_bwd``
+on its register path and past it, ``swiglu_gate_bwd``,
+``flash_attention_bwd`` on each of its routes: ``wgmma`` + TMA in bf16 at
+head dims 64 and 128, ``mma.sync`` for the other bf16 head dims up to 128
+and misaligned views, SIMT past it and in float32, a route the call
+cannot take refused; and flash's training forward with its row
+log-sum-exp and float32 output) against autograd of the plain versions,
+twice bit for bit, each by name.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -366,17 +369,26 @@ def test_flash_attention_tensor_cores_match_plain(cuda, d, S, g, kw):
 def _kernel_names(fn):
     """The names of the CUDA kernels a call of ``fn()`` launches
     (``torch.profiler``; called up to three times, since a trace can come
-    back empty)."""
+    back empty).  The profiler can drop the first kernels of a window, so
+    each trace waits 50 ms on the host once it has started and opens with
+    eight short spin kernels (left out of the names), as ``chip_smoke``'s
+    ``device_ms`` does."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(8):
+                torch.cuda._sleep(200_000)
             fn()
             torch.cuda.synchronize()
         names = {e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
+                 if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in e.key}
         if names:
             return names
     raise AssertionError("three traces without a kernel")
@@ -788,8 +800,14 @@ def _plain_grads(fn, inputs, grad_out):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,D", [(128, 64), (64, 160), (100, 3072),
-                                 (300, 512), (1, 200)])
+                                 (300, 512), (1, 200), (5000, 3072),
+                                 (64, 5120), (33, 3080), (40, 1544),
+                                 (7, 33)])
 def test_rmsnorm_backward_matches_plain(cuda, dtype, M, D):
+    """The register path (rows up to 3072 bf16 or 1536 float32 wide, a
+    multiple of the 16-byte vector; 5000 rows walk more than one row a
+    warp) and the loop over the row past it (5120, 3080 and 1544 in
+    float32, 33)."""
     x, s = _randn((M, D), dtype, cuda, 0), _randn((D,), dtype, cuda, 1)
     dy = _randn((M, D), dtype, cuda, 2)
     before = rmsnorm_bwd_cuda.launches
@@ -930,8 +948,13 @@ def _flash_grads(q, k, v, dout, g, kw):
 @pytest.mark.parametrize("H,S,d,g", [(2, 128, 64, 1), (1, 256, 32, 1),
                                      (6, 100, 128, 3), (4, 333, 80, 2),
                                      (2, 128, 160, 1), (2, 100, 256, 2),
-                                     (1, 1, 64, 1)])
+                                     (1, 1, 64, 1), (3, 1000, 128, 3),
+                                     (4, 1000, 64, 4), (2, 4095, 128, 1),
+                                     (4, 4095, 64, 4), (3, 200, 128, 3)])
 def test_flash_attention_backward_matches_plain(cuda, dtype, kw, H, S, d, g):
+    """Every route (bf16 at d 64 and 128 on wgmma + TMA, with S ragged
+    against its 64- and 128-row tiles; other bf16 head dims on mma.sync;
+    bf16 past 128 and float32 on SIMT) in every mask mode."""
     q = _randn((H, S, d), dtype, cuda, 16)
     k, v = (_randn((H // g, S, d), dtype, cuda, i) for i in (17, 18))
     dout = _randn((H, S, d), dtype, cuda, 19)
@@ -960,12 +983,12 @@ def test_backward_kernels_are_deterministic_and_named(cuda):
     _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=3, train=True)
     dout = _randn((24, 1024, 128), bf, cuda, 29)
     calls = {
-        ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"):
+        ("rmsnorm_bwd_warp_kernel", "rmsnorm_dscale_kernel"):
             lambda: rmsnorm_bwd_cuda(x, s, dy),
         ("swiglu_gate_bwd_kernel",):
             lambda: swiglu_gate_bwd_cuda(a, b, dh),
-        ("flash_bwd_delta_kernel", "flash_bwd_dkdv_tc_kernel<128>",
-         "flash_bwd_dq_tc_kernel<128>"): lambda: flash_attention_bwd_cuda(
+        ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel<128>",
+         "flash_bwd_dq_wgmma_kernel<128>"): lambda: flash_attention_bwd_cuda(
             q, k, v, out32, dout, lse, kv_group=3),
     }
     for wanted, call in calls.items():
@@ -982,24 +1005,35 @@ def test_backward_kernels_are_deterministic_and_named(cuda):
         assert all(any(w in n for n in seen) for w in wanted), seen
 
 
-@pytest.mark.parametrize("dtype,d,kernels", [
-    (torch.bfloat16, 32, ("flash_bwd_dkdv_tc_kernel<32>",
-                          "flash_bwd_dq_tc_kernel<32>")),
-    (torch.bfloat16, 64, ("flash_bwd_dkdv_tc_kernel<64>",
-                          "flash_bwd_dq_tc_kernel<64>")),
-    (torch.bfloat16, 80, ("flash_bwd_dkdv_tc_kernel<128>",
-                          "flash_bwd_dq_tc_kernel<128>")),
-    (torch.bfloat16, 160, ("flash_bwd_dkdv_kernel<__nv_bfloat16, 2, 16>",
-                           "flash_bwd_dq_kernel<__nv_bfloat16, 2, 16>")),
-    (torch.float32, 128, ("flash_bwd_dkdv_kernel<float, 4, 8>",
-                          "flash_bwd_dq_kernel<float, 4, 8>")),
+@pytest.mark.parametrize("dtype,d,offset,kernels", [
+    (torch.bfloat16, 32, False, ("flash_bwd_dkdv_tc_kernel<32>",
+                                 "flash_bwd_dq_tc_kernel<32>")),
+    (torch.bfloat16, 64, False, ("flash_bwd_dkdv_wgmma_kernel<64>",
+                                 "flash_bwd_dq_wgmma_kernel<64>")),
+    (torch.bfloat16, 128, False, ("flash_bwd_dkdv_wgmma_kernel<128>",
+                                  "flash_bwd_dq_wgmma_kernel<128>")),
+    (torch.bfloat16, 64, True, ("flash_bwd_dkdv_tc_kernel<64>",
+                                "flash_bwd_dq_tc_kernel<64>")),
+    (torch.bfloat16, 128, True, ("flash_bwd_dkdv_tc_kernel<128>",
+                                 "flash_bwd_dq_tc_kernel<128>")),
+    (torch.bfloat16, 80, False, ("flash_bwd_dkdv_tc_kernel<128>",
+                                 "flash_bwd_dq_tc_kernel<128>")),
+    (torch.bfloat16, 160, False,
+     ("flash_bwd_dkdv_kernel<__nv_bfloat16, 2, 16>",
+      "flash_bwd_dq_kernel<__nv_bfloat16, 2, 16>")),
+    (torch.float32, 128, False, ("flash_bwd_dkdv_kernel<float, 4, 8>",
+                                 "flash_bwd_dq_kernel<float, 4, 8>")),
 ])
-def test_flash_backward_route_by_dtype_and_head_dim(cuda, dtype, d, kernels):
-    """bf16 up to d 128 on tensor cores (the head dim padded to 32, 64 or
+def test_flash_backward_route_by_dtype_and_head_dim(cuda, dtype, d, offset,
+                                                    kernels):
+    """The route rule on the card: bf16 at d 64 and 128 on wgmma + TMA, a
+    misaligned bf16 view (q one element into its storage) and the other
+    bf16 head dims up to 128 on mma.sync (the head dim padded to 32, 64 or
     128), past it and in float32 on SIMT, each asserted by name; the
     gradients within ``TOL`` of the plain ones."""
     H, S, g = 4, 200, 2
-    q = _randn((H, S, d), dtype, cuda, 30)
+    q = (_flat_offset(H * S * d, dtype, cuda, 30).view(H, S, d) if offset
+         else _randn((H, S, d), dtype, cuda, 30))
     k, v = (_randn((H // g, S, d), dtype, cuda, i) for i in (31, 32))
     dout = _randn((H, S, d), dtype, cuda, 33)
     _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g, train=True)
@@ -1015,3 +1049,24 @@ def test_flash_backward_route_by_dtype_and_head_dim(cuda, dtype, d, kernels):
         a, b, c, kv_group=g), (q, k, v), dout)
     for got, w in zip(call(), want):
         _assert_close(got, w, dtype)
+
+
+def test_flash_backward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
+    """A route the call cannot take is refused by the C entry
+    (cudaErrorInvalidValue), never replaced by another: wgmma at head dim
+    80, in float32 or on a q off a 16-byte boundary (no tensor map on it),
+    mma.sync in float32 or past d 128, SIMT for bf16 at d 128."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype, d, offset, route in [(torch.bfloat16, 80, False, fa.WGMMA),
+                                    (torch.float32, 128, False, fa.WGMMA),
+                                    (torch.bfloat16, 128, True, fa.WGMMA),
+                                    (torch.float32, 64, False, fa.MMA_SYNC),
+                                    (torch.bfloat16, 160, False, fa.MMA_SYNC),
+                                    (torch.bfloat16, 128, False, fa.SIMT)]:
+        q = (_flat_offset(2 * 64 * d, dtype, cuda, 34).view(2, 64, d)
+             if offset else _randn((2, 64, d), dtype, cuda, 34))
+        _, lse, out32 = flash_attention_cuda(q, q, q, train=True)
+        monkeypatch.setattr(fa, "bwd_route", lambda *a, r=route: r)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            flash_attention_bwd_cuda(q, q, q, out32, q, lse)

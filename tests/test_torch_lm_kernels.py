@@ -9,7 +9,8 @@ the Pallas kernels refuse (their blocks must divide the shape), are held
 against the oracles only.  The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here their entries must
 refuse CPU tensors, and ``fused_swiglu``'s route rule (shape, dtype and
-16-byte alignment) is held as the wrapper applies it.
+16-byte alignment) and the flash backward's (dtype, head dim and 16-byte
+alignment) are held as the wrappers apply them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_swiglu as fs
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -238,6 +240,116 @@ def test_fused_swiglu_wrapper_routes_offset_views_to_simt(monkeypatch,
     (args,) = calls
     assert args[3] == out.data_ptr() and out.data_ptr() % 16 == 0
     assert args[-1] == (fs.TENSOR_CORES if offset == "none" else fs.SIMT)
+
+
+#: (dtype, head dim, 16-byte aligned operands, the backward's route)
+BWD_ROUTES = [
+    # bf16 at d 64 and 128 with operands TMA can take: wgmma + TMA
+    ("bfloat16", 128, True, fa.WGMMA),
+    ("bfloat16", 64, True, fa.WGMMA),
+    # the other bf16 head dims up to 128, and misaligned bf16: mma.sync
+    ("bfloat16", 128, False, fa.MMA_SYNC),
+    ("bfloat16", 64, False, fa.MMA_SYNC),
+    ("bfloat16", 32, True, fa.MMA_SYNC),
+    ("bfloat16", 80, True, fa.MMA_SYNC),
+    ("bfloat16", 96, True, fa.MMA_SYNC),
+    ("bfloat16", 1, True, fa.MMA_SYNC),
+    # float32 (TF32 products would miss its tolerance) and bf16 past 128
+    ("bfloat16", 160, True, fa.SIMT),
+    ("bfloat16", 256, True, fa.SIMT),
+    ("bfloat16", 256, False, fa.SIMT),
+    ("float32", 64, True, fa.SIMT),
+    ("float32", 128, True, fa.SIMT),
+    ("float32", 128, False, fa.SIMT),
+    ("float32", 256, True, fa.SIMT),
+]
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", BWD_ROUTES,
+                         ids=[f"{t}-d{d}-{'aligned' if a else 'offset'}"
+                              for t, d, a, _ in BWD_ROUTES])
+def test_flash_bwd_route_by_dtype_head_dim_and_alignment(dtype, d, aligned,
+                                                         want):
+    assert fa.bwd_route(TORCH_DT[dtype], d, aligned) == want
+    if aligned:
+        assert fa.bwd_route(TORCH_DT[dtype], d) == want
+
+
+def _bwd_operands(H, S, d, g, dtype, offset=None):
+    """q, k, v, dout (``offset``: that one a contiguous view one element
+    into its storage), out32 and lse on the CPU."""
+    shapes = {"q": (H, S, d), "k": (H // g, S, d), "v": (H // g, S, d),
+              "dout": (H, S, d)}
+    ts = {}
+    for name, shape in shapes.items():
+        n = int(np.prod(shape))
+        if name == offset:
+            ts[name] = torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+            assert ts[name].is_contiguous() and ts[name].data_ptr() % 16
+        else:
+            ts[name] = torch.zeros(shape, dtype=dtype)
+    return (ts["q"], ts["k"], ts["v"], ts["dout"],
+            torch.zeros((H, S, d)), torch.zeros((H, S)))
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want",
+                         [r for r in BWD_ROUTES if r[2]],
+                         ids=[f"{t}-d{d}" for t, d, a, _ in BWD_ROUTES if a])
+def test_flash_bwd_wrapper_passes_its_route(monkeypatch, dtype, d, aligned,
+                                            want):
+    """What the backward wrapper hands the C entry: ten pointers (q, k, v,
+    out32, dout, lse, dq, dk, dv, delta), H, S, d, the mask, the scale,
+    the dtype code and the route code, in ``_BWD_ARGS``' order; one launch
+    counted."""
+    H, S, g = 4, 40, 2
+    q, k, v, dout, out32, lse = _bwd_operands(H, S, d, g, TORCH_DT[dtype])
+    calls = []
+    monkeypatch.setattr(fa._launch, "check_operands",
+                        lambda *a: (fa._launch.DTYPE_CODES[q.dtype], 0))
+    monkeypatch.setattr(fa._launch, "launch",
+                        lambda name, argtypes, index, *args, library="":
+                        calls.append((name, argtypes, index, args, library)))
+    before = fa.flash_attention_bwd_cuda.launches
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
+                                             kv_group=g, window=8)
+    assert fa.flash_attention_bwd_cuda.launches == before + 1
+    fa.flash_attention_bwd_cuda.launches = before
+    (name, argtypes, index, args, library), = calls
+    assert (name, argtypes, index, library) == (
+        "flash_attention_bwd", fa._BWD_ARGS, 0, "flash_attention")
+    assert len(args) == len(fa._BWD_ARGS)
+    assert args[:10] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         args[9])
+    assert args[10:16] == (H, S, d, 1, 8, g)
+    assert args[16] == pytest.approx(d ** -0.5)
+    assert args[17:] == (fa._launch.DTYPE_CODES[q.dtype], want)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("offset", ["q", "k", "v", "dout", None])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_wrapper_routes_offset_views_to_mma_sync(monkeypatch,
+                                                           offset, d):
+    """A contiguous bf16 operand one element into its storage (2 bytes past
+    a 16-byte boundary) cannot be described to TMA: the wrapper passes the
+    ``mma.sync`` route code; fresh tensors pass ``wgmma``.  dq, dk and dv
+    are the wrapper's own allocations, so they are aligned."""
+    q, k, v, dout, out32, lse = _bwd_operands(3, 24, d, 3, torch.bfloat16,
+                                              offset)
+    calls = []
+    monkeypatch.setattr(fa._launch, "check_operands", lambda *a: (1, 0))
+    monkeypatch.setattr(fa._launch, "launch",
+                        lambda name, argtypes, index, *args, library="":
+                        calls.append(args))
+    before = fa.flash_attention_bwd_cuda.launches
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
+                                        kv_group=3)
+    fa.flash_attention_bwd_cuda.launches = before
+    (args,) = calls
+    assert all(t.data_ptr() % 16 == 0 for t in grads)
+    assert args[-1] == (fa.WGMMA if offset is None else fa.MMA_SYNC)
 
 
 def test_wrappers_count_no_launch_on_the_cpu():
