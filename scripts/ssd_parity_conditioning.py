@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """How well float32 holds zamba2_1_2b's card-vs-CPU parity, with the SSD's
-decays taken as segment sums (the port) or as differences of prefix sums
-(the JAX package's arithmetic).
+decays taken as differences of float64 prefix sums rounded once (the
+port) or as differences of float32 prefix sums (the JAX package's
+arithmetic).
 
     python3 scripts/ssd_parity_conditioning.py           # on one card
     python3 scripts/ssd_parity_conditioning.py --smoke   # smoke width, CPU
@@ -117,7 +118,7 @@ def main(argv) -> int:
         want = run(copy.deepcopy(cpu).double(), toks, "cpu", ssm._ssd, [0.0])
     finally:
         torch.Tensor.float = keep64
-    forms = {"segment sums (the port)": ssm._ssd,
+    forms = {"float64 prefix differences (the port)": ssm._ssd,
              "prefix differences (the JAX form)": prefix_difference_ssd}
     for name, form in forms.items():
         lowest = [0.0]

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""How well float32 holds llama3_2_3b's train-step parity: each gradient
-leaf of the card's float32 run and of the CPU's against a float64 run.
+"""How well float32 holds a model's train-step parity: each gradient leaf
+of the card's float32 run and of the CPU's against a float64 run.
 
     python3 scripts/train_parity_conditioning.py           # on one card
+    python3 scripts/train_parity_conditioning.py --arch whisper_tiny
     python3 scripts/train_parity_conditioning.py --smoke   # smoke width, CPU
+    python3 scripts/train_parity_conditioning.py --arch whisper_tiny --cpu
 
-Builds the first 2 layers of llama3_2_3b in float32, sliced from the full
-28-layer draw (``chip_smoke.first_layers``, the model of ``chip_smoke.py``'s
-train parity phase), and takes the loss and its gradient on 2 x 256 tokens
-of ``batch_for_step`` on the card (the kernels), on the CPU (the plain
-versions), and on the CPU in float64 (``Tensor.float`` keeps a float64
-tensor float64 for that run, so the plain versions, the cross-entropy's
-logits and RoPE compute in float64).  Prints, per leaf, the relative L2
-error of card vs CPU, card vs float64 and CPU vs float64, and the largest
+Builds the model of ``chip_smoke.py``'s train parity phase for ``--arch``
+(llama3_2_3b unless given) in float32 (``chip_smoke.train_parity_model``:
+for llama3_2_3b the first 2 layers sliced from the full 28-layer draw;
+whisper_tiny whole at the fan-in scale, or at ``init_params``' scale
+with ``--init-scale``).  It takes the loss and its gradient on 2 x 256
+tokens of ``batch_for_step`` on the card (the kernels), on the CPU (the
+plain versions), and on the CPU in float64 (``Tensor.float`` keeps a
+float64 tensor float64 for that run, so the plain versions, the
+cross-entropy's logits, RoPE and the SSMs' float32 steps compute in
+float64).  Prints, per leaf, the relative L2 error of card vs CPU, card
+vs float64 and CPU vs float64, and, for the dense model, the largest
 activation of the residual stream.  With ``--smoke`` the "card" is a
-second CPU copy of the smoke config.
+second CPU copy of the smoke config (8 layers drawn, 2 kept); with
+``--cpu`` a second CPU copy at full width.
 """
 from __future__ import annotations
 
@@ -53,16 +59,21 @@ def main(argv) -> int:
     from repro_torch.train.tree import tree_map
 
     smoke = "--smoke" in argv
-    dev = "cpu" if smoke else "cuda"
-    if not smoke:
+    arch = argv[argv.index("--arch") + 1] if "--arch" in argv \
+        else "llama3_2_3b"
+    dev = "cpu" if smoke or "--cpu" in argv else "cuda"
+    if dev == "cuda":
         if not torch.cuda.is_available():
             print("needs an NVIDIA card (or --smoke)", file=sys.stderr)
             return 2
         torch.backends.cuda.matmul.allow_tf32 = False
-    arch = "llama3_2_3b"
-    full = (smoke_config(arch).replace(n_layers=8) if smoke
-            else get_config(arch))
-    card = cs.first_layers(full, 2, torch.float32, dev)
+    if smoke:
+        full = smoke_config(arch).replace(n_layers=8)
+        card = cs.first_layers(full, 2, torch.float32, dev)
+    else:
+        full = get_config(arch)
+        card = cs.train_parity_model(arch, dev,
+                                     fan_in="--init-scale" not in argv)
     cfg = card.cfg
     T = 32 if smoke else 256
     batch = batch_for_step(cfg, ShapeSpec("parity", T, 2, "train"), cs.SEED,
@@ -85,17 +96,19 @@ def main(argv) -> int:
         self if self.dtype == torch.float64 else real_float(self, *a, **kw))
     try:
         results["f64"] = grads(cfg, f64, batch, "cpu", torch.float64)
-        with torch.no_grad():
-            x, positions = f64._inputs({k: torch.from_numpy(v) for k, v in
-                                        batch.items()})
-            x = x.double()
-            for i, w in enumerate(f64.layers):
-                x = f64._block_out(w, x, positions)
-                peak[f"residual after layer {i}"] = float(x.abs().max())
+        if cfg.family == "dense":  # the residual stream, layer by layer
+            with torch.no_grad():
+                x, positions = f64._inputs({k: torch.from_numpy(v)
+                                            for k, v in batch.items()})
+                x = x.double()
+                for i, w in enumerate(f64.layers):
+                    x = f64._block_out(w, x, positions)
+                    peak[f"residual after layer {i}"] = float(x.abs().max())
     finally:
         torch.Tensor.float = real_float
-    where = "cpu (smoke)" if smoke else torch.cuda.get_device_name(0)
-    print(f"{arch} first 2 layers of a {full.n_layers}-layer draw, d_model "
+    where = "cpu" if dev == "cpu" else torch.cuda.get_device_name(0)
+    print(f"{arch} first {cfg.n_layers} layers of a {full.n_layers}-layer "
+          f"config, d_model "
           f"{cfg.d_model}, batch 2 x {T}, card = {where}")
     print("loss: card {:.9f} cpu {:.9f} f64 {:.9f}".format(
         results["card"][0], results["cpu"][0], results["f64"][0]))

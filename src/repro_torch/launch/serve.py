@@ -14,9 +14,13 @@ random prompts, greedy decoding on the card, for every ported family
         --prompt-len 500 --new-tokens 32               # Mamba-2 hybrid
     python -m repro_torch.launch.serve --arch whisper_tiny --batch 4 \\
         --prompt-len 224 --new-tokens 32               # encoder-decoder
+    python -m repro_torch.launch.serve --arch qwen2_vl_72b --layers 8 \\
+        --batch 4 --prompt-len 500 --new-tokens 32     # vlm, 8 layers
 
 Without ``--smoke`` the full config runs (the JAX launcher's ``--smoke``
-is always on; here it is off unless given).  Prompts are drawn with numpy
+is always on; here it is off unless given); ``--layers N`` keeps its first
+N layers, each at the full model's weight scale
+(:func:`repro_torch.models.zoo.depth_cut`).  Prompts are drawn with numpy
 from ``--seed``, and after them the vlm's embeddings and the encdec's
 audio-frame embeddings (B, enc_seq, d_model), both in bfloat16; weights
 with a ``torch.Generator`` seeded from it on the device, in each
@@ -49,6 +53,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (a depth cut)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     return ap.parse_args(argv)
@@ -62,7 +68,8 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = zoo.init_model(cfg, gen, device)
+    model = zoo.init_model(cfg, gen, device, layers=args.layers)
+    cfg = model.cfg
     rng = np.random.default_rng(args.seed)
     B, T = args.batch, args.prompt_len
     prompts = torch.from_numpy(

@@ -3,10 +3,18 @@ batches from (seed, step), AdamW, checkpoints, on the card.
 
     python -m repro_torch.launch.train --arch llama3_2_3b --batch 4 \\
         --seq 4096 --steps 4                 # full config, cuda
+    python -m repro_torch.launch.train --arch granite_moe_1b_a400m \\
+        --batch 4 --seq 4096 --steps 4       # moe, full config
+    python -m repro_torch.launch.train --arch falcon_mamba_7b --layers 8 \\
+        --batch 4 --seq 4096 --steps 4       # ssm, its first 8 layers
     python -m repro_torch.launch.train --arch llama3_2_3b --smoke \\
         --steps 3 --device cpu               # reduced, on the host
 
-The flags are ``repro/launch/train.py``'s plus ``--device``.  Without
+Every family trains: dense, vlm, moe, ssm (Mamba-1), hybrid (Mamba-2 and
+the shared block) and encdec.  
+The flags are ``repro/launch/train.py``'s plus ``--device`` and
+``--layers`` (a depth cut: the first N layers, each at the full model's
+weight scale, :func:`repro_torch.models.zoo.depth_cut`).  Without
 ``--smoke`` the full config runs (the JAX launcher's smoke flag is the only
 way it runs; here it is off unless given) at ``--shape``'s sequence and
 global batch (:data:`repro_torch.configs.SHAPES`), and ``--seq`` and
@@ -51,6 +59,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="the sequence length (replaces --shape's)")
     ap.add_argument("--batch", type=int, default=None,
                     help="the global batch (replaces --shape's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (a depth cut)")
     ap.add_argument("--ckpt-dir", default=default_checkpoint_dir())
     ap.add_argument("--ckpt-every", type=int, default=5)
     ap.add_argument("--grad-compression", default="none",
@@ -84,15 +94,51 @@ def causal_pairs(T: int, window: int = 0) -> int:
 
 
 def model_flops(cfg, batch: int, seq: int) -> Dict[str, float]:
-    """The model FLOPs of one training step of ``batch`` x ``seq`` tokens:
-    6 x parameters x tokens for the products (the tied embedding counts
-    once, as the output head), and 12 x head dim x live pairs x query
-    heads x layers x batch for attention's two products, forward and
-    backward."""
+    """The model FLOPs of one training step of ``batch`` x ``seq`` tokens,
+    forward and backward: 6 x parameters x the tokens they act on for the
+    products (the tied embedding counts once, as the output head), and 12
+    x head dim x query heads x (query, key) pairs x batch for attention's
+    two products.  Per family:
+
+    * dense, vlm: every parameter on every token; causal (windowed) pairs
+      in every layer;
+    * moe: the parameters a token uses (``param_count(active_only=
+      True)``: top_k of the experts);
+    * hybrid: the shared block counted once a site (n_layers //
+      attn_every), and causal pairs at the sites only;
+    * encdec: the encoder's parameters and the decoder's cross-attention
+      ``wk`` / ``wv`` on the ``enc_seq`` audio frames, the rest of the
+      decoder and the head on the ``seq`` tokens; all enc_seq^2 pairs in
+      each encoder layer, causal pairs and seq x enc_seq cross pairs in
+      each decoder layer;
+    * ssm: the products only.
+
+    The SSM scans (Mamba-1's recurrence, Mamba-2's chunked SSD) are left
+    out: elementwise work and batched float32 products off the bf16
+    tensor cores, not model FLOPs of the products above."""
     tokens = batch * seq
-    dense = 6.0 * cfg.param_count() * tokens
-    attn = 12.0 * cfg.resolved_head_dim * causal_pairs(
-        seq, cfg.sliding_window) * cfg.n_heads * cfg.n_layers * batch
+    d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    # what param_count counts besides the stacked decoder layers: the
+    # hybrid's shared block, the encdec's encoder (and the embedding)
+    unstacked = cfg.replace(n_layers=0).param_count() - cfg.vocab_size * d
+    if cfg.family == "encdec":
+        cross_kv = cfg.n_layers * 2 * d * cfg.n_kv_heads * hd
+        on_frames = unstacked + cross_kv
+        dense = 6.0 * (on_frames * batch * cfg.enc_seq
+                       + (cfg.param_count() - on_frames) * tokens)
+        pairs = (cfg.n_enc_layers * cfg.enc_seq ** 2
+                 + cfg.n_layers * (causal_pairs(seq) + seq * cfg.enc_seq))
+    else:
+        params = cfg.param_count(active_only=cfg.family == "moe")
+        layers = cfg.n_layers
+        if cfg.family == "hybrid":
+            layers = cfg.n_layers // cfg.attn_every
+            params += (layers - 1) * unstacked
+        dense = 6.0 * params * tokens
+        pairs = 0 if cfg.family == "ssm" else \
+            layers * causal_pairs(seq, cfg.sliding_window)
+    pair_flops = 12.0 * hd * H * batch
+    attn = pair_flops * pairs
     return {"products": dense, "attention": attn, "total": dense + attn}
 
 
@@ -110,9 +156,13 @@ def run(argv: Optional[List[str]] = None) -> Dict:
                         grad_compression=args.grad_compression)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    out = train(run_cfg, steps=args.steps, device=device)
+    out = train(run_cfg, steps=args.steps, device=device, layers=args.layers)
+    cfg = out["model"].cfg
     n_params = sum(p.numel() for p in out["model"].parameters())
-    print(f"model: {cfg.arch_id} ({'smoke' if args.smoke else 'full'}) "
+    depth = "" if args.layers is None else \
+        f", depth cut to {args.layers} layers"
+    print(f"model: {cfg.arch_id} ({'smoke' if args.smoke else 'full'}"
+          f"{depth}) "
           f"{cfg.n_layers}L d_model={cfg.d_model} vocab={cfg.vocab_size}, "
           f"{n_params} params, remat={cfg.remat}, {shape.name}: batch "
           f"{shape.global_batch} x {shape.seq_len} on {device}")

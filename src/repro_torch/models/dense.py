@@ -11,7 +11,8 @@ are views of the stacked ones, so nothing is copied); ``lax.scan`` over
 layers becomes a Python loop.  It serves (``prefill``, ``decode_step``)
 and trains (``forward`` under the config's ``remat`` policy, and
 :func:`loss_fn`).  Its parameters want no gradient until
-:meth:`DenseLM.grad_views` turns training on: then each layer's
+:meth:`DenseLM.grad_views` turns training on (:func:`grad_views`, which
+every family's model calls over its own stacked trees): then each layer's
 parameters are leaves whose ``.grad`` is a view of one stacked gradient
 tree, so the optimizer and the checkpoint see one gradient per stacked
 leaf (``params/layers/mlp/w1``) and the forward never indexes a stacked
@@ -77,6 +78,45 @@ class ParamTree(nn.Module):
 def _layer_slice(tree: Dict, i: int) -> Dict:
     return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def grad_views(model: nn.Module, stacked: Tuple[str, ...]) -> Dict:
+    """Turn training on for a model that views a params tree
+    (``model.params``): every parameter wants a gradient, and its
+    ``.grad`` is a view of a gradient tree shaped like the params (zeros,
+    each leaf in its parameter's dtype), which is returned.  Each key of
+    ``stacked`` names a tree stacked over layers and the ``ModuleList`` of
+    the same name whose entry ``i`` holds layer ``i``'s slices: each
+    slice's ``.grad`` is its slice of the stacked gradient.  Every other
+    key names a tensor or a tree held whole by the attribute of the same
+    name (a parameter, or a :class:`ParamTree` such as the hybrid's shared
+    block, whose gradient autograd sums over every site that uses it).
+    Autograd adds into an existing ``.grad`` in place, so a backward fills
+    each stacked leaf layer by layer; zero the tree (``zero_``) between
+    steps, and keep the views attached."""
+    grads: Dict = {}
+
+    def attach(p, g):
+        p.requires_grad_(True)
+        p.grad = g
+
+    def walk(tree, out, modules, whole):
+        for key, val in tree.items():
+            subs = [getattr(m, key) for m in modules]
+            if isinstance(val, dict):
+                walk(val, out.setdefault(key, {}), subs, whole)
+                continue
+            out[key] = torch.zeros_like(val)
+            for i, p in enumerate(subs):
+                attach(p, out[key] if whole else out[key][i])
+
+    for key, tree in model.params.items():
+        if key in stacked:
+            walk(tree, grads.setdefault(key, {}), list(getattr(model, key)),
+                 False)
+        else:
+            walk({key: tree}, grads, [model], True)
+    return grads
 
 
 # ---------------------------------------------------------------------------
@@ -161,34 +201,9 @@ class DenseLM(nn.Module):
         return L.rms_norm(x, self.ln_f)
 
     def grad_views(self) -> Dict:
-        """Turn training on: every parameter wants a gradient, and its
-        ``.grad`` is a view of a stacked gradient tree shaped like
-        :attr:`params` (zeros, each leaf in its parameter's dtype), which
-        is returned.  Autograd adds into an existing ``.grad`` in place, so
-        a backward fills each stacked leaf layer by layer; zero the tree
-        (``zero_``) between steps, and keep the views attached."""
-        grads = {}
-
-        def walk(tree, out, modules):
-            for key, val in tree.items():
-                if isinstance(val, dict):
-                    walk(val, out.setdefault(key, {}),
-                         [m[key] for m in modules])
-                    continue
-                out[key] = torch.zeros_like(val)
-                for i, m in enumerate(modules):
-                    p = m[key]
-                    p.requires_grad_(True)
-                    p.grad = out[key][i]
-
-        walk(self.params["layers"], grads.setdefault("layers", {}),
-             list(self.layers))
-        for key in ("emb", "ln_f"):
-            grads[key] = torch.zeros_like(self.params[key])
-            p = getattr(self, key)
-            p.requires_grad_(True)
-            p.grad = grads[key]
-        return grads
+        """Turn training on (:func:`grad_views` over the stacked
+        ``layers``)."""
+        return grad_views(self, ("layers",))
 
     def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
         """Run the full prompt; return (cache, last-token logits (B, 1, V)

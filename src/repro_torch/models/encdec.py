@@ -84,6 +84,9 @@ class EncDecLM(nn.Module):
     def __init__(self, cfg, params: Dict):
         super().__init__()
         self.cfg = cfg
+        #: the tree the parameters view (``encoder`` and ``decoder``
+        #: stacked)
+        self.params = params
         for key in ("emb", "ln_enc", "ln_f"):
             self.register_parameter(
                 key, nn.Parameter(params[key], requires_grad=False))
@@ -94,47 +97,71 @@ class EncDecLM(nn.Module):
             D.ParamTree(D._layer_slice(params["decoder"], i))
             for i in range(cfg.n_layers))
 
+    def _enc_block(self, w, x, positions):
+        h, _ = L.attention_layer(self.cfg, w["attn"], L.rms_norm(x, w["ln1"]),
+                                 positions, causal=False)
+        x = x + h
+        return x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
+
     def encode(self, audio_embeds: torch.Tensor) -> torch.Tensor:
-        """The encoder's output (B, enc_seq, D), after ``ln_enc``."""
-        cfg = self.cfg
+        """The encoder's output (B, enc_seq, D), after ``ln_enc``; where a
+        gradient is recorded each block runs under the config's ``remat``
+        policy (``repro/models/encdec.py:56-68``)."""
         B, Se, _ = audio_embeds.shape
         positions = _arange_positions(B, Se, audio_embeds.device)
+        policy = L.remat_policy(self.cfg.remat)
         x = audio_embeds
         for w in self.encoder:
-            h, _ = L.attention_layer(cfg, w["attn"], L.rms_norm(x, w["ln1"]),
-                                     positions, causal=False)
-            x = x + h
-            x = x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
+            x = L.remat(self._enc_block, policy, w, x, positions)
         return L.rms_norm(x, self.ln_enc)
+
+    def _dec_block(self, w, x, positions, enc_out):
+        """A decoder block: (x, ((k, v), (xk, xv))), its self-attention's
+        and cross-attention's k and v."""
+        cfg = self.cfg
+        h, kv = L.attention_layer(cfg, w["self_attn"],
+                                  L.rms_norm(x, w["ln1"]), positions,
+                                  attn_impl=cfg.attn_impl)
+        x = x + h
+        h, xkv = L.attention_layer(cfg, w["cross_attn"],
+                                   L.rms_norm(x, w["ln_x"]), positions,
+                                   cross_x=enc_out)
+        x = x + h
+        x = x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
+        return x, (kv, xkv)
+
+    def _dec_out(self, w, x, positions, enc_out):
+        return self._dec_block(w, x, positions, enc_out)[0]
 
     def _decode_all(self, batch, kv=None):
         """The decoder over the full sequence; with a ``kv`` dict, each
         layer's self k/v and cross k/v are appended to its lists.  Returns
-        the final hidden states (B, T, D)."""
-        cfg = self.cfg
+        the final hidden states (B, T, D).  Without ``kv``, where a
+        gradient is recorded, each block runs under the config's
+        ``remat`` policy (``repro/models/encdec.py:93-99``)."""
         enc_out = self.encode(batch["audio_embeds"])
         tokens = batch["tokens"]
         B, T = tokens.shape
         x = L.embed_lookup(self.emb, tokens)
         positions = _arange_positions(B, T, tokens.device)
+        policy = L.remat_policy(self.cfg.remat)
         for w in self.decoder:
-            h, (k, v) = L.attention_layer(
-                cfg, w["self_attn"], L.rms_norm(x, w["ln1"]), positions,
-                attn_impl=cfg.attn_impl)
-            x = x + h
-            h, (xk, xv) = L.attention_layer(
-                cfg, w["cross_attn"], L.rms_norm(x, w["ln_x"]), positions,
-                cross_x=enc_out)
-            x = x + h
-            x = x + L.swiglu(w["mlp"], L.rms_norm(x, w["ln2"]))
-            if kv is not None:
-                for key, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
-                    kv[key].append(t.reshape(B, t.shape[1], -1))
+            if kv is None:
+                x = L.remat(self._dec_out, policy, w, x, positions, enc_out)
+                continue
+            x, ((k, v), (xk, xv)) = self._dec_block(w, x, positions, enc_out)
+            for key, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+                kv[key].append(t.reshape(B, t.shape[1], -1))
         return L.rms_norm(x, self.ln_f)
 
     def forward(self, batch) -> torch.Tensor:
         """Final hidden states (B, T, D)."""
         return self._decode_all(batch)
+
+    def grad_views(self) -> Dict:
+        """Turn training on (:func:`repro_torch.models.dense.grad_views`
+        over the stacked ``encoder`` and ``decoder``)."""
+        return D.grad_views(self, ("encoder", "decoder"))
 
     def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
         """Encode the audio and run the full prompt; return (cache,
@@ -178,6 +205,14 @@ class EncDecLM(nn.Module):
         logits = (x @ self.emb.T).float()
         cache["length"] = cache["length"] + 1
         return cache, logits
+
+
+def loss_fn(cfg, model: EncDecLM, batch) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token cross-entropy of the decoder
+    (``repro/models/encdec.py:103-106``): (loss, {"loss": loss})."""
+    nll = L.chunked_xent(model(batch), model.emb, batch["labels"],
+                         cfg.logits_chunk)
+    return nll, {"loss": nll}
 
 
 #: the family's model class, as :mod:`repro_torch.models.zoo` builds it

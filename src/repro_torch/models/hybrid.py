@@ -87,6 +87,9 @@ class HybridLM(nn.Module):
     def __init__(self, cfg, params: Dict):
         super().__init__()
         self.cfg = cfg
+        #: the tree the parameters view (``mamba`` stacked; ``shared``
+        #: whole, one parameter a leaf for every site)
+        self.params = params
         self.emb = nn.Parameter(params["emb"], requires_grad=False)
         self.ln_f = nn.Parameter(params["ln_f"], requires_grad=False)
         self.mamba = nn.ModuleList(
@@ -98,25 +101,36 @@ class HybridLM(nn.Module):
         """Whether the shared block follows Mamba-2 layer ``i``."""
         return (i + 1) % self.cfg.attn_every == 0
 
+    def _mamba_step(self, w, x):
+        return x + S.mamba2_block(self.cfg, w, L.rms_norm(x, w["ln"]))[0]
+
     def _run(self, tokens, cache=None):
         """The full-sequence pass; with a ``cache`` dict, each layer's conv
         window and state and each site's k/v are appended to its lists.
-        Returns the final hidden states (B, T, D)."""
+        Returns the final hidden states (B, T, D).  Where a gradient is
+        recorded (no cache) each Mamba-2 layer runs under the config's
+        ``remat`` policy and the shared block does not, as in
+        ``repro/models/hybrid.py:72-88``; the shared block's parameters
+        gather the gradient of every site."""
         cfg = self.cfg
         B, T = tokens.shape
         x = L.embed_lookup(self.emb, tokens)
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, T)
+        policy = L.remat_policy(cfg.remat)
         for i, w in enumerate(self.mamba):
-            zero = None if cache is None else {
-                "conv": x.new_zeros((B, cfg.d_conv - 1, cfg.d_inner)),
-                "h": torch.zeros(
-                    (B, cfg.n_ssm_heads, cfg.d_inner // cfg.n_ssm_heads,
-                     cfg.ssm_state), dtype=torch.float32, device=x.device),
-            }
-            h, c = S.mamba2_block(cfg, w, L.rms_norm(x, w["ln"]), zero)
-            x = x + h
-            if cache is not None:
+            if cache is None:
+                x = L.remat(self._mamba_step, policy, w, x)
+            else:
+                zero = {
+                    "conv": x.new_zeros((B, cfg.d_conv - 1, cfg.d_inner)),
+                    "h": torch.zeros(
+                        (B, cfg.n_ssm_heads, cfg.d_inner // cfg.n_ssm_heads,
+                         cfg.ssm_state), dtype=torch.float32,
+                        device=x.device),
+                }
+                h, c = S.mamba2_block(cfg, w, L.rms_norm(x, w["ln"]), zero)
+                x = x + h
                 cache["conv"].append(c["conv"])
                 cache["h"].append(c["h"])
             if self._closes_group(i):
@@ -129,6 +143,11 @@ class HybridLM(nn.Module):
     def forward(self, batch) -> torch.Tensor:
         """Final hidden states (B, T, D)."""
         return self._run(batch["tokens"])
+
+    def grad_views(self) -> Dict:
+        """Turn training on (:func:`repro_torch.models.dense.grad_views`
+        over the stacked ``mamba``; ``shared`` is one gradient tree)."""
+        return D.grad_views(self, ("mamba",))
 
     def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
         """Run the full prompt; return (cache, last-token logits (B, 1, V)
@@ -172,6 +191,14 @@ class HybridLM(nn.Module):
         logits = (x @ self.emb.T).float()
         cache["length"] = cache["length"] + 1
         return cache, logits
+
+
+def loss_fn(cfg, model: HybridLM, batch) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token cross-entropy (``repro/models/hybrid.py:91-94``):
+    (loss, {"loss": loss})."""
+    nll = L.chunked_xent(model(batch), model.emb, batch["labels"],
+                         cfg.logits_chunk)
+    return nll, {"loss": nll}
 
 
 #: the family's model class, as :mod:`repro_torch.models.zoo` builds it

@@ -53,6 +53,9 @@ class Spec:
     axes: Tuple[Optional[str], ...]
     dtype: Any = torch.bfloat16
     init: str = "normal"  # normal | zeros | ones | ssm_a | ssm_dt
+    #: the fan-in a normal leaf is scaled by, where it is not ``shape[0]``
+    #: (a depth cut keeps the full stack's scale: ``depth_cut``)
+    fan_in: Optional[int] = None
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -97,7 +100,8 @@ def init_params(spec_tree, generator: torch.Generator,
     (``dt_bias`` = softplus^-1(0.01)).  A normal weight is N(0, 1) /
     sqrt(shape[0]), so a weight stacked over layers is scaled by the layer
     count as in the JAX package; ``jax.random`` cannot be reproduced, so
-    the normal values differ.  The fixed rules give the JAX values, except
+    the normal values differ (a spec's ``fan_in``, where set, replaces
+    ``shape[0]``).  The fixed rules give the JAX values, except
     that ``ssm_a`` takes the correctly rounded float32 log (computed in
     float64), where XLA's float32 log on the CPU is one ulp off at a few
     integers (7, 47, 49, 179).  ``dtype`` overrides every spec's dtype."""
@@ -116,7 +120,8 @@ def init_params(spec_tree, generator: torch.Generator,
             v = torch.full(s.shape, math.log(math.e ** 0.01 - 1.0),
                            dtype=dt, device=device)
         else:
-            fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[-1], 1)
+            fan_in = s.fan_in or (s.shape[0] if len(s.shape) > 1
+                                  else max(s.shape[-1], 1))
             v = torch.randn(s.shape, generator=generator, device=device,
                             dtype=torch.float32)
             v = v.div_(math.sqrt(fan_in)).to(dt)
@@ -145,9 +150,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    """RoPE's inverse frequencies in float32, each the float64 power
+    rounded once, so the same bits on every device: CUDA's float32 pow
+    is up to 5 ulp off the CPU's, which at position 4600 moves an angle
+    by up to about 1e-3 rad."""
     half = head_dim // 2
-    return theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=device) / half)
+    return (theta ** (-torch.arange(0, half, dtype=torch.float64,
+                                    device=device) / half)).float()
 
 
 def apply_rope(x: torch.Tensor,  # (B, T, H, hd)
@@ -191,7 +200,10 @@ def banded_attention(q: torch.Tensor,  # (B, T, Hq, hd)
     is the kernel's ``kv_group``, so k and v are never repeated."""
     B, T, Hq, hd = q.shape
     Hkv = k.shape[2]
-    heads_first = lambda t: t.permute(0, 2, 1, 3).reshape(-1, T, hd)
+    # at B = 1 the reshape is a view with the heads' stride, which the
+    # kernel refuses: contiguous() copies only then
+    heads_first = lambda t: t.permute(0, 2, 1, 3).reshape(  # noqa: E731
+        -1, T, hd).contiguous()
     o = flash_attention(heads_first(q), heads_first(k), heads_first(v),
                         causal=causal, window=window, kv_group=Hq // Hkv)
     return o.view(B, Hq, T, hd).permute(0, 2, 1, 3)

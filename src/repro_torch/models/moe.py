@@ -12,7 +12,7 @@ mesh; on one device they do nothing and are left out.
 
 :class:`MoELM` is :class:`repro_torch.models.dense.DenseLM` with the MoE
 block in place of the SwiGLU MLP; ``forward`` returns ``(h, aux)`` as the
-JAX ``moe.forward`` does.
+JAX ``moe.forward`` does, and trains (:func:`loss_fn`).
 """
 from __future__ import annotations
 
@@ -151,15 +151,36 @@ class MoELM(D.DenseLM):
     def _ffn(self, w, x):
         return moe_block(self.cfg, w["moe"], x)
 
+    def _block_aux(self, w, x, positions):
+        x, _, aux = self._block(w, x, positions)
+        return x, aux
+
     def forward(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(final hidden states (B, T, D), the mean of the layers' aux
-        losses)."""
+        losses).  Where a gradient is recorded each block runs under the
+        config's ``remat`` policy, as ``repro/models/moe.py:114-127``
+        does; a recomputed block routes as it did in the forward
+        (:func:`route` is a stable sort and an integer cumsum of its
+        input)."""
         x, positions = self._inputs(batch)
+        policy = L.remat_policy(self.cfg.remat)
         auxes = []
         for w in self.layers:
-            x, _, aux = self._block(w, x, positions)
+            x, aux = L.remat(self._block_aux, policy, w, x, positions)
             auxes.append(aux)
         return L.rms_norm(x, self.ln_f), torch.stack(auxes).mean()
+
+
+def loss_fn(cfg, model: MoELM, batch) -> Tuple[torch.Tensor, Dict]:
+    """The next-token cross-entropy plus 0.01 x the mean aux loss
+    (``repro/models/moe.py:130-134``); metrics ``loss``, ``nll`` and
+    ``aux``.  The gradient reaches the router through the kept routes'
+    gate values and the aux loss's mean gate, not through the one-hot
+    density, as with ``lax.top_k`` in the JAX package."""
+    h, aux = model(batch)
+    nll = L.chunked_xent(h, model.emb, batch["labels"], cfg.logits_chunk)
+    loss = nll + 0.01 * aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux}
 
 
 #: the family's model class, as :mod:`repro_torch.models.zoo` builds it

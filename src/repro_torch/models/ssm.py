@@ -4,19 +4,24 @@ backbone of zamba2's hybrid), the port of ``repro/models/ssm.py``.
 The recurrence h_t = dA_t * h_{t-1} + dB_t x_t has a per-(channel, state)
 decay.  The JAX package runs it as a nested ``lax.scan`` (chunks outside,
 checkpointed for the backward pass; steps inside).  Here it is one loop
-over T in order: the chunks only bound memory, so each chunk's ``dA`` and
+over T in order: the chunks bound memory, so each chunk's ``dA`` and
 ``dB x`` (which do not depend on h) are computed in one operation each,
-and the state update per step is the JAX one.  There is no TPU kernel for
-the scan (``repro/models/ssm.py:10`` names a ``selective_scan`` that the
-JAX package does not have), so the scan is plain PyTorch; the layer norms
-go through the ``rmsnorm`` kernel.
+and the state update per step is the JAX one, in place.  Where a
+gradient is recorded the same forward runs inside
+:class:`_Mamba1Scan`, which keeps each chunk's starting state and
+recomputes the chunk in its backward, as the JAX package's checkpointed
+chunks do.  There is no TPU kernel for the scan
+(``repro/models/ssm.py:10`` names a ``selective_scan`` that the JAX
+package does not have), so the scan is plain PyTorch; the layer norms go
+through the ``rmsnorm`` kernel.  Both families train (``loss_fn`` here
+for falcon_mamba_7b, ``hybrid.loss_fn`` for zamba2).
 
 Mamba-2 has one scalar decay a head, so the scan becomes the chunked SSD:
 within a chunk an attention-like causal product, across chunks a carried
 (B, H, P, N) state.  The JAX package computes it as einsums outside any
 kernel; here it is plain PyTorch as well, written as explicit batched
-products (:func:`_ssd`, whose decays are segment sums where the JAX
-package subtracts prefix sums).  Its only user is ``hybrid.py``
+products (:func:`_ssd`, whose decays subtract float64 prefix sums where
+the JAX package subtracts float32 ones).  Its only user is ``hybrid.py``
 (zamba2).
 """
 from __future__ import annotations
@@ -86,26 +91,110 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _scan_chunk(dt, Bm, Cm, xs, A, h):
+    """One chunk of the selective scan from the state ``h`` (B,Di,N) fp32:
+    dt (B,Q,Di) fp32, Bm/Cm (B,Q,N) fp32, xs (B,Q,Di).  Returns (y
+    (B,Q,Di) fp32, hs (B,Q,Di,N) the state after each step, dA
+    (B,Q,Di,N)).  The chunk's ``dB x`` buffer takes each step's state in
+    place, so a step is one launch and the chunk's outputs one batched
+    product."""
+    B, Q, Di = dt.shape
+    dA = torch.exp(dt[..., None] * A)  # (B,Q,Di,N)
+    hs = (dt * xs.float())[..., None] * Bm[:, :, None, :]  # dB x, then h_t
+    for t in range(Q):
+        h = hs[:, t].addcmul_(dA[:, t], h)
+    N = hs.shape[-1]
+    y = torch.bmm(hs.reshape(-1, Di, N), Cm.reshape(-1, N, 1)).view(B, Q, Di)
+    return y, hs, dA
+
+
+def _scan_chunks(dt, Bm, Cm, xs, A, h, Q: int, starts=None):
+    """The scan over T, ``Q`` steps a chunk (:func:`_scan_chunk`): (y, a
+    copy of h_T).  With a list ``starts``, each chunk's starting state is
+    appended to it, copied."""
+    ys = []
+    for t0 in range(0, dt.shape[1], Q):
+        if starts is not None:
+            starts.append(h.clone())
+        y, hs, _ = _scan_chunk(dt[:, t0:t0 + Q], Bm[:, t0:t0 + Q],
+                               Cm[:, t0:t0 + Q], xs[:, t0:t0 + Q], A, h)
+        h = hs[:, -1]
+        ys.append(y)
+    return torch.cat(ys, dim=1), h.clone()
+
+
+class _Mamba1Scan(torch.autograd.Function):
+    """The selective scan with a gradient, in chunks of ``Q`` steps.  The
+    forward is the serving scan's, op for op (the same bits), and keeps
+    only each chunk's starting state (nC, B, Di, N) besides its inputs,
+    as ``jax.checkpoint`` of the JAX package's chunk body keeps only the
+    carry (``repro/models/ssm.py:132-140``).  The backward recomputes a
+    chunk's states from its starting state, last chunk first, then runs
+    the reverse recurrence G_t = dy_t C_t + G_{t+1} dA_{t+1} one in-place
+    step at a time (the gradient of h_t), from which every input's
+    gradient is a batched product or a sum.  Written out rather than left
+    to autograd (``torch.utils.checkpoint`` around an out-of-place chunk
+    body) so that a step costs one launch each way and the forward keeps
+    the serving form's in-place steps."""
+
+    @staticmethod
+    def forward(ctx, dt, Bm, Cm, xs, A, h, Q):
+        starts = []
+        y, hT = _scan_chunks(dt, Bm, Cm, xs, A, h, Q, starts)
+        ctx.Q = Q
+        ctx.save_for_backward(dt, Bm, Cm, xs, A, torch.stack(starts))
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        dt, Bm, Cm, xs, A, starts = ctx.saved_tensors
+        Q = ctx.Q
+        B, _, Di = dt.shape
+        N = A.shape[-1]
+        carry = dhT  # autograd gives zeros for an unused output
+        ddt, dx = torch.empty_like(dt), torch.empty_like(dt)
+        dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+        dAmat = torch.zeros_like(A)
+        for c in reversed(range(len(starts))):
+            sl = slice(c * Q, (c + 1) * Q)
+            dtc, bc, cc, xc = dt[:, sl], Bm[:, sl], Cm[:, sl], xs[:, sl]
+            _, hs, dA = _scan_chunk(dtc, bc, cc, xc, A, starts[c])
+            q = dtc.shape[1]  # the last chunk may be shorter
+            dyc = dy[:, sl].float()
+            # dC_t = sum_d dy_t h_t; then G_t, the gradient of h_t
+            dC[:, sl] = torch.bmm(dyc.reshape(-1, 1, Di),
+                                  hs.reshape(-1, Di, N)).view(B, q, N)
+            G = dyc[..., None] * cc[:, :, None, :]
+            G[:, -1].add_(carry)
+            for t in range(q - 2, -1, -1):
+                G[:, t].addcmul_(G[:, t + 1], dA[:, t + 1])
+            carry = G[:, 0] * dA[:, 0]  # the gradient of the chunk's start
+            # E = G h_{t-1} dA, the gradient of dt A (dA = exp(dt A))
+            E = dA.mul_(G)
+            E[:, 1:].mul_(hs[:, :-1])
+            E[:, 0].mul_(starts[c])
+            u = dtc * xc.float()  # dB x = u B
+            du = torch.bmm(G.reshape(-1, Di, N), bc.reshape(-1, N, 1)).view(
+                B, q, Di)
+            dB[:, sl] = torch.bmm(u.reshape(-1, 1, Di),
+                                  G.reshape(-1, Di, N)).view(B, q, N)
+            ddt[:, sl] = du * xc.float() + (E * A).sum(-1)
+            dx[:, sl] = du * dtc
+            dAmat += torch.einsum("bqdn,bqd->dn", E, dtc)
+        return ddt, dB, dC, dx.to(xs.dtype), dAmat, carry, None
+
+
 def _mamba1_scan(dt, Bm, Cm, xs, A, h, Q: int):
     """The selective scan over T in order, ``Q`` steps a chunk.
 
     dt: (B,T,Di) fp32; Bm/Cm: (B,T,N) fp32; xs: (B,T,Di); A: (Di,N) fp32;
-    h: (B,Di,N) fp32.  Returns (y (B,T,Di) fp32, h_T).  A chunk's ``dB x``
-    buffer takes each step's state in place, so a step is one launch and
-    the chunk's outputs one batched product."""
-    B, T, Di = dt.shape
-    ys = []
-    for t0 in range(0, T, Q):
-        dtc = dt[:, t0:t0 + Q]
-        dA = torch.exp(dtc[..., None] * A)  # (B,Q,Di,N)
-        hs = (dtc * xs[:, t0:t0 + Q].float())[..., None] \
-            * Bm[:, t0:t0 + Q, None, :]  # dB x, then h_t in place
-        for t in range(Q):
-            h = hs[:, t].addcmul_(dA[:, t], h)
-        N = hs.shape[-1]
-        ys.append(torch.bmm(hs.reshape(-1, Di, N),
-                            Cm[:, t0:t0 + Q].reshape(-1, N, 1)).view(B, Q, Di))
-    return torch.cat(ys, dim=1), h.clone()
+    h: (B,Di,N) fp32.  Returns (y (B,T,Di) fp32, h_T).  Where a gradient
+    is being recorded this is :class:`_Mamba1Scan` (the same forward
+    values); otherwise :func:`_scan_chunks`, each step in place."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, Bm, Cm, xs, A, h)):
+        return _Mamba1Scan.apply(dt, Bm, Cm, xs, A, h, Q)
+    return _scan_chunks(dt, Bm, Cm, xs, A, h, Q)
 
 
 def mamba1_block(cfg, w, x: torch.Tensor, cache: Optional[Dict] = None):
@@ -176,25 +265,26 @@ def _ssd(la, Bm, Cm, xh, h, Q: int):
     for s <= t, the carry-in ``exp(cum_t) C_t . h``, and the update
     ``h' = exp(cum_Q) h + sum_s exp(seg(Q, s)) x_s B_s``.
 
-    The JAX package takes seg(t, s) as ``cum_t - cum_s``.  At zamba2's
-    width a chunk's prefix sums reach about -9e3, where a float32 ulp is
-    1e-3, so a decay that matters (seg near 0) is off by that much
-    relative.
-    Here each segment is summed from zero, the same function, rounded
-    where it stays small (``scripts/ssd_parity_conditioning.py`` holds
-    both forms against a float64 run).  The (Q, Q) terms are kept
-    transposed, [s, t], so that the segment sums are a cumsum along the
-    contiguous axis: CUDA's scan along an outer axis is many times
-    slower."""
+    The JAX package takes seg(t, s) as ``cum_t - cum_s`` in float32.  At
+    zamba2's width a chunk's prefix sums reach about -9e3, where a float32
+    ulp is 1e-3, so a decay that matters (seg near 0) is off by that much
+    relative.  Here the prefix sums are float64 (a float64 ulp at 9e3 is
+    2e-12) and seg is their difference, rounded once to float32
+    (``scripts/ssd_parity_conditioning.py`` holds the forms against a
+    float64 run).  The prefix sums are a product with a triangular matrix
+    of ones, not ``cumsum``: CUDA's floating-point cumsum has no
+    deterministic form, and training runs under
+    ``torch.use_deterministic_algorithms``.  The (Q, Q) terms are kept
+    transposed, [s, t]."""
     T = la.shape[-1]
     ones = torch.ones((Q, Q), dtype=torch.bool, device=la.device)
-    causal, strict = ones.triu(), ones.triu(1)  # [s, t]: t >= s, t > s
+    causal = ones.triu()  # [s, t]: t >= s
+    upper = causal.double()  # [u, t]: 1 where u <= t
     ys = []
     for t0 in range(0, T, Q):
-        lac = la[..., t0:t0 + Q]  # (B,H,Q)
-        cum = lac.cumsum(-1)
-        seg = lac[..., None, :].expand(lac.shape[:-1] + (Q, Q)).masked_fill(
-            ~strict, 0.0).cumsum(-1)  # (B,H,Q,Q) [s, t] = seg(t, s)
+        cum64 = la[..., t0:t0 + Q].double() @ upper  # (B,H,Q)
+        seg = (cum64[..., None, :] - cum64[..., :, None]).float()  # [s, t]
+        cum = cum64.float()
         bc, cc = Bm[:, None, t0:t0 + Q], Cm[:, None, t0:t0 + Q]  # (B,1,Q,N)
         xc = xh[:, :, t0:t0 + Q]  # (B,H,Q,P)
         dec_from = seg[..., -1].exp()  # (B,H,Q) decay s -> end
@@ -274,18 +364,32 @@ class SSMLM(nn.Module):
     def __init__(self, cfg, params: Dict):
         super().__init__()
         self.cfg = cfg
+        #: the stacked tree the parameters view (as ``DenseLM.params``)
+        self.params = params
         self.emb = nn.Parameter(params["emb"], requires_grad=False)
         self.ln_f = nn.Parameter(params["ln_f"], requires_grad=False)
         self.layers = nn.ModuleList(
             D.ParamTree(D._layer_slice(params["layers"], i))
             for i in range(cfg.n_layers))
 
+    def _block(self, w, x):
+        return x + mamba1_block(self.cfg, w, L.rms_norm(x, w["ln"]))[0]
+
     def forward(self, batch) -> torch.Tensor:
-        """Final hidden states (B, T, D)."""
+        """Final hidden states (B, T, D).  Where a gradient is recorded
+        each block runs under the config's ``remat`` policy
+        (``repro/models/ssm.py:260-271``), and the scan inside it is
+        :class:`_Mamba1Scan`."""
         x = L.embed_lookup(self.emb, batch["tokens"])
+        policy = L.remat_policy(self.cfg.remat)
         for w in self.layers:
-            x = x + mamba1_block(self.cfg, w, L.rms_norm(x, w["ln"]))[0]
+            x = L.remat(self._block, policy, w, x)
         return L.rms_norm(x, self.ln_f)
+
+    def grad_views(self) -> Dict:
+        """Turn training on (:func:`repro_torch.models.dense.grad_views`
+        over the stacked ``layers``)."""
+        return D.grad_views(self, ("layers",))
 
     def prefill(self, batch) -> Tuple[Dict, torch.Tensor]:
         """Run the full prompt; return (cache, last-token logits (B, 1, V)
@@ -330,6 +434,14 @@ class SSMLM(nn.Module):
         logits = (x @ self.emb.T).float()
         cache["length"] = cache["length"] + 1
         return cache, logits
+
+
+def loss_fn(cfg, model: SSMLM, batch) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token cross-entropy (``repro/models/ssm.py:274-277``):
+    (loss, {"loss": loss})."""
+    nll = L.chunked_xent(model(batch), model.emb, batch["labels"],
+                         cfg.logits_chunk)
+    return nll, {"loss": nll}
 
 
 #: the family's model class, as :mod:`repro_torch.models.zoo` builds it

@@ -1,22 +1,23 @@
 """Model zoo of the port: one API over the ported families
 (``repro/models/zoo.py``).
 
-Every family module exposes ``param_spec``, ``cache_spec`` and its model
-class as ``Model``, with ``forward``, ``prefill`` and ``decode_step``
-methods; callers hold the built model and call those methods.  The dense
-module (dense and vlm) also trains: :func:`loss_fn`.  Every
-family of the JAX package's zoo is ported; an unknown family raises
+Every family module exposes ``param_spec``, ``cache_spec``, ``loss_fn``
+and its model class as ``Model``, with ``forward``, ``prefill``,
+``decode_step`` and ``grad_views`` methods; callers hold the built model
+and call those methods.  Every family of the JAX package's zoo is ported
+and trains (:func:`loss_fn`); an unknown family raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import dense, encdec, hybrid, moe, ssm
-from repro_torch.models.layers import Spec, init_params
+from repro_torch.models.layers import Spec, init_params, spec_map
 
 FAMILY_MODULES = {
     "dense": dense,
@@ -46,27 +47,47 @@ def build(cfg: ModelConfig, params: Dict) -> torch.nn.Module:
     return get_module(cfg).Model(cfg, params)
 
 
+def depth_cut(cfg: ModelConfig, layers: int):
+    """(config, spec) of the first ``layers`` layers of ``cfg``'s model:
+    every tree stacked over ``cfg.n_layers`` (a leaf whose leading axis is
+    ``"layers"`` and that long; the encdec's encoder too where it is as
+    deep) keeps its first ``layers`` entries, each normal weight scaled
+    by the full stack's fan-in.  ``init_params`` divides a stacked weight
+    by the square root of its layer count, so a model drawn at the cut
+    depth would have weights sqrt(n_layers / layers) times the full
+    model's; drawn from this spec, each layer has the full model's
+    scale, without drawing the full model."""
+    if not 0 < layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.arch_id}: cannot keep {layers} of "
+                         f"{cfg.n_layers} layers")
+
+    def cut(s: Spec) -> Spec:
+        if s.axes[:1] != ("layers",) or s.shape[0] != cfg.n_layers:
+            return s
+        return dataclasses.replace(s, shape=(layers,) + s.shape[1:],
+                                   fan_in=s.fan_in or s.shape[0])
+
+    return (cfg.replace(n_layers=layers),
+            spec_map(cut, param_spec(cfg)))
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device: torch.device,
-               dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+               dtype: Optional[torch.dtype] = None,
+               layers: Optional[int] = None) -> torch.nn.Module:
     """A model with seeded random weights drawn on ``device`` (see
-    :func:`repro_torch.models.layers.init_params`)."""
-    return build(cfg, init_params(param_spec(cfg), generator, device, dtype))
-
-
-#: the families that train so far (the others serve only)
-TRAINED_FAMILIES = ("dense", "vlm")
+    :func:`repro_torch.models.layers.init_params`); with ``layers``, the
+    :func:`depth_cut` of its first ``layers`` layers."""
+    spec = param_spec(cfg)
+    if layers is not None:
+        cfg, spec = depth_cut(cfg, layers)
+    return build(cfg, init_params(spec, generator, device, dtype))
 
 
 def loss_fn(cfg: ModelConfig, model: torch.nn.Module, batch: Dict):
     """(loss, metrics) of ``model`` on a training ``batch`` of tensors
-    (``repro/models/zoo.py``'s ``loss_fn``).  The dense and vlm families
-    train; moe, ssm, hybrid and encdec serve only and raise
-    ``NotImplementedError``."""
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) does not train in the "
-            f"port yet; training families: {list(TRAINED_FAMILIES)}")
+    (``repro/models/zoo.py``'s ``loss_fn``), for every family: the mean
+    next-token cross-entropy, plus the MoE family's 0.01 x aux loss."""
     return get_module(cfg).loss_fn(cfg, model, batch)
 
 
@@ -80,11 +101,15 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int):
 
 
 def input_spec(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Spec]:
-    """Spec tree for the *data* inputs of one prefill or decode cell (no
-    allocation); training cells are not served."""
+    """Spec tree for the *data* inputs of one train, prefill or decode
+    cell (no allocation), as ``repro/models/zoo.py:62-89`` gives it: a
+    train batch holds ``labels`` beside the inputs of a full sequence
+    (the vlm's ``embeds`` and ``positions`` in place of ``tokens``; the
+    encdec's ``audio_embeds`` and ``tokens``)."""
     get_module(cfg)
     B, T = shape.global_batch, shape.seq_len
-    if shape.kind == "prefill":
+    tok = lambda t: Spec((B, t), ("batch", "seq"), torch.int32)  # noqa: E731
+    if shape.kind in ("train", "prefill"):
         batch: Dict[str, Spec] = {}
         if cfg.family == "vlm":
             batch["embeds"] = Spec((B, T, cfg.d_model), ("batch", "seq", None))
@@ -93,8 +118,12 @@ def input_spec(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Spec]:
         elif cfg.family == "encdec":
             batch["audio_embeds"] = Spec((B, cfg.enc_seq, cfg.d_model),
                                          ("batch", None, None))
-        # the vlm's tokens serve the cache bookkeeping only
-        batch["tokens"] = Spec((B, T), ("batch", "seq"), torch.int32)
+        if shape.kind == "train":
+            if cfg.family != "vlm":
+                batch["tokens"] = tok(T)
+            batch["labels"] = tok(T)
+        else:  # the vlm's tokens serve the cache bookkeeping only
+            batch["tokens"] = tok(T)
         return batch
     if shape.kind == "decode":
         return {"tokens": Spec((B, 1), ("batch", None), torch.int32)}

@@ -104,19 +104,22 @@ def _sync(device: torch.device) -> None:
 
 def train(run: RunConfig, *, steps: int, rng_seed: int = 0,
           fail_hook: Optional[Callable[[int], None]] = None,
-          device=None) -> Dict[str, Any]:
+          device=None, layers: Optional[int] = None) -> Dict[str, Any]:
     """Train for ``steps`` optimizer steps on ``device`` (``cuda`` unless
-    given): weights drawn from ``rng_seed`` on the device, resumed from
-    the newest checkpoint in ``run.checkpoint_dir`` if there is one.
+    given): weights drawn from ``rng_seed`` on the device (with
+    ``layers``, the first ``layers`` layers of ``run.model``:
+    :func:`repro_torch.models.zoo.depth_cut`), resumed from the newest
+    checkpoint in ``run.checkpoint_dir`` if there is one.
     ``fail_hook(step)`` runs before each step; a ``RuntimeError`` it raises
     is logged and the step retried.  Returns the model, its params, the
-    optimizer state, the losses and gradient norms, the flagged
+    optimizer state, the losses and gradient norms, each step's metrics
+    (the loss's parts, ``grad_norm``, ``lr``), the flagged
     stragglers, the final step and each step's seconds."""
     device = resolve_device(device)
-    cfg = run.model
     with deterministic():
         gen = torch.Generator(device=device).manual_seed(rng_seed)
-        model = zoo.init_model(cfg, gen, device)
+        model = zoo.init_model(run.model, gen, device, layers=layers)
+        cfg = model.cfg
         ocfg = steps_lib.adamw_config(cfg, run)
         opt_state = opt_lib.init_opt_state(model.params, ocfg)
 
@@ -133,6 +136,7 @@ def train(run: RunConfig, *, steps: int, rng_seed: int = 0,
         wd = StragglerWatchdog(run.straggler_threshold)
         losses: List[float] = []
         grad_norms: List[float] = []
+        history: List[Dict[str, float]] = []
         step = start
         while step < steps:
             batch = batch_to(batch_for_step(cfg, run.shape, run.seed, step),
@@ -147,8 +151,9 @@ def train(run: RunConfig, *, steps: int, rng_seed: int = 0,
             model, opt_state, metrics = step_fn(model, opt_state, batch)
             _sync(device)
             wd.observe(step, time.perf_counter() - t0)
-            losses.append(float(metrics["loss"]))
-            grad_norms.append(float(metrics["grad_norm"]))
+            history.append({k: float(v) for k, v in metrics.items()})
+            losses.append(history[-1]["loss"])
+            grad_norms.append(history[-1]["grad_norm"])
             step += 1
             if run.checkpoint_every and step % run.checkpoint_every == 0:
                 ckpt_lib.save(
@@ -162,6 +167,7 @@ def train(run: RunConfig, *, steps: int, rng_seed: int = 0,
         "opt_state": opt_state,
         "losses": losses,
         "grad_norms": grad_norms,
+        "metrics": history,
         "stragglers": wd.flagged,
         "final_step": step,
         "step_s": wd.times,

@@ -1,12 +1,14 @@
 """Training step functions of the port (``repro/train/steps.py``).
 
 PyTorch runs eagerly, so a step is a plain function where the JAX package
-jits one.  A step takes the model (``params``, the stacked tree its
+jits one.  A step takes the model of any family (``params``, the tree its
 parameters view, is what the optimizer updates, in place), the optimizer
 state and a batch of tensors, and returns them with its metrics.  The
-gradient of each stacked leaf lands in the model's stacked gradient tree
-(:meth:`repro_torch.models.dense.DenseLM.grad_views`), zeroed before each
-backward.  The prefill and decode steps are ``repro_torch.serve.loop``'s.
+gradient of each leaf lands in the model's gradient tree (its
+``grad_views``, :func:`repro_torch.models.dense.grad_views`: a slice a
+layer for the stacked trees, one leaf for a tree used at many sites, the
+hybrid's shared block), zeroed before each backward.  The prefill and
+decode steps are ``repro_torch.serve.loop``'s.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ def adamw_config(cfg: ModelConfig, run: RunConfig) -> opt_lib.AdamWConfig:
 
 
 def grads_of(model: torch.nn.Module) -> Dict:
-    """The model's stacked gradient tree, made (and training turned on) at
+    """The model's gradient tree, made (and training turned on) at
     the first call."""
     if getattr(model, "grads", None) is None:
         model.grads = model.grad_views()
@@ -45,7 +47,7 @@ def grads_of(model: torch.nn.Module) -> Dict:
 def value_and_grad(cfg: ModelConfig, model: torch.nn.Module,
                    batch: Dict):
     """(loss, metrics, grads): the loss of ``batch`` and, in the model's
-    stacked gradient tree (zeroed first), its gradient with respect to
+    gradient tree (zeroed first), its gradient with respect to
     every parameter: ``jax.value_and_grad`` of ``zoo.loss_fn``."""
     grads = grads_of(model)
     for g in leaves(grads):

@@ -38,10 +38,11 @@ def _bits(a) -> np.ndarray:
     return a.view({2: np.uint16, 4: np.uint32, 8: np.uint64}[a.itemsize])
 
 
-def _jax_state(seed=0):
-    """A smoke llama3_2_3b state of the JAX package: bf16 params (its
-    ``init_of``), float32 moments with values in them, step 3."""
-    cfg = jax_smoke_config("llama3_2_3b")
+def _jax_state(seed=0, arch="llama3_2_3b"):
+    """A smoke state of the JAX package (llama3_2_3b unless ``arch``):
+    bf16 params (its ``init_of``), float32 moments with values in them,
+    step 3."""
+    cfg = jax_smoke_config(arch)
     params = init_of(jzoo.param_spec(cfg), jax.random.PRNGKey(seed))
     state = jopt.init_opt_state(params, jopt.AdamWConfig())
     rng = np.random.default_rng(seed)
@@ -51,10 +52,10 @@ def _jax_state(seed=0):
     return cfg, params, state
 
 
-def _port_like(seed=1):
+def _port_like(seed=1, arch="llama3_2_3b"):
     """The port's state for the same config: a model drawn from a torch
     generator (other values than the JAX draw) and a zero state."""
-    cfg = smoke_config("llama3_2_3b")
+    cfg = smoke_config(arch)
     model = zoo.init_model(cfg, torch.Generator().manual_seed(seed), "cpu")
     return cfg, model, opt.init_opt_state(model.params, opt.AdamWConfig())
 
@@ -108,6 +109,43 @@ def test_port_checkpoint_restores_into_jax_bitwise(tmp_path):
             g = got[group][key]
             assert str(g.dtype) == str(t.dtype).split(".")[1], key
             np.testing.assert_array_equal(_bits(g), _bits(t), err_msg=key)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1_2b", "whisper_tiny"])
+def test_other_trees_restore_both_ways_bitwise(tmp_path, arch):
+    """The hybrid's tree (``mamba`` stacked, ``shared`` whole) and the
+    encdec's (``encoder`` and ``decoder`` stacked, ``ln_enc``) cross over
+    both ways bit for bit, into the leaves the model's parameters view."""
+    _, params, state = _jax_state(arch=arch)
+    jckpt.save(str(tmp_path / "jax"), 3, {"params": params,
+                                          "opt_state": state})
+    _, model, tstate = _port_like(arch=arch)
+    ckpt.restore(str(tmp_path / "jax"), 3, {"params": model.params,
+                                            "opt_state": tstate})
+    want = {"params": _jax_flat(params), "opt_state": _jax_flat(state)}
+    for group, tree in (("params", model.params), ("opt_state", tstate)):
+        got = dict(items(tree))
+        assert sorted(got) == sorted(want[group])
+        for key, t in got.items():
+            np.testing.assert_array_equal(_bits(t), _bits(want[group][key]),
+                                          err_msg=key)
+    stacked = "mamba" if arch == "zamba2_1_2b" else "decoder"
+    layer = getattr(model, stacked)[1]
+    key = "wx" if arch == "zamba2_1_2b" else "ln_x"
+    assert torch.equal(layer[key], model.params[stacked][key][1])
+
+    tstate["step"] = torch.tensor(9, dtype=torch.int32)
+    ckpt.save(str(tmp_path / "port"), 9, {"params": model.params,
+                                          "opt_state": tstate})
+    _, params2, state2 = _jax_state(seed=5, arch=arch)
+    out = jckpt.restore(str(tmp_path / "port"), 9, {"params": params2,
+                                                    "opt_state": state2})
+    back = {"params": _jax_flat(out["params"]),
+            "opt_state": _jax_flat(out["opt_state"])}
+    for group, tree in (("params", model.params), ("opt_state", tstate)):
+        for key, t in items(tree):
+            np.testing.assert_array_equal(_bits(back[group][key]), _bits(t),
+                                          err_msg=key)
 
 
 def test_manifests_name_the_same_leaves(tmp_path):

@@ -1070,3 +1070,131 @@ def test_flash_backward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
         monkeypatch.setattr(fa, "bwd_route", lambda *a, r=route: r)
         with pytest.raises(RuntimeError, match="launch failed"):
             flash_attention_bwd_cuda(q, q, q, out32, q, lse)
+
+
+# ---------------------------------------------------------------------------
+# every family trains: the Mamba-1 scan's gradient form, a smoke step each
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(device, T=40, Bsz=2, Di=24, N=8):
+    g = torch.Generator().manual_seed(7)
+    r = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    dt = torch.nn.functional.softplus(r(Bsz, T, Di) - 1.0)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(Di, N).clone()
+    return [t.to(device) for t in (dt, r(Bsz, T, N), r(Bsz, T, N),
+                                   r(Bsz, T, Di), A, r(Bsz, Di, N))]
+
+
+def test_mamba1_scan_grad_form_on_the_card(cuda):
+    """``_Mamba1Scan`` on the card: its forward equals the card's serving
+    scan bit for bit, and its values and gradients (dt, B, C, x, A, h0;
+    T 40 in chunks of 16, the last of 8) equal the CPU's within float32
+    sum-order noise (``PARITY_TOL``, atol relative to the largest)."""
+    from repro_torch.models import ssm
+
+    outs = {}
+    for dev in ("cpu", cuda):
+        ins = _scan_inputs(dev)
+        with torch.no_grad():
+            serve = ssm._mamba1_scan(*ins, 16)
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, h = ssm._mamba1_scan(*leaves, 16)
+        assert torch.equal(y.detach(), serve[0])
+        assert torch.equal(h.detach(), serve[1])
+        gy = torch.ones_like(y) * torch.linspace(-1, 1, y.shape[-1],
+                                                 device=y.device)
+        grads = torch.autograd.grad((y * gy).sum() + h.square().sum(),
+                                    leaves)
+        outs[str(dev)] = [y, h, *grads]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got.detach().cpu(), want.detach(),
+                                   rtol=PARITY_TOL["rtol"],
+                                   atol=PARITY_TOL["atol"] * scale)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "arctic_480b",
+                                  "falcon_mamba_7b", "zamba2_1_2b",
+                                  "whisper_tiny", "qwen2_vl_72b"])
+def test_smoke_train_step_on_card_equals_cpu(cuda, arch):
+    """One AdamW step at smoke width in float32 (from moments with
+    history) under the train loop's deterministic algorithms, on the card
+    through the kernels and their backward kernels and on the CPU: the
+    loss and every param after the step within ``PARITY_TOL``, every
+    gradient leaf within 5e-3 relative L2 error (``chip_smoke.py``'s
+    ``GRAD_REL_TOL``); ``rmsnorm_bwd`` launched."""
+    import os
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+    from repro_torch.train import steps
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.loop import batch_to, deterministic
+    from repro_torch.train.tree import items, tree_map as _tree_map
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = smoke_config(arch)
+    shape = ShapeSpec("s", 64, 2, "train")
+    run = RunConfig(model=cfg, shape=shape, learning_rate=1e-2,
+                    warmup_steps=1, total_steps=10)
+    batch = batch_for_step(cfg, shape, 0, 0)
+    drawn = zoo.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
+                           torch.float32).params
+    # moments with history (step 7): from a zero state AdamW's first update
+    # is lr times the sign of each gradient entry, which float32 noise
+    # flips at entries near zero
+    g = torch.Generator().manual_seed(1)
+    moments = {"m": _tree_map(lambda t: torch.randn(
+        t.shape, generator=g) * 1e-2, drawn),
+               "v": _tree_map(lambda t: (torch.randn(
+                   t.shape, generator=g) * 1e-2) ** 2 + 1e-6, drawn)}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = zoo.build(cfg, _tree_to(drawn, dev))
+        state = {"m": _tree_to(moments["m"], dev),
+                 "v": _tree_to(moments["v"], dev),
+                 "step": torch.tensor(7, dtype=torch.int32, device=dev)}
+        before = rmsnorm_bwd_cuda.launches
+        with deterministic():
+            _, _, m = steps.make_train_step(cfg, run)(
+                model, state, batch_to(batch, dev, torch.float32))
+        out[str(dev)] = (m["loss"], dict(items(model.params)),
+                         dict(items(model.grads)),
+                         rmsnorm_bwd_cuda.launches - before)
+    (lc, pc, gc, nc), (lh, ph, gh, _) = out["cuda"], out["cpu"]
+    assert nc > 0
+    torch.testing.assert_close(lc.cpu(), lh, **PARITY_TOL)
+    for key, t in gc.items():  # chip_smoke.py's GRAD_REL_TOL
+        rel = (t.cpu() - gh[key]).norm() / gh[key].norm()
+        assert rel <= 5e-3, (key, rel.item())
+    for key, t in pc.items():
+        torch.testing.assert_close(t.cpu(), ph[key], **PARITY_TOL,
+                                   msg=lambda m, key=key: f"{key}: {m}")
+
+
+def _tree_to(tree, device):
+    """A copy of a nested dict of tensors on ``device``."""
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("head_dim,theta", [(120, 1e4), (128, 1e6),
+                                            (64, 1e4), (128, 5e5)])
+def test_rope_frequencies_are_the_cpus_bits(cuda, head_dim, theta):
+    """RoPE's inverse frequencies on the card equal the CPU's bit for bit
+    (the float64 power rounded once: CUDA's float32 pow was up to 5 ulp
+    off, which at h2o_danube_3_4b's position 4600 moved the card's logits
+    1.55-2.0 x ``PARITY_TOL`` from the CPU's), and so does RoPE at
+    positions past 4096."""
+    from repro_torch.models import layers as L
+
+    assert torch.equal(L._inv_freq(head_dim, theta, cuda).cpu(),
+                       L._inv_freq(head_dim, theta, "cpu"))
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1, 4600, 2, head_dim), generator=g) * 20
+    pos = torch.arange(4600, dtype=torch.int32)[None]
+    got = L.apply_rope(x.cuda(), pos.cuda(), theta).cpu()
+    want = L.apply_rope(x, pos, theta)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

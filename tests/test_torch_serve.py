@@ -123,16 +123,35 @@ def test_specs_and_input_specs_match_jax():
         JL.spec_map(lambda s: s.shape, jzoo.cache_spec(jcfg, 2, 9))
     for arch in ("llama3_2_3b", "qwen2_vl_72b", "zamba2_1_2b",
                  "whisper_tiny"):
-        for name, shape in SHAPES.items():
-            if shape.kind == "train":  # training cells are not served
-                with pytest.raises(ValueError):
-                    zoo.input_spec(smoke_config(arch), shape)
-                continue
+        for name, shape in SHAPES.items():  # train, prefill and decode
             got = L.spec_map(lambda s: (s.shape, s.axes),
                              zoo.input_spec(smoke_config(arch), shape))
             want = JL.spec_map(lambda s: (s.shape, s.axes), jzoo.input_spec(
                 jax_smoke_config(arch), JAX_SHAPES[name]))
             assert got == want, (arch, name)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_banded_attention_hands_the_kernel_contiguous_heads(B, monkeypatch):
+    """The flash kernel takes contiguous (B * H, T, hd) operands; at batch 1
+    the heads-first reshape of (1, T, H, hd) is a strided view, which the
+    card's wrapper refuses (h2o_danube_3_4b's batch-1 prefill past its
+    window raised ``q must be contiguous`` there)."""
+    seen = []
+    real = L.flash_attention
+
+    def check(q, k, v, **kw):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(L, "flash_attention", check)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((B, 24, 4, 16), generator=g)
+    k, v = (torch.randn((B, 24, 2, 16), generator=g) for _ in range(2))
+    out = L.banded_attention(q, k, v, causal=True, window=8)
+    assert seen == [True]
+    torch.testing.assert_close(out, L.naive_attention(q, k, v, window=8),
+                               **F32)
 
 
 def test_unported_families_raise():

@@ -119,10 +119,6 @@ def test_specs_cache_and_inputs_match_jax():
         lambda s: (s.shape, s.axes, jnp.dtype(s.dtype).name),
         jzoo.cache_spec(jcfg, 2, 9))
     for name, shape in SHAPES.items():
-        if shape.kind == "train":  # training cells are not served
-            with pytest.raises(ValueError):
-                zoo.input_spec(cfg, shape)
-            continue
         assert L.spec_map(lambda s: (s.shape, s.axes),
                           zoo.input_spec(cfg, shape)) == JL.spec_map(
             lambda s: (s.shape, s.axes),
@@ -319,3 +315,117 @@ def test_generate_matches_jax(dtype):
         assert info["decode_steps"] == max(budget - 1, 0)
         if dtype == "float32":
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the scan's gradient form (training)
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(T, seed, dtype=torch.float32, Bsz=2, Di=6, N=8):
+    """dt, Bm, Cm, xs, A, h0 of a scan: dt in softplus's range, A = -1..-N
+    per state as ``A_log``'s init gives it, a nonzero start state."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)  # noqa
+    dt = torch.nn.functional.softplus(r(Bsz, T, Di) - 1.0)
+    A = -torch.arange(1, N + 1, dtype=torch.float64).expand(Di, N) \
+        * (1 + 0.1 * r(Di, N).abs())
+    return [t.to(dtype) for t in (dt, r(Bsz, T, N), r(Bsz, T, N),
+                                  r(Bsz, T, Di), A, r(Bsz, Di, N))]
+
+
+def _plain_scan(dt, Bm, Cm, xs, A, h):
+    """The recurrence step by step, out of place (what autograd
+    differentiates as written)."""
+    ys = []
+    for t in range(dt.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * A) * h \
+            + (dt[:, t] * xs[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append((h * Cm[:, t, None, :]).sum(-1))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("T,Q", [(64, 16), (40, 16)],
+                         ids=["four_chunks", "short_last_chunk"])
+def test_mamba1_scan_grad_form_forward_is_the_serving_scan(T, Q):
+    """Where a gradient is recorded the scan is ``_Mamba1Scan``; its
+    forward gives the in-place serving form's bits, y and h_T."""
+    ins = _scan_inputs(T, 0)
+    with torch.no_grad():
+        y0, h0 = ssm._mamba1_scan(*ins, Q)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    y1, h1 = ssm._mamba1_scan(*leaves, Q)
+    assert y1.grad_fn is not None and "Mamba1Scan" in type(
+        y1.grad_fn).__name__
+    assert torch.equal(y0, y1.detach()) and torch.equal(h0, h1.detach())
+
+
+@pytest.mark.parametrize("T,Q", [(64, 16), (40, 16)],
+                         ids=["four_chunks", "short_last_chunk"])
+def test_mamba1_scan_gradients_match_a_float64_plain_scan(T, Q):
+    """The gradients of dt, B, C, x, A and h0 (through y and h_T) in
+    float32 against autograd of the plain step-by-step scan in float64,
+    within ``F32`` (atol relative to each gradient's largest entry); T 40
+    leaves a last chunk of 8."""
+    ins = _scan_inputs(T, 1)
+    g = torch.Generator().manual_seed(2)
+    dy = torch.randn(ins[0].shape, generator=g, dtype=torch.float64)
+    dh = torch.randn(ins[5].shape, generator=g, dtype=torch.float64)
+    want_in = [t.clone().requires_grad_(True) for t in ins]
+    y, h = _plain_scan(*want_in)
+    want = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), want_in)
+    got_in = [t.float().requires_grad_(True) for t in ins]
+    y, h = ssm._mamba1_scan(*got_in, Q)
+    got = torch.autograd.grad((y * dy.float()).sum() + (h * dh.float()).sum(),
+                              got_in)
+    for name, a, b in zip(("dt", "B", "C", "x", "A", "h0"), got, want):
+        assert a.dtype == torch.float32, name
+        _close(a.double(), b, F32, scaled=True)
+
+
+def test_mamba1_scan_keeps_only_chunk_starts():
+    """What the scan keeps for the backward is its inputs and the
+    (chunks, B, Di, N) starting states: no chunk's (B, Q, Di, N) states or
+    decays outlive the forward."""
+    Bsz, T, Q, Di, N = 2, 64, 16, 6, 8
+    ins = [t.requires_grad_(True) for t in _scan_inputs(T, 3, Bsz=Bsz,
+                                                       Di=Di, N=N)]
+    kept = []
+
+    def pack(t):
+        kept.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y, h = ssm._mamba1_scan(*ins, Q)
+    chunk_states = Bsz * Q * Di * N
+    assert (T // Q, Bsz, Di, N) in kept
+    assert max(math.prod(s) for s in kept) < chunk_states
+    (y.sum() + h.sum()).backward()
+    assert all(t.grad is not None for t in ins)
+
+
+@pytest.mark.parametrize("remat", ["dots", "nothing"])
+def test_mamba1_block_under_remat_matches_no_remat(remat):
+    """The scan's Function nested in ``L.remat``'s checkpoint (``"dots"``:
+    selective, as falcon_mamba_7b trains; ``"nothing"``: full): the
+    gradients of every leaf and of the input equal those without remat."""
+    _, tcfg, _, base = _setup("float32")
+    x0 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (B, 40, tcfg.d_model)).astype(np.float32))
+    outs = []
+    for policy in (L.remat_policy(remat), None):
+        w = {k: v.detach().clone().requires_grad_(True)
+             for k, v in base.params["layers"].items()}
+        w = {k: v[0] for k, v in w.items()}
+        x = x0.clone().requires_grad_(True)
+        out = L.remat(lambda ww, xx: ssm.mamba1_block(tcfg, ww, xx)[0],
+                      policy, w, x)
+        leaves = [x] + [v for v in w.values()]
+        outs.append(torch.autograd.grad((out.float() ** 2).sum(), leaves,
+                                        allow_unused=True))
+    for a, b in zip(*outs):
+        if b is None:
+            assert a is None
+            continue
+        _close(a, b, F32, scaled=True)

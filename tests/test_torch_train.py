@@ -30,7 +30,7 @@ from repro.parallel import compression as jcomp
 from repro.train import data as jdata
 from repro.train import optimizer as jopt
 from repro.train import steps as jsteps
-from repro_torch.configs import RunConfig, smoke_config
+from repro_torch.configs import PORTED_ARCH_IDS, RunConfig, smoke_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.kernels import ref
 from repro_torch.launch import train as launch_train
@@ -162,32 +162,81 @@ def test_dots_policy_keeps_the_products():
 # loss_fn and every gradient leaf
 # ---------------------------------------------------------------------------
 
-LOSS_CASES = {"llama": "llama3_2_3b", "danube_window": "h2o_danube_3_4b",
-              "vlm": "qwen2_vl_72b"}
+#: case -> (arch, config overrides, fan-in scale): each family, and the
+#: branches of each.  The families added after the dense ones hold at the
+#: fan-in scale (``_fan_in_scaled``)
+LOSS_CASES = {
+    "llama": ("llama3_2_3b", {}, False),
+    "danube_window": ("h2o_danube_3_4b", {}, False),
+    "vlm": ("qwen2_vl_72b", {}, False),
+    "moe": ("granite_moe_1b_a400m", {}, True),
+    "moe_dense_branch": ("arctic_480b", {}, True),
+    "ssm": ("falcon_mamba_7b", {}, True),
+    "hybrid": ("zamba2_1_2b", {}, True),
+    "hybrid_tail": ("zamba2_1_2b", dict(n_layers=3), True),
+    "encdec": ("whisper_tiny", {}, True),
+}
+
+
+def _fan_in_scaled(spec, params):
+    """``params`` with each normal weight stacked over layers rescaled
+    from ``init_of``'s N(0, 1 / n_layers) to N(0, 1 / fan-in) (its second
+    axis).  At smoke width ``init_of``'s stacked scale (a 64-wide
+    projection of std 1 / sqrt(2)) makes the float32 gradient of the JAX
+    package itself miss its float64 gradient by 2e-4 to 6e-4 of each
+    leaf's largest entry for granite, zamba2 and whisper (the port's
+    misses by as much), so ``F32`` cannot tell the two packages apart
+    there; at the fan-in scale both agree to under 0.04 of ``F32``."""
+    def walk(s, a):
+        if isinstance(s, dict):
+            return {k: walk(s[k], a[k]) for k in s}
+        a = np.asarray(a)
+        if s.init == "normal" and s.axes[0] == "layers" and a.ndim >= 3:
+            a = (a * np.sqrt(a.shape[0] / a.shape[1])).astype(a.dtype)
+        return a
+
+    return walk(spec, params)
+
+
+def _jax_and_port(arch, overrides, fan_in=False, seed=0):
+    """Both packages' smoke configs (with ``overrides``), the JAX
+    package's float32 params from ``init_of`` (rescaled by
+    :func:`_fan_in_scaled` with ``fan_in``) and the port's model holding
+    them."""
+    jcfg = jax_smoke_config(arch).replace(**overrides)
+    tcfg = smoke_config(arch).replace(**overrides)
+    spec = jzoo.param_spec(jcfg)
+    params = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)),
+                          init_of(spec, jax.random.PRNGKey(seed)))
+    if fan_in:
+        params = _fan_in_scaled(spec, params)
+    model = params_from_numpy(tcfg, params, "cpu", torch.float32)
+    return jcfg, tcfg, jax.tree.map(jnp.asarray, params), model
 
 
 @pytest.mark.parametrize("case", LOSS_CASES)
 def test_loss_and_every_gradient_match_jax(case):
-    """The port's loss and the gradient of each stacked leaf against
-    ``jax.value_and_grad`` of ``zoo.loss_fn``, float32, 2 x 64 tokens (a
-    multiple of the smoke ``attn_chunk``, 32), remat ``dots``."""
-    arch = LOSS_CASES[case]
-    jcfg, tcfg = jax_smoke_config(arch), smoke_config(arch)
-    params = jax.tree.map(lambda a: a.astype(jnp.float32),
-                          init_of(jzoo.param_spec(jcfg),
-                                  jax.random.PRNGKey(0)))
+    """The port's loss (and the MoE family's ``nll`` and ``aux``) and the
+    gradient of each leaf against ``jax.value_and_grad`` of
+    ``zoo.loss_fn``, float32, 2 x 64 tokens (a multiple of the smoke
+    ``attn_chunk``, 32; four SSD or scan chunks of the smoke
+    ``ssm_chunk``, 16), under each config's ``remat`` (granite's
+    ``"nothing"``, the others' ``"dots"``).  ``hybrid_tail`` runs a
+    Mamba-2 layer after the last shared site."""
+    jcfg, tcfg, params, model = _jax_and_port(*LOSS_CASES[case])
     shape = JaxShapeSpec("s", 64, 2, "train")
     batch = jdata.batch_for_step(jcfg, shape, 3, 1)
-    (want, _), jgrads = jax.value_and_grad(
+    (want, jmetrics), jgrads = jax.value_and_grad(
         lambda p: jzoo.loss_fn(jcfg, p, {k: jnp.asarray(v)
                                          for k, v in batch.items()}),
         has_aux=True)(params)
-    model = params_from_numpy(tcfg, jax.tree.map(np.asarray, params), "cpu",
-                              torch.float32)
     loss, metrics, grads = tsteps.value_and_grad(
         tcfg, model, batch_to(batch, "cpu", torch.float32))
     np.testing.assert_allclose(loss.item(), float(want), **F32)
-    assert metrics["loss"].item() == loss.item()
+    assert sorted(metrics) == sorted(jmetrics)
+    for key in metrics:
+        np.testing.assert_allclose(metrics[key].item(),
+                                   float(jmetrics[key]), **F32, err_msg=key)
     jflat = dict(_jax_tree_items(jgrads))
     tflat = dict(items(grads))
     assert sorted(jflat) == sorted(tflat)
@@ -214,10 +263,135 @@ def test_gradients_land_in_the_stacked_tree():
     assert model.layers[1]["mlp"]["w1"].grad.data_ptr() == w1[1].data_ptr()
 
 
-def test_non_dense_families_do_not_train_yet():
+@pytest.mark.parametrize("family", sorted(zoo.FAMILY_MODULES))
+def test_every_family_has_a_loss(family):
+    """Every family of ``FAMILY_MODULES`` trains: ``zoo.loss_fn`` gives a
+    finite loss at smoke width; an unknown family raises
+    ``NotImplementedError``."""
+    arch = next(a for a in PORTED_ARCH_IDS
+                if smoke_config(a).family == family)
+    cfg = smoke_config(arch)
+    model = zoo.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
+                           torch.float32)
+    batch = batch_to(batch_for_step(cfg, SHAPE, 0, 0), "cpu", torch.float32)
+    loss, metrics = zoo.loss_fn(cfg, model, batch)
+    assert torch.isfinite(loss) and metrics["loss"] is loss
+    with pytest.raises(NotImplementedError, match="not a ported family"):
+        zoo.loss_fn(cfg.replace(family="rnn"), model, batch)
+
+
+@pytest.mark.parametrize("remat", ["nothing", "dots"])
+def test_moe_gradients_under_remat_equal_full(remat):
+    """granite's blocks recomputed in the backward (``"nothing"``, its own
+    policy, and ``"dots"``) route as they did in the forward: the loss,
+    its parts and every gradient leaf equal those with ``"full"`` (no
+    recompute) bit for bit."""
     cfg = smoke_config("granite_moe_1b_a400m")
-    with pytest.raises(NotImplementedError, match="does not train"):
-        zoo.loss_fn(cfg, None, {})
+    batch = batch_to(batch_for_step(cfg, SHAPE, 0, 0), "cpu", torch.float32)
+    out = []
+    for r in (remat, "full"):
+        c = cfg.replace(remat=r)
+        model = zoo.init_model(c, torch.Generator().manual_seed(0), "cpu",
+                               torch.float32)
+        out.append(tsteps.value_and_grad(c, model, batch))
+    (l1, m1, g1), (l2, m2, g2) = out
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(m1[k], m2[k]) for k in ("nll", "aux"))
+    for (key, a), (_, b) in zip(items(g1), items(g2)):
+        assert torch.equal(a, b), key
+
+
+def test_hybrid_shared_block_gathers_every_site():
+    """zamba2's shared block is one gradient tree: each of its parameters'
+    ``.grad`` is that tree's leaf, which after a backward holds the sum of
+    the gradients of every site (here the shared block run with a copy of
+    its weights a site, each site's gradient taken apart), within
+    ``F32``."""
+    from repro_torch.models import hybrid
+
+    cfg = smoke_config("zamba2_1_2b").replace(n_layers=5)  # 2 sites, a tail
+    model = zoo.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
+                           torch.float32)
+    grads = tsteps.grads_of(model)
+    wq = model.shared["attn"]["wq"]
+    assert wq.grad.data_ptr() == grads["shared"]["attn"]["wq"].data_ptr()
+    assert model.mamba[1]["wx"].grad.data_ptr() == \
+        grads["mamba"]["wx"][1].data_ptr()
+    batch = batch_to(batch_for_step(cfg, SHAPE, 0, 0), "cpu", torch.float32)
+    tsteps.value_and_grad(cfg, model, batch)
+
+    copies = []
+    real = hybrid._shared_attn
+
+    def per_site(c, shared, x, positions):
+        tree = {k: {n: t.detach().clone().requires_grad_(True)
+                    for n, t in v.named_parameters()}
+                if isinstance(v, torch.nn.Module) else
+                v.detach().clone().requires_grad_(True)
+                for k, v in shared.named_children()}
+        for k in ("ln1", "ln2"):
+            tree[k] = getattr(shared, k).detach().clone().requires_grad_(True)
+        copies.append(tree)
+        return real(c, tree, x, positions)
+
+    hybrid._shared_attn = per_site
+    try:
+        loss, _ = zoo.loss_fn(cfg, model, batch)
+    finally:
+        hybrid._shared_attn = real
+    assert len(copies) == 2
+    flat = [dict(items(t)) for t in copies]
+    site_grads = torch.autograd.grad(loss, [v for f in flat
+                                            for v in f.values()])
+    n = len(flat[0])
+    for i, key in enumerate(flat[0]):
+        want = site_grads[i] + site_grads[n + i]
+        got = dict(items(grads["shared"]))[key]
+        assert float(site_grads[i].abs().max()) > 0, key
+        np.testing.assert_allclose(_np(got), _np(want), **F32, err_msg=key)
+
+
+# model FLOPs of a 2 x 32 step, counted by hand from the smoke configs
+# (d 64, 4 heads of 16, 2 kv heads (zamba2: 4), d_ff 128, vocab 256):
+# attention 12288 a layer (wq, wo 64 x 64; wk, wv 64 x 32), MLP 24576,
+# norms 128, the embedding 16384; causal pairs of 32 tokens 528, and the
+# attention products 12 x 16 x 4 = 768 FLOPs a pair and sequence
+FLOP_CASES = {
+    # 2 x (12288 + 24576 + 128) + 16384
+    "llama3_2_3b": dict(products=6 * 90368 * 64,
+                        attention=768 * 528 * 2 * 2),
+    # active: 2 x (12288 + router 256 + 2 of 4 experts x 24576 + 128)
+    # + 16384 = 140032 (all 4 experts: 238336)
+    "granite_moe_1b_a400m": dict(products=6 * 140032 * 64,
+                                 attention=768 * 528 * 2 * 2),
+    # a Mamba-1 layer: in_proj 16384, conv 512, x_proj + dt_proj 3200,
+    # A_log 1024, D 128, out_proj 8192, norm 64: 2 x 29504 + 16384; the
+    # scan is left out
+    "falcon_mamba_7b": dict(products=6 * 75392 * 64, attention=0),
+    # 5 Mamba-2 layers of 26560 (in 16384, conv 512, 3 x 128, A 1024, out
+    # 8192, norm 64), the shared block (16384 + 24576 + 128, MHA) at
+    # 5 // 2 = 2 sites, the embedding; attention at the 2 sites only
+    "zamba2_1_2b": dict(products=6 * (5 * 26560 + 2 * 41088 + 16384) * 64,
+                        attention=768 * 528 * 2 * 2),
+    # encoder 2 x 36992 and the decoder's cross wk / wv 2 x 4096 on 2 x 16
+    # frames; the rest of the decoder (2 x 49344 - 8192) and the
+    # embedding on 2 x 32 tokens; pairs: 16^2 an encoder layer, 528 causal
+    # + 32 x 16 cross a decoder layer
+    "whisper_tiny": dict(products=6 * (82176 * 32 + 106880 * 64),
+                         attention=768 * 2 * (2 * 256 + 2 * (528 + 512))),
+}
+
+
+@pytest.mark.parametrize("arch", FLOP_CASES)
+def test_model_flops_per_family_match_hand_counts(arch):
+    cfg = smoke_config(arch)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_layers=5)
+    got = launch_train.model_flops(cfg, 2, 32)
+    want = FLOP_CASES[arch]
+    assert got["products"] == want["products"]
+    assert got["attention"] == want["attention"]
+    assert got["total"] == want["products"] + want["attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -441,15 +615,16 @@ def _history_state(params, seed):
     return jstate, tstate
 
 
-@pytest.mark.parametrize("compression", ["none", "int8"])
-def test_train_step_matches_jax(compression):
-    """One ``make_train_step`` step (with and without int8 compression)
-    from the same float32 params and optimizer state: loss, metrics and
-    every param."""
-    jcfg, tcfg = jax_smoke_config("llama3_2_3b"), smoke_config("llama3_2_3b")
-    params = jax.tree.map(lambda a: a.astype(jnp.float32),
-                          init_of(jzoo.param_spec(jcfg),
-                                  jax.random.PRNGKey(1)))
+@pytest.mark.parametrize("arch,compression,fan_in", [
+    ("llama3_2_3b", "none", False), ("llama3_2_3b", "int8", False),
+    ("zamba2_1_2b", "none", True)], ids=["none", "int8", "hybrid"])
+def test_train_step_matches_jax(arch, compression, fan_in):
+    """One ``make_train_step`` step (with and without int8 compression;
+    for zamba2 the shared block's gradient summed over its sites and
+    AdamW over a tree whose stacked leaves sit under ``mamba``) from the
+    same float32 params and optimizer state: loss, metrics and every
+    param."""
+    jcfg, tcfg, params, model = _jax_and_port(arch, {}, fan_in, seed=1)
     kw = dict(learning_rate=1e-2, warmup_steps=2, total_steps=20,
               grad_compression=compression)
     batch = jdata.batch_for_step(jcfg, JaxShapeSpec("s", 32, 2, "train"),
@@ -459,8 +634,6 @@ def test_train_step_matches_jax(compression):
     jstate, tstate = _history_state(jax.tree.map(np.asarray, params), 4)
     jp, _, jm = jsteps.make_train_step(jcfg, jrun)(
         params, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-    model = params_from_numpy(tcfg, jax.tree.map(np.asarray, params), "cpu",
-                              torch.float32)
     trun = RunConfig(model=tcfg, shape=SHAPE, **kw)
     _, _, tm = tsteps.make_train_step(tcfg, trun)(
         model, tstate, batch_to(batch, "cpu", torch.float32))
@@ -468,6 +641,7 @@ def test_train_step_matches_jax(compression):
         np.testing.assert_allclose(float(tm[key]), float(jm[key]), **F32,
                                    err_msg=key)
     want = dict(_jax_tree_items(jp))
+    assert sorted(want) == sorted(k for k, _ in items(model.params))
     for key, t in items(model.params):
         np.testing.assert_allclose(_np(t), np.asarray(want[key]), **F32,
                                    err_msg=key)
