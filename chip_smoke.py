@@ -24,6 +24,26 @@ Phases, in order; any failure exits non-zero before the last line:
    node's dependent chain, timed on a one-node bucket, times hmax);
 4. fail phase: a corrupted mapping (dropped route) must FAIL through
    ``sim_loop`` on the card with the same reason as on the CPU;
+4b. store phase (the verify front door at full size: all 210 TABLE2
+   artifacts, 177 with mappings, 203 mappings): ``python -m repro_torch
+   store put`` into a temporary store, then ``verify --dir STORE --device
+   cuda --bench-out`` (the launch counters read just around it): exactly 2
+   ``sim_loop`` launches, the manifest's verdicts, cold and warm
+   mappings/s; every key through ``ArtifactStore(verify="always",
+   device="cuda").get``: ``sim_loop`` launches = ``verify_runs`` and no
+   other kernel, the counters and each get's values equal to a CPU store's,
+   ms a get at p50 and p99, the device's busy share of a traced pass and a
+   ``cProfile`` of the gets by part; ``verify="first"`` twice over entries
+   stored unverified (the second pass launches nothing); the step-0
+   tampered artifact (a load placed on an ALU) FAILs with the JAX
+   package's row and exit 1, and a store quarantines it; ``verify --dir``
+   under ``REPRO_FAULTS`` = a ``sim.batch`` ``oserror`` exits non-zero
+   and leaves the index, journal and entries unchanged; ``energy_sweep``
+   over the corpus mappings on the card (one launch) equals the ``cpu``
+   and ``numpy`` backends' rows; one ``fusion_report`` of the
+   RMSNorm+SwiGLU block of ``tests/test_torch_fusion.py`` at llama3_2_3b's
+   widths (3072 -> 8192), traced on meta tensors, whose first two lines
+   must equal those the test holds;
 5. LM kernel phase: ``rmsnorm``, ``fused_swiglu`` and ``flash_attention``
    against their plain versions on the card, in float32 and bfloat16 on
    the shapes of ``tests/test_kernels.py`` (under its ``TOL``), flash also
@@ -625,6 +645,372 @@ def fail_phase(mappings):
             f"card {v_dev!r} vs CPU {v_cpu!r}")
     print(f"fail: dropped route FAILs through sim_loop on the card as on the "
           f"CPU: {v_dev.reason}")
+
+
+#: the JAX package's verdict on the tampered copy of atax_u2__plaid.json
+#: (node 5, a load, moved onto FU 0, an ALU): ``python -m repro.compiler
+#: verify`` prints this row and exits 1
+TAMPERED_ROW = ("FAIL  atax_u2/plaid                      unloadable mapping "
+                "(AssertionError: (5, 'load', 'alu'))")
+#: the cut of the corpus that ``store_phase`` profiles on the host, gets
+#: per key
+HOST_PROFILE_GETS = 40
+
+
+def _tampered_artifact(path: str) -> str:
+    """The step-0 fault: ``atax_u2__plaid.json`` without its lowered forms,
+    node 5 (a load) moved onto FU 0 (an ALU) in node 2's modulo slot; a
+    simulation accepts it, ``Mapping.validate()`` does not."""
+    from repro_torch import CORPUS_DIR
+
+    with open(os.path.join(CORPUS_DIR, "atax_u2__plaid.json")) as f:
+        art = json.load(f)
+    art.pop("compiled_sim")
+    art["mappings"][0]["place"]["5"] = 0
+    with open(path, "w") as f:
+        json.dump(art, f)
+    return path
+
+
+def _store_state(root: str):
+    out = {}
+    for name in ("index.json", "journal.jsonl"):
+        with open(os.path.join(root, name), "rb") as f:
+            out[name] = f.read()
+    out["entries"] = sorted(os.listdir(os.path.join(root, "entries")))
+    return out
+
+
+def _pct(values, q: float) -> float:
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q / 100 * (len(s) - 1))))]
+
+
+def _recording_simulate(record):
+    """``CompileResult.simulate`` that appends each call's values to
+    ``record[device type]`` (the store's verifying gets call it)."""
+    import torch
+
+    from repro_torch.compiler.artifact import CompileResult
+
+    simulate = CompileResult.simulate
+
+    def recorded(self, iterations=3, device=None, backend=None):
+        out = simulate(self, iterations, device, backend)
+        record.setdefault(torch.device(device).type, []).append(out)
+        return out
+
+    return recorded
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def host_profile_of_gets(store, keys) -> None:
+    """Where a verifying get's host time goes: ``cProfile`` over
+    ``HOST_PROFILE_GETS`` gets, each part's cumulative time a get (the
+    profiler's own cost inflates every Python call alike).  The top-level
+    parts do not nest; "other" is the rest of the get."""
+    import cProfile
+    import pstats
+
+    top = (("read + sha check", "store.py", "_load_entry_file"),
+           ("artifact from JSON", "artifact.py", "from_json"),
+           ("rebuild + validate", "artifact.py", "rebuild_mappings"),
+           ("stored forms + pack", "artifact.py", "_stored_prepared"),
+           ("cycle loop + verdicts", "batch.py", "_bucket_verdicts"),
+           ("index row", "store.py", "_index_row"),
+           ("journal append", "journal.py", "append"),
+           ("index lock", "fsio.py", "locked"))
+    nested = (("validate()", "mapping.py", "validate"),
+              ("run_bucket", "step.py", "run_bucket"),
+              ("sim_loop_cuda", "sim_loop.py", "sim_loop_cuda"))
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for k in keys[:HOST_PROFILE_GETS]:
+        store.get(k)
+    prof.disable()
+    per_get = (time.perf_counter() - t0) / HOST_PROFILE_GETS * 1e3
+    stats = pstats.Stats(prof).stats
+
+    def ms(fname, func):
+        return sum(v[3] for (f, _ln, fn), v in stats.items()
+                   if fn == func and f.endswith(fname)
+                   and "repro_torch" in f) / HOST_PROFILE_GETS * 1e3
+
+    parts = [(label, ms(f, fn)) for label, f, fn in top]
+    parts.append(("other", per_get - sum(v for _, v in parts)))
+    print(f"store: host profile of {HOST_PROFILE_GETS} verifying gets "
+          f"(cProfile, {per_get:.3f} ms a get under it), ms a get by part: "
+          + "; ".join(f"{label} {v:.3f}" for label, v in parts)
+          + "; nested: " + "; ".join(f"{label} {ms(f, fn):.3f}"
+                                     for label, f, fn in nested))
+
+
+def store_phase():
+    """The verify front door at full size: the whole TABLE2 corpus put into
+    a store; ``verify --dir`` on the card (two ``sim_loop`` launches, the
+    manifest's verdicts); every key read under ``verify="always"`` (one
+    launch a verifying get, values equal to a CPU store's) and twice under
+    ``verify="first"`` (the second pass launches nothing); the tampered
+    artifact FAILs; an injected ``sim.batch`` fault fails ``verify --dir``
+    and leaves the index; ``energy_sweep`` on the card equals the CPU's
+    and numpy's rows.  Returns the store path's ``sim_loop`` launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import CORPUS_DIR
+    from repro_torch.compiler.artifact import CompileResult
+    from repro_torch.compiler.cli import main as cli_main
+    from repro_torch.compiler.store import ArtifactStore, key_for
+    from repro_torch.core.power_area import energy_sweep
+
+    with open(os.path.join(CORPUS_DIR, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    files = sorted(manifest["files"])
+    arts = {fn: CompileResult.load(os.path.join(CORPUS_DIR, fn))
+            for fn in files}
+    label_of = {key_for(a).describe(): fn for fn, a in arts.items()}
+    keys = [key_for(arts[fn]) for fn in files]
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="repro_store_")
+    try:
+        root = os.path.join(tmp, "store")
+        # 1. store put, then verify --dir on the card
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["store", "put", "--dir", root,
+                           *[os.path.join(CORPUS_DIR, fn) for fn in files]])
+        require(rc == 0 and buf.getvalue().count("stored as") == len(files),
+                f"store put exited {rc}: {buf.getvalue()[-2000:]}")
+        bench = os.path.join(tmp, "bench.json")
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["verify", "--dir", root, "--device", "cuda",
+                           "--bench-out", bench, "--bench-note", "store"])
+        counts = read_counts()
+        want = {**dict.fromkeys(counts, 0), "sim_loop": 2}
+        require(counts == want, f"verify --dir launched {counts}, want "
+                "sim_loop twice (cold and warm, one bucket) and nothing else")
+        require(rc == manifest["verify_exit_code"],
+                f"verify --dir exited {rc}")
+        launches["verify --dir"] = counts["sim_loop"]
+        rows = 0
+        for line in buf.getvalue().splitlines():
+            word = line[:6].strip()
+            if word not in ("OK", "FAIL", "SKIP"):
+                continue
+            label = next(lb for lb in label_of if line[6:].startswith(lb))
+            want_v = manifest["files"][label_of[label]]
+            require(word == want_v["verdict"],
+                    f"{label}: {word} from the store, {want_v['verdict']} "
+                    "in the manifest")
+            rows += 1
+        require(rows == len(files), f"{rows} rows for {len(files)} entries")
+        with open(bench) as f:
+            entry = json.load(f)["runs"][-1]["sim_throughput"]
+        print(f"store: put {len(files)} artifacts; verify --dir on the card: "
+              f"{rows} rows = manifest, launches {counts}; cold "
+              f"{entry['cold_mappings_per_s']} mappings/s, warm "
+              f"{entry['warm_mappings_per_s']} mappings/s "
+              f"(--bench-out entry {json.dumps(entry)})")
+
+        # 2. verify="always": one launch a verifying get; values = CPU's
+        cpu_root = os.path.join(tmp, "cpu")
+        shutil.copytree(root, cpu_root)
+        values = {}
+        with _patched(CompileResult, "simulate", _recording_simulate(values)):
+            served = {}
+            for dev, path in (("cuda", root), ("cpu", cpu_root)):
+                store = ArtifactStore(path, verify="always", device=dev)
+                reset_counts()
+                wall = []
+                for k in keys:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = store.get(k)
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                    require(res is not None, f"{k.describe()} missed")
+                counts = read_counts()
+                served[dev] = (store.counters.to_json(), wall)
+                if dev == "cuda":
+                    runs = store.counters.verify_runs
+                    want = {**dict.fromkeys(counts, 0), "sim_loop": runs}
+                    require(runs == sum(bool(a.mappings)
+                                        for a in arts.values()),
+                            f"{runs} verifying gets")
+                    require(counts == want,
+                            f"the always gets launched {counts}, want "
+                            f"sim_loop = verify_runs = {runs}, nothing else")
+                    launches["store get, always"] = counts["sim_loop"]
+        require(served["cuda"][0] == served["cpu"][0],
+                f"counters on the card {served['cuda'][0]} vs the CPU "
+                f"{served['cpu'][0]}")
+        require(values["cuda"] == values["cpu"],
+                "a verifying get's values on the card differ from the CPU's")
+        wall = served["cuda"][1]
+        verifying = [w for w, fn in zip(wall, files) if arts[fn].mappings]
+        store = ArtifactStore(root, verify="always", device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for k in keys:
+                store.get(k)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        launched = sum(e.count for e in dev if "sim_loop" in e.key)
+        busy = ("not measured (no device time in the trace)" if busy_ms == 0
+                else f"{busy_ms:.6f} ms of device time ({launched} sim_loop "
+                f"launches) in a traced pass of gets that took "
+                f"{traced_ms:.3f} ms of wall time "
+                f"({100 * busy_ms / traced_ms:.4f}% busy, both from that "
+                f"pass; the untraced pass took {sum(wall):.3f} ms)")
+        print(f"store: verify=always over {len(keys)} keys on the card: "
+              f"sim_loop {launches['store get, always']} = verify_runs, "
+              f"nothing else; counters {served['cuda'][0]} = the CPU "
+              f"store's; values = the CPU's (tolerance 0); ms a verifying "
+              f"get p50 {_pct(verifying, 50):.3f}, p99 "
+              f"{_pct(verifying, 99):.3f}, mean "
+              f"{sum(verifying) / len(verifying):.3f} ({len(verifying)} "
+              f"gets); ms a get over all keys p50 {_pct(wall, 50):.3f}, p99 "
+              f"{_pct(wall, 99):.3f}; device {busy}")
+        host_profile_of_gets(
+            ArtifactStore(root, verify="always", device="cuda"),
+            [k for k, fn in zip(keys, files) if arts[fn].mappings])
+
+        # 3. verify="first", twice, on entries stored unverified
+        first_root = os.path.join(tmp, "first")
+        first = ArtifactStore(first_root, verify="first", device="cuda")
+        for fn, k in zip(files, keys):
+            a = CompileResult.load(os.path.join(CORPUS_DIR, fn))
+            a.verified = None
+            first.put(a, key=k)
+        per_pass = []
+        for _ in range(2):
+            reset_counts()
+            for k in keys:
+                require(first.get(k) is not None, f"{k.describe()} missed")
+            per_pass.append(read_counts()["sim_loop"])
+        require(per_pass == [first.counters.verify_runs, 0]
+                and first.counters.verify_failures == 0,
+                f"verify=first launched {per_pass} in its two passes, "
+                f"verify_runs {first.counters.verify_runs}")
+        launches["store get, first"] = per_pass[0]
+        print(f"store: verify=first, two passes: sim_loop {per_pass} "
+              f"(verify_runs {first.counters.verify_runs}, then none)")
+
+        # 4. the step-0 fault on the card
+        bad = _tampered_artifact(os.path.join(tmp, "tampered.json"))
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["verify", bad, "--device", "cuda"])
+        fails = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("FAIL")]
+        require(rc == 1 and fails == [TAMPERED_ROW],
+                f"the tampered artifact: exit {rc}, rows {fails}")
+        bad_store = ArtifactStore(os.path.join(tmp, "bad"), verify="always",
+                                  device="cuda")
+        res = CompileResult.load(bad)
+        bad_store.put(res)
+        require(bad_store.get(key_for(res)) is None
+                and bad_store.counters.verify_failures == 1
+                and read_counts()["sim_loop"] == 0,
+                "the tampered artifact was served from a store")
+        print(f"store: the tampered artifact FAILs on the card as in the JAX "
+              f"package: {fails[0][6:].strip()} (exit 1); a store quarantines "
+              f"it without a launch")
+
+        # 5. an injected sim.batch fault fails verify --dir, index untouched
+        before = _store_state(root)
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   REPRO_FAULTS=json.dumps([{"mode": "oserror",
+                                             "site": "sim.batch"}]))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "verify", "--dir", root,
+             "--device", "cuda"], env=env, capture_output=True, text=True,
+            timeout=300)
+        require(proc.returncode != 0 and "injected transient I/O fault at "
+                "sim.batch" in proc.stderr,
+                f"verify --dir under a sim.batch fault exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        require(_store_state(root) == before,
+                "the faulted verify --dir changed the store")
+        print(f"store: REPRO_FAULTS sim.batch oserror: verify --dir exits "
+              f"{proc.returncode} ({proc.stderr.strip().splitlines()[-1]}); "
+              "index, journal and entries unchanged")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 6. energy_sweep over the corpus mappings
+    rows_in = [(a.arch, m, 10) for a in arts.values() if a.mappings
+               for m in a.rebuild_mappings()]
+    reset_counts()
+    t0 = time.perf_counter()
+    card = energy_sweep(rows_in, device="cuda")
+    card_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    require(counts == {**dict.fromkeys(counts, 0), "sim_loop": 1},
+            f"energy_sweep launched {counts}, want sim_loop once")
+    launches["energy_sweep"] = 1
+    cpu = energy_sweep(rows_in, device="cpu")
+    host = energy_sweep(rows_in, backend="numpy")
+
+    def strip(rows):
+        return [{k: v for k, v in r.items() if k != "sim_backend"}
+                for r in rows]
+
+    require(strip(card) == strip(cpu) == strip(host),
+            "energy_sweep rows differ between the card, the CPU and numpy")
+    require({r["sim_backend"] for r in card} == {"cuda"}
+            and all(r["verified"] for r in card),
+            "energy_sweep on the card: a row not verified by cuda")
+    print(f"store: energy_sweep over {len(card)} corpus mappings on the card "
+          f"in {card_ms:.3f} ms (sim_loop once), rows equal the cpu and "
+          f"numpy backends' (sim_backend aside); total energy "
+          f"{sum(r['energy_uj'] for r in card):.6f} uJ")
+
+    # 7. the motif pass over llama3_2_3b's RMSNorm+SwiGLU block: the block
+    # tests/test_torch_fusion.py holds against the JAX package's jaxpr DFG,
+    # at llama's widths, with the report lines that test expects
+    import torch.nn.functional as F
+    from repro_torch.core.fusion import fusion_report
+
+    def block(x, w1, w3, w2, scale):
+        h = x * torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + 1e-6) \
+            * scale
+        y = F.silu(h @ w1) * (h @ w3)
+        return x + y @ w2
+
+    d, f_ = SERVED["llama3_2_3b"]["d_model"], SERVED["llama3_2_3b"]["d_ff"]
+    args = [torch.empty(s, device="meta")
+            for s in [(4, d), (d, f_), (d, f_), (f_, d), (d,)]]
+    lines = fusion_report(block, *args).splitlines()[:2]
+    require(lines == ["aten DFG: 20 nodes, 13 compute",
+                      "motifs: 4 (fan-in 0, fan-out 1, unicast 3), "
+                      "covered 12/13"],
+            f"the block's fusion report {lines} differs from the lines "
+            f"its test holds")
+    print(f"fusion: llama3_2_3b RMSNorm+SwiGLU block ({d} -> {f_}, fake "
+          f"tensors on the host; the report its test holds): "
+          + " | ".join(lines))
+    return launches
 
 
 def _randn(shape, dtype, seed: int, scale=1.0):
@@ -2741,6 +3127,11 @@ def main() -> int:
     fail_phase(mappings)
     print(f"phase: verify path (sim_loop; sim_alu on the eager yardstick) "
           f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    loop["launches_by_path"] = {"verify": verify["sim_loop"],
+                                **store_phase()}
+    print(f"phase: store (verify --dir, verifying gets, energy_sweep, "
+          f"motifs) {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
     records = lm_kernel_phase()

@@ -1,4 +1,4 @@
-"""``python -m repro_torch verify PATHS...`` (see :mod:`repro_torch.compiler.cli`)."""
+"""``python -m repro_torch verify|store ...`` (see :mod:`repro_torch.compiler.cli`)."""
 import sys
 
 from repro_torch.compiler.cli import main

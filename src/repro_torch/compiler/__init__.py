@@ -1,3 +1,5 @@
-"""The read side of the toolchain front end: artifacts
-(:mod:`repro_torch.compiler.artifact`) and ``python -m repro_torch verify``
+"""The toolchain front end: artifacts (:mod:`repro_torch.compiler.artifact`),
+the artifact store and its journal (:mod:`~repro_torch.compiler.store`,
+:mod:`~repro_torch.compiler.journal`), the error taxonomy, durable file I/O
+and fault injection, and ``python -m repro_torch verify|store``
 (:mod:`repro_torch.compiler.cli`)."""

@@ -1,13 +1,15 @@
-"""Serializable mapping artifacts, read side (port of
-``repro/compiler/artifact.py``).
+"""Serializable mapping artifacts (port of ``repro/compiler/artifact.py``).
 
 A :class:`CompileResult` is the JSON form of one compile (schema
 ``repro.compiler/artifact@1``..``@5``, written by the JAX package's
 ``compile()``): the headline numbers, the full placement/routing
 mapping(s) with their DFG, and, from ``@5`` on, the lowered
 ``compiled_sim`` forms bound to the mappings by ``mappings_sha256``.
-:meth:`CompileResult.simulate` re-verifies the stored mapping(s) on the
-card without re-running place & route.
+:meth:`CompileResult.to_json` writes the JAX package's form byte for
+byte, so the artifact store (:mod:`repro_torch.compiler.store`) digests
+alike in both packages.  :meth:`CompileResult.simulate` rebuilds and
+validates the stored mapping(s) against their fabric, then re-verifies
+them on the card, without re-running place & route.
 """
 from __future__ import annotations
 
@@ -15,13 +17,18 @@ import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.compiler.fsio import sha256_of_json
-from repro_torch.mapping.mapping import Mapping, normalize_record
+from repro_torch.compiler.errors import (SIM_FAULTS, MappingInfeasible,
+                                         SimulationFault)
+from repro_torch.compiler.fsio import atomic_write_json, sha256_of_json
+from repro_torch.mapping.mapping import (Mapping, mapping_from_record,
+                                         normalize_record)
 
 ARTIFACT_SCHEMA = "repro.compiler/artifact@5"
 SUPPORTED_SCHEMAS = ("repro.compiler/artifact@1", "repro.compiler/artifact@2",
                      "repro.compiler/artifact@3", "repro.compiler/artifact@4",
                      ARTIFACT_SCHEMA)
+#: the JAX package's toolchain version: store keys are namespaced by it
+REPRO_VERSION = "0.4.0"
 
 
 @dataclass
@@ -58,6 +65,29 @@ class CompileResult:
             return f"{w['name']}_u{w['unroll']}"
         return str(w.get("dfg_name", "dfg"))
 
+    def to_json(self) -> Dict[str, object]:
+        return {
+            "schema": ARTIFACT_SCHEMA,
+            "workload": self.workload,
+            "arch": self.arch,
+            "mapper": self.mapper,
+            "seed": self.seed,
+            "budget": self.budget,
+            "ii": self.ii,
+            "cycles": self.cycles,
+            "makespan": self.makespan,
+            "timings": self.timings,
+            "motifs": self.motifs,
+            "mappings": self.mappings,
+            "spatial": self.spatial,
+            "compiled_sim": self.compiled_sim,
+            "verified": self.verified,
+            "degraded": self.degraded,
+            "provenance": self.provenance,
+            "route_cache": self.route_cache,
+            "pass_stats": self.pass_stats,
+        }
+
     @classmethod
     def from_json(cls, data: Dict[str, object]) -> "CompileResult":
         schema = data.get("schema")
@@ -88,6 +118,12 @@ class CompileResult:
             pass_stats=data.get("pass_stats"),
         )
 
+    def save(self, path: str) -> str:
+        # temp-file + os.replace: an interrupted save leaves the previous
+        # artifact intact, never a truncated file
+        return atomic_write_json(path, self.to_json(), indent=1,
+                                 sort_keys=True)
+
     @classmethod
     def load(cls, path: str) -> "CompileResult":
         with open(path) as f:
@@ -95,13 +131,14 @@ class CompileResult:
 
     # -- re-verification (no P&R) ------------------------------------------
     def rebuild_mappings(self) -> List[Mapping]:
-        """Live :class:`Mapping` objects for every stored record (one per
-        spatial segment; exactly one for modulo mappers)."""
-        return [Mapping.from_record(rec) for rec in self.mappings]
+        """Live, validated :class:`Mapping` objects for every stored record
+        (one per spatial segment; exactly one for modulo mappers)."""
+        return [mapping_from_record(rec, self.arch) for rec in self.mappings]
 
-    def _stored_prepared(self, iterations: int, device):
+    def _stored_prepared(self, iterations: int, backend: str, device=None):
         """Rebuild a :class:`~repro_torch.sim.batch.PreparedBatch` for
-        ``device`` from the artifact's ``compiled_sim`` forms, or ``None``
+        ``backend`` on ``device`` from the artifact's ``compiled_sim``
+        forms, or ``None``
         when they are absent, lowered for a different trip count,
         malformed, or no longer bound to the mapping content
         (``mappings_sha256`` mismatch) — every ``None`` means "lower
@@ -117,7 +154,8 @@ class CompileResult:
             return None
         if cs.get("mappings_sha256") != sha256_of_json(self.mappings):
             return None
-        from repro_torch.sim.batch import PreparedBatch, pack_bucket
+        from repro_torch.sim.batch import (PreparedBatch, bucket_device,
+                                           pack_bucket)
         from repro_torch.sim.lower import CompiledSim
 
         scalar_idx: List[int] = []
@@ -135,31 +173,44 @@ class CompileResult:
         return PreparedBatch(
             iterations=iterations, n_mappings=len(self.mappings),
             scalar_idx=scalar_idx, batch_idx=batch_idx, forms=forms,
-            packed=pack_bucket(forms, device) if forms else None)
+            packed=(pack_bucket(forms, bucket_device(backend, device))
+                    if forms else None))
 
-    def simulate(self, iterations: int = 3, device=None
+    def simulate(self, iterations: int = 3, device=None,
+                 backend: Optional[str] = None
                  ) -> List[Dict[Tuple[int, int], float]]:
         """Cycle-accurately execute the stored mapping(s) against the DFG
-        reference oracle on ``device`` (default ``cuda``); returns the
-        per-(node, iteration) value dict of each mapping.  Raises
-        ``ValueError`` if no routed mapping was stored (mapper failure, or
-        the spatial analytic fallback).
+        reference oracle on ``device`` (default ``cuda``; ``backend`` as
+        :func:`~repro_torch.sim.batch.select_backend` takes it); returns
+        the per-(node, iteration) value dict of each mapping.  Raises
+        :class:`~repro_torch.compiler.errors.MappingInfeasible` (a
+        ``ValueError``) if no routed mapping was stored (mapper failure,
+        or the spatial analytic fallback).
 
-        Every mapping goes through the batched path
-        (:func:`~repro_torch.sim.batch.verify_mappings`), reusing the
-        stored ``compiled_sim`` forms when they bind.  A disproven mapping
-        raises ``AssertionError``; a device fault propagates — it never
-        degrades to the scalar oracle, which would hide the kernel."""
-        from repro_torch.device import resolve_device
-        from repro_torch.sim.batch import verify_mappings
+        The records are rebuilt and validated first (``AssertionError``
+        on a structural fault).  Every mapping then goes through the
+        batched path (:func:`~repro_torch.sim.batch.verify_mappings`),
+        reusing the stored ``compiled_sim`` forms when they bind.  A
+        disproven mapping raises ``AssertionError``; a device fault
+        propagates — it never degrades to the scalar oracle, which would
+        hide the kernel.  Anything else the simulation raises is a
+        :class:`~repro_torch.compiler.errors.SimulationFault`, not a
+        verdict."""
+        from repro_torch.sim.batch import select_backend, verify_mappings
 
         if not self.mappings:
-            raise ValueError(
+            raise MappingInfeasible(
                 f"artifact {self.key}/{self.mapper} holds no routed mapping "
                 "to simulate"
             )
-        device = resolve_device(device)
+        backend = select_backend(backend, device)
         rebuilt = self.rebuild_mappings()
-        return verify_mappings(rebuilt, iterations=iterations, device=device,
-                               prepared=self._stored_prepared(iterations,
-                                                              device))
+        try:
+            return verify_mappings(rebuilt, iterations=iterations,
+                                   device=device, backend=backend,
+                                   prepared=self._stored_prepared(
+                                       iterations, backend, device))
+        except SIM_FAULTS as e:
+            raise SimulationFault(
+                f"simulating {self.key}/{self.mapper} failed "
+                f"({type(e).__name__}: {e})") from e

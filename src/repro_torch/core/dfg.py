@@ -1,6 +1,7 @@
 """Dataflow-graph IR (port of the parts of ``repro/core/dfg.py`` that
-verification and the Track-A tie of the PCU kernel need: construction, the
-JSON form, the topological order and the reference interpreter).
+verification, the motif pass and the Track-A tie of the PCU kernel need:
+construction, the JSON form, the views the motif extractor reads, ASAP
+levels, the topological order and the reference interpreter).
 
 A DFG node is one operation of the loop body (compute, load, store, or
 constant); edges are data dependencies.  Recurrence edges carry an
@@ -25,6 +26,10 @@ class Node:
     id: int
     op: str
     name: str = ""
+
+    @property
+    def is_compute(self) -> bool:
+        return self.op in COMPUTE_OPS
 
 
 @dataclass
@@ -81,9 +86,30 @@ class DFG:
             g.connect(int(src), int(dst), int(distance), int(operand))
         return g
 
-    # -- analyses ----------------------------------------------------------
+    # -- views ------------------------------------------------------------
+    @property
+    def n_nodes(self) -> int:
+        return len(self.nodes)
+
+    @property
+    def compute_nodes(self) -> List[int]:
+        return [n.id for n in self.nodes.values() if n.is_compute]
+
+    def preds(self, nid: int, *, intra_only: bool = True) -> List[int]:
+        return [e.src for e in self.edges
+                if e.dst == nid and (e.distance == 0 or not intra_only)]
+
     def intra_edges(self) -> List[Edge]:
         return [e for e in self.edges if e.distance == 0]
+
+    # -- analyses ----------------------------------------------------------
+    def asap(self) -> Dict[int, int]:
+        """ASAP levels over intra-iteration edges (unit latency)."""
+        level: Dict[int, int] = {}
+        for nid in self.topo_order():
+            ps = self.preds(nid)
+            level[nid] = 0 if not ps else 1 + max(level[p] for p in ps)
+        return level
 
     def topo_order(self) -> List[int]:
         indeg = {n: 0 for n in self.nodes}

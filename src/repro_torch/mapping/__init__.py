@@ -1,1 +1,2 @@
-"""Stored mappings rebuilt for verification (:mod:`repro_torch.mapping.mapping`)."""
+"""Stored mappings rebuilt and validated for verification
+(:mod:`repro_torch.mapping.mapping`)."""

@@ -4,10 +4,13 @@
 Lowered mappings are padded into one bucket, packed into dense arrays, and
 the whole bucket runs through one call of the cycle loop
 (:func:`repro_torch.sim.step.run_bucket`) on the card — or on the CPU when
-the caller passes ``device="cpu"``.  Each mapping gets a
-:class:`SimVerdict` with the same accept/reject decision — and, on
-accept, the same ``(node, iter) -> value`` map within ``F32_TOL`` — as the
-scalar oracle.  Mappings the lowering cannot express
+the caller passes ``device="cpu"``, or through the JAX package's float64
+host loop (:func:`repro_torch.sim.step.run_bucket_numpy`) when the caller
+asks for ``backend="numpy"`` (:func:`select_backend`).  Each mapping gets
+a :class:`SimVerdict` with the same accept/reject decision — and, on
+accept, the same ``(node, iter) -> value`` map within the backend's
+tolerance (``F32_TOL`` for the tensor loop, ``DEFAULT_TOL`` for numpy) —
+as the scalar oracle.  Mappings the lowering cannot express
 (:class:`LoweringUnsupported`) run through the scalar oracle itself,
 inside the same call.
 
@@ -22,7 +25,10 @@ prepared=...)`` reruns only the cycle loop on the cached
 :class:`PreparedBatch`.
 
 A fault of the device path (a kernel that does not build or launch, a
-CUDA error) raises; nothing degrades to the CPU or the scalar oracle.
+CUDA error) raises; nothing degrades to the CPU or the scalar oracle.  The
+``sim.batch`` fault-injection site (``REPRO_FAULTS``,
+:mod:`repro_torch.compiler.faultinject`) fires at entry, so chaos tests
+can fault the batched path; its ``OSError`` propagates like any other.
 """
 from __future__ import annotations
 
@@ -31,11 +37,52 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.compiler import faultinject
 from repro_torch.device import resolve_device
 from repro_torch.sim.check import Tolerance, close_array, tolerance_for
 from repro_torch.sim.lower import CompiledSim, LoweringUnsupported, lower_mapping
-from repro_torch.sim.step import NEVER, PackedBucket, run_bucket
+from repro_torch.sim.step import (NEVER, PackedBucket, run_bucket,
+                                  run_bucket_numpy)
+
+#: the one backend a caller may name: numpy's float64 host loop.  Without
+#: it the float32 tensor loop runs on the caller's device (``sim_loop`` on
+#: a card), labelled by that device's type, ``cuda`` or ``cpu``.
+BACKENDS = ("numpy",)
+
+
+def select_backend(backend: Optional[str] = None, device=None) -> str:
+    """What runs the cycle loop: ``numpy`` when the caller asks for it,
+    else the tensor loop on ``device``
+    (:func:`~repro_torch.device.resolve_device`: ``cuda`` unless the caller
+    asks for the CPU, raising when CUDA is absent), labelled ``cuda`` or
+    ``cpu``.  A label this function returned may be passed back as
+    ``backend``.  A ``backend`` that disagrees with ``device`` is refused
+    (``ValueError``), never resolved in favour of one.  Nothing is read
+    from the environment: the JAX package's ``REPRO_SIM_BACKEND`` names
+    its own backends, and the host runs only when asked."""
+    if backend is None:
+        return resolve_device(device).type
+    if backend not in BACKENDS + ("cuda", "cpu"):
+        raise ValueError(f"unknown sim backend {backend!r} (choose from "
+                         f"{', '.join(BACKENDS)}, or pass a device)")
+    want = "cpu" if backend == "numpy" else backend
+    if device is not None and torch.device(device).type != want:
+        raise ValueError(f"sim backend {backend!r} does not run on "
+                         f"{device}")
+    if backend != "numpy":
+        resolve_device(device if device is not None else backend)
+    return backend
+
+
+def bucket_device(backend: str, device=None) -> torch.device:
+    """Where a bucket for ``backend`` (a :func:`select_backend` label)
+    lives: the host for ``numpy``, else ``device`` or the backend's own
+    device."""
+    if backend == "numpy":
+        return torch.device("cpu")
+    return resolve_device(device if device is not None else backend)
 
 
 class SimVerdict:
@@ -52,7 +99,7 @@ class SimVerdict:
                  backend: str = "cuda", values_thunk=None):
         self.ok = ok
         self.reason = reason                  # None iff ok
-        self.backend = backend                # "cuda" / "cpu" / "scalar"
+        self.backend = backend                # "cuda"/"cpu"/"numpy"/"scalar"
         self._values = values
         self._thunk = values_thunk
 
@@ -69,8 +116,8 @@ class SimVerdict:
 
 
 class BatchResult(list):
-    """``list[SimVerdict]`` plus run metadata (backend = device type, wall
-    seconds, bucket count, scalar fallbacks)."""
+    """``list[SimVerdict]`` plus run metadata (backend, wall seconds,
+    bucket count, scalar fallbacks)."""
 
     backend: str = "cuda"
     wall_s: float = 0.0
@@ -167,12 +214,12 @@ class PreparedBatch:
     packed: Optional[PackedBucket]   # None when every input fell back
 
 
-def prepare_batch(mappings, iterations: int = 4,
-                  device=None) -> PreparedBatch:
+def prepare_batch(mappings, iterations: int = 4, device=None,
+                  backend: Optional[str] = None) -> PreparedBatch:
     """Lower every mapping (``LoweringUnsupported`` ones are earmarked for
     the scalar oracle) and pack the rest into one padded bucket for
-    ``device``."""
-    device = resolve_device(device)
+    ``backend`` on ``device`` (:func:`select_backend`)."""
+    device = bucket_device(select_backend(backend, device), device)
     scalar_idx: List[int] = []
     batch_idx: List[int] = []
     forms: List[CompiledSim] = []
@@ -201,9 +248,11 @@ def _values_thunk(val_b: np.ndarray, done_b: np.ndarray, node_ids):
 
 
 def _bucket_verdicts(forms: List[CompiledSim], pb: PackedBucket,
-                     tol: Tolerance) -> List[SimVerdict]:
-    backend = pb.device.type
-    val, done, read_fail = run_bucket(pb)
+                     backend: str, tol: Tolerance) -> List[SimVerdict]:
+    if backend == "numpy":
+        val, done, read_fail = run_bucket_numpy(pb)
+    else:
+        val, done, read_fail = run_bucket(pb)
     # whole-batch checks (padding rows carry compare=False, so they never
     # contribute); the per-form loop below only details the failures
     cmpI = pb.compare[:, :, None]
@@ -249,9 +298,11 @@ def _scalar_fallback(mapping, iterations: int) -> SimVerdict:
 
 def simulate_batch(mappings, iterations: int = 4, device=None,
                    tol: Optional[Tolerance] = None,
-                   prepared: Optional[PreparedBatch] = None) -> BatchResult:
+                   prepared: Optional[PreparedBatch] = None,
+                   backend: Optional[str] = None) -> BatchResult:
     """Batched cycle-accurate verification (see module docstring) on
-    ``device`` (default ``cuda``; :func:`~repro_torch.device.resolve_device`).
+    ``device`` (default ``cuda``; :func:`~repro_torch.device.resolve_device`),
+    or by ``backend`` (:func:`select_backend`).
 
     Returns a :class:`BatchResult` — one :class:`SimVerdict` per input
     mapping, in input order, plus throughput metadata.  Never raises on a
@@ -262,12 +313,14 @@ def simulate_batch(mappings, iterations: int = 4, device=None,
     mappings/iterations/device) to skip the lowering + packing half and
     rerun only the cycle loop."""
     t0 = time.perf_counter()
-    device = resolve_device(device)
-    tol = tol if tol is not None else tolerance_for(device.type)
+    backend = select_backend(backend, device)
+    device = bucket_device(backend, device)
+    faultinject.check("sim.batch", f"batch={len(mappings)}")
+    tol = tol if tol is not None else tolerance_for(backend)
 
     if prepared is None:
         prepared = prepare_batch(mappings, iterations=iterations,
-                                 device=device)
+                                 device=device, backend=backend)
     elif (prepared.n_mappings != len(mappings)
           or prepared.iterations != iterations
           or (prepared.packed is not None
@@ -279,12 +332,13 @@ def simulate_batch(mappings, iterations: int = 4, device=None,
             + f", got {len(mappings)} x {iterations} on {device}")
 
     out = BatchResult([None] * len(mappings))
-    out.backend = device.type
+    out.backend = backend
     for i in prepared.scalar_idx:
         out[i] = _scalar_fallback(mappings[i], iterations)
     out.n_scalar_fallback = len(prepared.scalar_idx)
     if prepared.packed is not None:
-        verdicts = _bucket_verdicts(prepared.forms, prepared.packed, tol)
+        verdicts = _bucket_verdicts(prepared.forms, prepared.packed,
+                                    backend, tol)
         for i, v in zip(prepared.batch_idx, verdicts):
             out[i] = v
         out.n_buckets = 1
@@ -294,13 +348,15 @@ def simulate_batch(mappings, iterations: int = 4, device=None,
 
 def verify_mappings(mappings, iterations: int = 3, device=None,
                     prepared: Optional[PreparedBatch] = None,
+                    backend: Optional[str] = None,
                     ) -> List[Dict[Tuple[int, int], float]]:
     """Batched verification with the scalar oracle's disproof contract:
     returns the per-mapping value dicts, raising ``AssertionError`` on the
     first failing mapping.  ``prepared`` (e.g. rebuilt from an artifact's
     stored ``compiled_sim`` forms) skips the lowering half."""
     verdicts = simulate_batch(mappings, iterations=iterations,
-                              device=device, prepared=prepared)
+                              device=device, prepared=prepared,
+                              backend=backend)
     for i, v in enumerate(verdicts):
         assert v.ok, (
             f"mapping[{i}] failed batched verification "

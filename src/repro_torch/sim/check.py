@@ -2,14 +2,14 @@
 ``repro/sim/check.py``).
 
 The scalar oracle (:mod:`repro_torch.core.simulate`) and the batched
-backend (:mod:`repro_torch.sim.batch`) accept a value iff :func:`close`
+backends (:mod:`repro_torch.sim.batch`) accept a value iff :func:`close`
 does — one mixed absolute/relative policy, so a large-magnitude workload
 (``gemm`` at high unroll grows values into the 1e5 range) cannot pass one
 simulator and spuriously fail the other.
 
-:data:`DEFAULT_TOL` is the float64 policy of the scalar oracle;
-:data:`F32_TOL` the looser one the batched backend compares under, since
-it computes in float32 on every device.
+:data:`DEFAULT_TOL` is the float64 policy of the scalar oracle and the
+numpy backend; :data:`F32_TOL` the looser one the tensor loop compares
+under, since it computes in float32 on every device.
 
 Leaf-level: numpy and the standard library only.
 """
@@ -28,9 +28,9 @@ class Tolerance:
     rtol: float = 1e-6
 
 
-#: scalar oracle (float64 end to end)
+#: scalar oracle + numpy backend (float64 end to end)
 DEFAULT_TOL = Tolerance()
-#: the batched backend accumulates in float32; comparisons against the
+#: the tensor loop accumulates in float32; comparisons against the
 #: float64 reference need headroom for rounding over deep mul/mac chains
 F32_TOL = Tolerance(atol=1e-3, rtol=1e-4)
 
@@ -49,9 +49,9 @@ def close_array(got, want, tol: Tolerance = DEFAULT_TOL):
 
 def tolerance_for(backend: str) -> Tolerance:
     """The comparison policy a backend's results are judged under: the
-    scalar oracle is float64, every tensor backend (``cpu``, ``cuda``)
-    float32."""
-    return DEFAULT_TOL if backend == "scalar" else F32_TOL
+    scalar oracle and ``numpy`` are float64, the tensor loop (``cpu``,
+    ``cuda``) float32."""
+    return DEFAULT_TOL if backend in ("scalar", "numpy") else F32_TOL
 
 
 def scalar_verdict(mapping, iterations: int = 4):

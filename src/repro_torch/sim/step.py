@@ -1,6 +1,6 @@
-"""The batched simulator's cycle loop on tensors (port of the jnp backend
-of ``repro/sim/step.py``: ``PackedBucket``, ``_jit_runner``,
-``run_bucket_jnp``).
+"""The batched simulator's cycle loops (port of ``repro/sim/step.py``:
+``PackedBucket``, the jnp backend's ``_jit_runner`` / ``run_bucket_jnp`` on
+tensors, and the numpy backend's ``run_bucket_numpy``).
 
 One call executes every cycle of every mapping in a bucket.  State is four
 flat tensors on the bucket's device:
@@ -32,10 +32,17 @@ there.  The eager loop also runs on the card when called explicitly, with
 the ``sim_alu`` kernel as its ALU: about seventy small launches per cycle
 plus the kernel's one, bound by host dispatch (``PERF.md``); it is the
 yardstick the fused kernel is held and timed against.
+
+:func:`run_bucket_numpy` is the JAX package's float64 host loop, copied
+line for line (its static-availability fast path: ``done`` and ``fail``
+are timing functions computed once, and only values propagate cycle by
+cycle).  It gives the reference's ``val``/``done``/``fail`` bit for bit
+and runs only when a caller asks for the ``numpy`` backend
+(:func:`repro_torch.sim.batch.select_backend`).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import numpy as np
@@ -43,7 +50,7 @@ import torch
 
 from repro_torch.kernels.sim_alu import sim_alu
 from repro_torch.kernels.sim_loop import STATICS, sim_loop_cuda
-from repro_torch.sim.lower import K_BROKEN, K_FEED, K_ROUTED
+from repro_torch.sim.lower import K_BROKEN, K_FEED, K_ROUTED, OPS
 
 #: step_abs padding: far enough out that no in-horizon cycle matches
 NEVER = 1 << 30
@@ -80,6 +87,10 @@ class PackedBucket:
     step_src: np.ndarray   # (B,S)  int32 (sentinel N)
     step_abs: np.ndarray   # (B,S)  int32 (pad NEVER)
     device: torch.device   # where the cycle loop runs
+    #: the numpy backend's derived-data memo (static predicates, event
+    #: schedule), so its warm reruns skip every precomputation
+    cache: Dict[str, object] = field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def shape(self) -> Tuple[int, int, int, int, int]:
@@ -230,3 +241,196 @@ def run_bucket_eager(pb: PackedBucket):
     for t in range(pb.hmax):
         _cycle(s, t, val, done, avail, fail)
     return _result(pb, val, done, fail)
+
+
+# -- numpy backend (float64, on the host) ----------------------------------
+
+
+def _np_alu(code: int, a, b, c, leaf):
+    op = OPS[code]
+    if op in ("const", "input", "load"):
+        return leaf
+    if op in ("store", "output"):
+        return a
+    if op == "add":
+        return a + b
+    if op == "sub":
+        return a - b
+    if op == "mul":
+        return a * b
+    if op == "mac":
+        return a * b + c
+    if op == "shl":
+        return a * 2.0
+    if op == "shr":
+        return a / 2.0
+    if op == "and":
+        return (a.astype(np.int64) & b.astype(np.int64)).astype(np.float64)
+    if op == "or":
+        return (a.astype(np.int64) | b.astype(np.int64)).astype(np.float64)
+    if op == "xor":
+        return (a.astype(np.int64) ^ b.astype(np.int64)).astype(np.float64)
+    if op == "not":
+        return (~a.astype(np.int64) & 0xFFFF).astype(np.float64)
+    if op == "min":
+        return np.minimum(a, b)
+    if op == "max":
+        return np.maximum(a, b)
+    if op == "abs":
+        return np.abs(a)
+    if op == "cmp":
+        return (a > b).astype(np.float64)
+    if op == "select":
+        return np.where(a != 0.0, b, c)
+    raise ValueError(op)
+
+
+def _np_static(pb: PackedBucket):
+    """One-time static predicates (derivation in the module docstring):
+    ``done`` (B,N,I) — a pure timing function — and ``fail`` (B,) — every
+    read-failure check hoisted out of the cycle loop."""
+    B, N, K, M, S = pb.shape
+    I = pb.iterations
+    ii3 = pb.ii[:, None, None]
+    hor3 = pb.horizon[:, None, None]
+    routed = pb.op_kind == K_ROUTED
+    broken = pb.op_kind == K_BROKEN
+
+    it_r = np.arange(I, dtype=np.int32)
+    done = pb.exec_mask[:, :, None] & (
+        pb.issue[:, :, None] + it_r * ii3 < hor3)                # (B,N,I)
+
+    b2 = np.arange(B)[:, None]
+    exec_pad = np.concatenate(
+        [pb.exec_mask, np.zeros((B, 1), dtype=bool)], axis=1)    # (B,N+1)
+    issue_pad = np.concatenate(
+        [pb.issue, np.zeros((B, 1), dtype=np.int32)], axis=1)
+    # a step holds iteration k's value iff its producer committed before
+    # the write cycle: exec(src) and issue_src < step_abs (sentinel row N
+    # is never exec; padded steps carry step_abs = NEVER)
+    step_ok = (exec_pad[b2, pb.step_src]
+               & (issue_pad[b2, pb.step_src] < pb.step_abs))     # (B,S)
+    sa_pad = np.concatenate(
+        [pb.step_abs, np.full((B, 1), NEVER, dtype=np.int32)], axis=1)
+    so_pad = np.concatenate(
+        [step_ok, np.zeros((B, 1), dtype=bool)], axis=1)
+    b4 = np.arange(B)[:, None, None, None]
+    sa = sa_pad[b4, pb.op_steps]                                 # (B,N,K,M)
+    so = so_pad[b4, pb.op_steps]
+    # presence is iteration-independent: arrival step_abs + (it-dist)*ii
+    # <= read cycle issue_dst + it*ii  ⇔  step_abs <= issue_dst + dist*ii
+    deadline = pb.issue[:, :, None] + pb.op_dist * ii3           # (B,N,K)
+    ok_col = ((sa <= deadline[:, :, :, None]) & so).any(axis=3)
+    # the first needy read is iteration `dist`; it happens iff that
+    # execution lands inside the horizon (deadline is exactly its cycle)
+    reads = (pb.exec_mask[:, :, None] & (pb.op_dist < I)
+             & (deadline < hor3))
+    fail = (reads & (broken | (routed & ~ok_col))).any(axis=(1, 2))
+    return done, fail
+
+
+def _np_schedule(pb: PackedBucket):
+    """One-time event schedule for the value recurrence: every (mapping,
+    node, iteration) execution becomes an event with prebuilt gather /
+    scatter indices into one flat buffer, sorted by (cycle, opcode) and
+    grouped into per-cycle opcode segments.
+
+    Buffer layout: ``[0, V)`` node values (b, node-row incl. the 0.0
+    sentinel row N, iter; reset each run), ``[V, V+P)`` the static feed
+    pool (const/input operand values per (b, n, k, it)), ``[V+P]`` a 0.0
+    slot for absent / pre-loop operands."""
+    B, N, K, M, S = pb.shape
+    I = pb.iterations
+    ii3 = pb.ii[:, None, None]
+    hor3 = pb.horizon[:, None, None]
+    routed = pb.op_kind == K_ROUTED
+    feed = pb.op_kind == K_FEED
+    it_r = np.arange(I, dtype=np.int32)
+    V = B * (N + 1) * I
+    P = B * N * K * I
+
+    t_ev = pb.issue[:, :, None] + it_r * ii3                     # (B,N,I)
+    valid = pb.exec_mask[:, :, None] & (t_ev < hor3)
+    node_flat = ((np.arange(B)[:, None] * (N + 1)
+                  + np.arange(N)[None, :])[:, :, None] * I + it_r)
+
+    src_base = (np.arange(B)[:, None, None] * (N + 1)
+                + pb.op_src) * I                                 # (B,N,K)
+    want = it_r[None, None, None, :] - pb.op_dist[:, :, :, None]  # (B,N,K,I)
+    rd = src_base[:, :, :, None] + want
+    feed_idx = V + np.arange(P, dtype=np.int64).reshape(B, N, K, I)
+    idx_full = np.where(routed[..., None] & (want >= 0), rd,
+                        np.where(feed[..., None], feed_idx, V + P))
+    feedpool = (pb.op_feed[:, :, :, None] + it_r).ravel()
+
+    mask = valid.ravel()
+    t_flat = t_ev.ravel()[mask]
+    code_flat = np.broadcast_to(
+        pb.opcode[:, :, None], (B, N, I)).ravel()[mask]
+    gidx = idx_full.transpose(0, 1, 3, 2).reshape(B * N * I, K)[:, :3][mask]
+    widx = node_flat.ravel()[mask]
+    leafv = (pb.leaf[:, :, None] + it_r).ravel()[mask]
+
+    order = np.lexsort((code_flat, t_flat))
+    t_s = t_flat[order]
+    code_s = code_flat[order]
+    gidx = np.ascontiguousarray(gidx[order])
+    widx = np.ascontiguousarray(widx[order])
+    leafv = np.ascontiguousarray(leafv[order])
+
+    # cycles: [(clo, chi, [(opcode, lo, hi), ...]), ...] in cycle order
+    cycles = []
+    E = len(t_s)
+    if E:
+        seg_key = t_s.astype(np.int64) * len(OPS) + code_s
+        starts = np.concatenate(
+            ([0], np.flatnonzero(np.diff(seg_key) != 0) + 1, [E]))
+        cur_t = None
+        for a0, a1 in zip(starts[:-1], starts[1:]):
+            t = int(t_s[a0])
+            if t != cur_t:
+                cycles.append((int(a0), [a1], []))
+                cur_t = t
+            cycles[-1][1][0] = int(a1)
+            cycles[-1][2].append((int(code_s[a0]), int(a0), int(a1)))
+        cycles = [(lo, hi[0], segs) for lo, hi, segs in cycles]
+
+    buf = np.zeros(V + P + 1, dtype=np.float64)
+    buf[V:V + P] = feedpool
+    return {"V": V, "buf": buf, "gidx": gidx, "widx": widx,
+            "leaf": leafv, "cycles": cycles}
+
+
+def run_bucket_numpy(pb: PackedBucket):
+    """Returns ``(val (B,N,I) f64, done (B,N,I) bool, fail (B,) bool)``;
+    ``fail`` marks read failures only (final ref comparison is the
+    caller's, under its tolerance policy).
+
+    Static-availability fast path: ``done``/``fail`` and the event
+    schedule are computed once per bucket (memoized on ``pb.cache``); a
+    run is one operand gather plus a few opcode-segment ALU calls per
+    cycle — reads still see start-of-cycle state because each cycle's
+    gather happens before any of its writes."""
+    B, N, K, M, S = pb.shape
+    I = pb.iterations
+    static = pb.cache.get("np_static")
+    if static is None:
+        static = pb.cache["np_static"] = _np_static(pb)
+    done, fail = static
+    sched = pb.cache.get("np_sched")
+    if sched is None:
+        sched = pb.cache["np_sched"] = _np_schedule(pb)
+
+    buf = sched["buf"]
+    V = sched["V"]
+    buf[:V] = 0.0
+    gidx, widx, leafv = sched["gidx"], sched["widx"], sched["leaf"]
+    for clo, chi, segs in sched["cycles"]:
+        vals = buf[gidx[clo:chi]]                                # (E,3)
+        a, b, c = vals[:, 0], vals[:, 1], vals[:, 2]
+        for code, lo, hi in segs:
+            buf[widx[lo:hi]] = _np_alu(
+                code, a[lo - clo:hi - clo], b[lo - clo:hi - clo],
+                c[lo - clo:hi - clo], leafv[lo:hi])
+    val = buf[:V].reshape(B, N + 1, I)[:, :N, :].copy()
+    return val, done, fail

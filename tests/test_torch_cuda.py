@@ -17,7 +17,8 @@ head dims 64 and 128, ``mma.sync`` for the other bf16 head dims up to 128
 and misaligned views, SIMT past it and in float32, a route the call
 cannot take refused; and flash's training forward with its row
 log-sum-exp and float32 output) against autograd of the plain versions,
-twice bit for bit, each by name.
+twice bit for bit, each by name; and a store round trip verified on
+the card (one ``sim_loop`` launch a verifying get).
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -122,6 +123,50 @@ def test_verdicts_on_card_equal_cpu(cuda):
     assert [(v.ok, v.reason) for v in on_card] == \
         [(v.ok, v.reason) for v in on_cpu]
     assert not on_card[-1].ok and all(v.ok for v in on_card[:-1])
+
+
+def test_store_round_trip_verified_on_the_card(cuda, tmp_path, monkeypatch):
+    """atax's artifacts and the step-0 tampered copy, put into a store and
+    read back twice under ``verify="always"`` on the card: one
+    ``sim_loop`` launch per verifying get that reaches the simulator (the
+    tampered one fails ``validate()`` first), no ``sim_alu`` launch, and
+    the same artifacts, counters and values as a CPU store's."""
+    from repro_torch.compiler.store import ArtifactStore, key_for
+    from _torch_artifacts import corpus_files, tampered
+
+    values = {"cuda": [], "cpu": []}
+    simulate = CompileResult.simulate
+
+    def recorded(self, iterations=3, device=None, backend=None):
+        out = simulate(self, iterations, device, backend)
+        values[torch.device(device).type].append(out)
+        return out
+
+    monkeypatch.setattr(CompileResult, "simulate", recorded)
+    arts = [CompileResult.load(f"{CORPUS_DIR}/{fn}")
+            for fn in corpus_files() if fn.startswith("atax_")]
+    arts.append(CompileResult.from_json({**tampered("op"), "seed": 1,
+                                         "verified": None}))
+    served, counters = {}, {}
+    for dev in ("cuda", "cpu"):
+        store = ArtifactStore(str(tmp_path / dev), verify="always",
+                              device=dev)
+        keys = [key_for(a) for a in arts]
+        for a, k in zip(arts, keys):
+            store.put(a, key=k)
+        sim_loop_cuda.launches = sim_alu_cuda.launches = 0
+        served[dev] = [None if r is None else r.to_json()
+                       for r in (store.get(k) for k in keys + keys)]
+        counters[dev] = store.counters.to_json()
+        if dev == "cuda":
+            runs = store.counters.verify_runs
+            assert runs > len(arts)
+            assert sim_loop_cuda.launches == runs - 1
+            assert sim_alu_cuda.launches == 0
+    assert served["cuda"] == served["cpu"]
+    assert counters["cuda"] == counters["cpu"]
+    assert counters["cuda"]["verify_failures"] == 1
+    assert values["cuda"] == values["cpu"]
 
 
 def _corpus_and_corrupted():

@@ -94,7 +94,13 @@ def test_module_list_covers_the_package():
                  "repro_torch.train.data", "repro_torch.train.optimizer",
                  "repro_torch.train.steps", "repro_torch.train.checkpoint",
                  "repro_torch.train.loop", "repro_torch.train.tree",
-                 "repro_torch.parallel.compression"):
+                 "repro_torch.parallel.compression",
+                 "repro_torch.core.arch", "repro_torch.compiler.registry",
+                 "repro_torch.compiler.errors", "repro_torch.compiler.fsio",
+                 "repro_torch.compiler.faultinject",
+                 "repro_torch.compiler.journal", "repro_torch.compiler.store",
+                 "repro_torch.core.collect", "repro_torch.core.power_area",
+                 "repro_torch.core.motifs", "repro_torch.core.fusion"):
         assert want in mods
 
 

@@ -18,38 +18,63 @@ atax_u2, dwconv_u1 and jacobi_u1 on plaid2x2) go through both packages:
   stopping at its own horizon): each mapping run alone, in a one-mapping
   bucket up to its own horizon, gives its slice of the batched run; and a
   CUDA bucket hands the kernel the statics of ``sim_loop.STATICS`` and
-  reads its state back in the eager loop's layout.
+  reads its state back in the eager loop's layout;
+* stored mappings are validated against their fabric before they are
+  simulated: four faults no simulation sees (a load on an ALU, an FU
+  conflict in one modulo slot, a route ending off the consumer's read
+  ports, a capacity-1 resource holding two nets) FAIL ``verify`` with the
+  JAX package's row, reason and exit code;
+* the numpy float64 backend equals the JAX package's ``run_bucket_numpy``
+  bit for bit on the TABLE2 corpus bucket, and runs only when asked;
+* ``energy_sweep`` rows equal the JAX package's.
 """
+import contextlib
 import copy
+import io
 import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from repro.compiler.artifact import CompileResult as JaxCompileResult
 from repro.compiler.artifact import mapping_to_record
+from repro.compiler.cli import main as jax_cli_main
 from repro.core.mapper import HierarchicalMapper
+from repro.core.power_area import energy_sweep as jax_energy_sweep
 from repro.sim.batch import pack_bucket as jax_pack_bucket
+from repro.sim.batch import prepare_batch as jax_prepare_batch
 from repro.sim.batch import simulate_batch as jax_simulate_batch
 from repro.sim.check import scalar_verdict as jax_scalar_verdict
 from repro.sim.lower import CompiledSim as JaxCompiledSim
 from repro.sim.lower import lower_mapping as jax_lower_mapping
 from repro.sim.step import run_bucket_jnp, run_bucket_numpy
+from repro.sim.step import run_bucket_numpy as jax_run_bucket_numpy
+from repro_torch.compiler.artifact import CompileResult
+from repro_torch.compiler.cli import main as port_cli_main
+from repro_torch.core.arch import make_arch
+from repro_torch.core.power_area import energy_sweep
 from repro_torch.core.simulate import simulate
 from repro_torch.mapping.mapping import Mapping
 from repro_torch.mapping.mapping import mapping_to_record as port_to_record
 from repro_torch.sim.batch import (
     pack_bucket,
     prepare_batch,
+    select_backend,
     simulate_batch,
     verify_mappings,
 )
-from repro_torch.sim.check import F32_TOL, close_array, scalar_verdict
+from repro_torch.sim.check import (DEFAULT_TOL, F32_TOL, close_array,
+                                   scalar_verdict, tolerance_for)
 from repro_torch.sim.lower import CompiledSim, lower_mapping
 from repro_torch.kernels import sim_loop
 from repro_torch.sim import step
 from repro_torch.sim.step import (PackedBucket, _cycle, _kernel_statics,
                                   _statics, run_bucket, run_bucket_eager)
+from repro_torch.sim.step import run_bucket_numpy as port_run_bucket_numpy
+from _torch_artifacts import (CORPUS, TAMPER_KINDS, corpus_files,
+                              corpus_json, tampered, write_json)
 
 KERNELS = [("atax", 2), ("dwconv", 1), ("jacobi", 1)]
 FIELDS = (CompiledSim._INT_FIELDS + CompiledSim._BOOL_FIELDS
@@ -343,3 +368,178 @@ def test_default_device_is_cuda_and_never_falls_back(jax_mappings):
         prepare_batch(ms, iterations=3)
     with pytest.raises(RuntimeError, match="CUDA"):
         verify_mappings(ms, iterations=3)
+
+
+# -- structural validation of stored mappings --------------------------------
+
+
+def _verify_rows(main, argv):
+    """``(rc, FAIL/OK/SKIP rows)`` of a package's ``verify`` CLI run."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    rows = [ln for ln in buf.getvalue().splitlines()
+            if ln[:6].strip() in ("OK", "FAIL", "SKIP")]
+    return rc, rows
+
+
+@pytest.mark.parametrize("kind", TAMPER_KINDS)
+def test_validate_rejects_what_simulation_cannot_see(tmp_path, kind):
+    """A stored mapping whose fault a simulation cannot see (a load on an
+    ALU, two nodes on one FU in one modulo slot, a route ending on a
+    resource the consumer cannot read, a capacity-1 resource holding two
+    nets): the scalar oracle, the tensor loop and the numpy loop all
+    accept the mapping, and ``verify`` FAILs it at the rebuild, with the
+    JAX package's row, reason and exit code."""
+    art = tampered(kind)
+    bare = Mapping.from_record(art["mappings"][0])
+    assert scalar_verdict(bare, iterations=3)[0]
+    assert simulate_batch([bare], iterations=3, device="cpu")[0].ok
+    assert simulate_batch([bare], iterations=3, backend="numpy")[0].ok
+    path = write_json(str(tmp_path / f"{kind}.json"), art)
+    want = _verify_rows(jax_cli_main, ["verify", path])
+    got = _verify_rows(port_cli_main, ["verify", path, "--device", "cpu"])
+    assert got == want
+    rc, rows = got
+    assert rc == 1 and len(rows) == 1
+    assert rows[0].startswith("FAIL  atax_u2/plaid")
+    assert "unloadable mapping (AssertionError: " in rows[0]
+    if kind == "op":
+        assert rows[0].endswith(
+            "unloadable mapping (AssertionError: (5, 'load', 'alu'))")
+    with pytest.raises(AssertionError):
+        CompileResult.from_json(art).simulate(iterations=3, device="cpu")
+
+
+def test_rebuilt_corpus_mappings_carry_their_fabric():
+    art = CompileResult.from_json(corpus_json("atax_u2__spatial.json"))
+    ms = art.rebuild_mappings()
+    assert len(ms) > 1
+    for m in ms:
+        assert m.arch is make_arch("spatial4x4")
+        m.validate()
+    assert ms[0].cycles(5) == ms[0].ii * 4 + ms[0].makespan
+
+
+# -- the numpy float64 backend -----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def corpus_pair():
+    """The TABLE2 corpus's mappings, rebuilt by each package."""
+    port, ref = [], []
+    for fn in corpus_files():
+        data = corpus_json(fn)
+        if not data.get("mappings"):
+            continue
+        port += CompileResult.from_json(data).rebuild_mappings()
+        ref += JaxCompileResult.from_json(data).rebuild_mappings()
+    return port, ref
+
+
+def test_numpy_backend_equals_the_jax_numpy_loop_bit_for_bit(corpus_pair):
+    """On the TABLE2 corpus bucket the port's ``run_bucket_numpy`` gives
+    the JAX package's ``val``/``done``/``fail`` bit for bit, and
+    ``simulate_batch(backend="numpy")`` its verdicts, reasons and values
+    exactly."""
+    port, ref = corpus_pair
+    pb = prepare_batch(port, iterations=3, backend="numpy").packed
+    want_pb = jax_prepare_batch(ref, iterations=3).packed
+    assert pb.device == torch.device("cpu")
+    for f in step._FIELDS:
+        np.testing.assert_array_equal(getattr(pb, f), getattr(want_pb, f))
+    got, want = port_run_bucket_numpy(pb), jax_run_bucket_numpy(want_pb)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    ours = simulate_batch(port, iterations=3, backend="numpy")
+    theirs = jax_simulate_batch(ref, iterations=3, backend="numpy")
+    assert ours.backend == "numpy" and ours.n_buckets == 1
+    for v, w in zip(ours, theirs):
+        assert (v.ok, v.reason, v.backend) == (w.ok, w.reason, w.backend)
+        assert v.values == w.values
+
+
+def test_numpy_backend_catches_the_corrupted_mappings(jax_mappings):
+    batch = _corrupted(jax_mappings[0])
+    ours = simulate_batch([_port(m) for m in batch], iterations=3,
+                          backend="numpy")
+    theirs = jax_simulate_batch(batch, iterations=3, backend="numpy")
+    assert [(v.ok, v.reason) for v in ours] == \
+        [(w.ok, w.reason) for w in theirs]
+    assert not all(v.ok for v in ours)
+
+
+def test_numpy_backend_runs_only_when_asked(monkeypatch, jax_mappings):
+    """``numpy`` runs when a caller names it, and is judged under
+    ``DEFAULT_TOL``; nothing resolves to it (or to the CPU) by default, a
+    backend that disagrees with the device is refused, and the JAX
+    package's ``REPRO_SIM_BACKEND`` changes nothing in the port, whichever
+    of its values it holds."""
+    assert tolerance_for("numpy") == DEFAULT_TOL
+    assert tolerance_for("cuda") == tolerance_for("cpu") == F32_TOL
+    for env in (None, "numpy", "jnp", "pallas", "auto"):
+        if env is None:
+            monkeypatch.delenv("REPRO_SIM_BACKEND", raising=False)
+        else:
+            monkeypatch.setenv("REPRO_SIM_BACKEND", env)
+        assert select_backend("numpy") == "numpy"
+        assert select_backend("numpy", "cpu") == "numpy"
+        assert select_backend(None, "cpu") == "cpu"
+        assert select_backend("cpu", "cpu") == "cpu"
+        for bad in ("jnp", "pallas", "auto"):
+            with pytest.raises(ValueError, match="unknown sim backend"):
+                select_backend(bad)
+        with pytest.raises(ValueError, match="does not run on"):
+            select_backend("numpy", "cuda")
+        with pytest.raises(ValueError, match="does not run on"):
+            select_backend("cuda", "cpu")
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                select_backend()
+            with pytest.raises(RuntimeError, match="CUDA"):
+                select_backend("cuda")
+        res = simulate_batch([_port(jax_mappings[0])], iterations=3,
+                             device="cpu")
+        assert res.backend == "cpu" and res[0].backend == "cpu"
+
+
+def test_verify_cli_backend_numpy(capsys):
+    rc = port_cli_main(["verify", os.path.join(CORPUS, "atax_u2__plaid.json"),
+                        "--backend", "numpy"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "batched[numpy]: 1 mappings" in out
+    rc = port_cli_main(["verify", os.path.join(CORPUS, "atax_u2__plaid.json"),
+                        "--backend", "numpy", "--device", "cuda"])
+    captured = capsys.readouterr()
+    assert rc == 2 and "does not run on cuda" in captured.err
+    assert captured.out == ""
+
+
+# -- energy_sweep ------------------------------------------------------------
+
+
+def test_energy_sweep_rows_equal_the_jax_package(corpus_pair):
+    """Every row's ``ii``, ``cycles``, ``verified``, ``power_uw``,
+    ``area_um2`` and ``energy_uj`` equal the JAX package's, on the CPU's
+    tensor loop and on the numpy backend; ``sim_backend`` names what ran.
+    One row is a mapping with a dropped route (``verified: False``)."""
+    port, ref = corpus_pair
+    bad_ref = copy.deepcopy(ref[0])
+    bad_ref.routes.pop(next(iter(bad_ref.routes)))
+    bad_port = copy.deepcopy(port[0])
+    bad_port.routes.pop(next(iter(bad_port.routes)))
+    rows_port = [(m.arch.name, m, 10) for m in port + [bad_port]]
+    rows_ref = [(m.arch.name, m, 10) for m in ref + [bad_ref]]
+    want = jax_energy_sweep(rows_ref, backend="numpy")
+    for kw, backend in ((dict(device="cpu"), "cpu"),
+                        (dict(backend="numpy"), "numpy")):
+        got = energy_sweep(rows_port, **kw)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g["sim_backend"] == backend
+            assert {k: v for k, v in g.items() if k != "sim_backend"} == \
+                {k: v for k, v in w.items() if k != "sim_backend"}
+        assert not got[-1]["verified"] and all(
+            r["verified"] for r in got[:-1])
