@@ -44,6 +44,23 @@ Phases, in order; any failure exits non-zero before the last line:
    RMSNorm+SwiGLU block of ``tests/test_torch_fusion.py`` at llama3_2_3b's
    widths (3072 -> 8192), traced on meta tensors, whose first two lines
    must equal those the test holds;
+4c. compile phase (the compiler, a main path of its own: all 210 TABLE2
+   cells): ``python -m repro_torch compile W -u U --all-jobs --verify
+   --device cuda --store STORE --out-dir D`` for each of the 30 workloads,
+   8 processes at a time into one store (seed 0, full budgets,
+   ``REPRO_QUICK`` unset; each process runs the CLI's ``main`` with the
+   launch counters set to 0 just before it and written out just after):
+   every artifact equal to the corpus file of its name (the JAX package's
+   compile) but for wall time, verdicts the manifest's, ``sim_loop``
+   launched once a compile that holds a mapping (177) and nothing else;
+   ``diff --golden tests/golden_ii_quick.json D`` 0 regressed; ``store
+   get`` of every key: the 177 proven cells hit without place & route and
+   serve the compiled artifact, the rest miss; ``store warm --quick``
+   twice (the first compiles the quick cells the verifying compiles did
+   not store, the second nothing); atax_u2's spatial cell compiled on the
+   CPU equals its compile on the card (one launch); a traced compile's
+   busy share and sim_loop's device time; compile seconds a cell p50 /
+   p99 / sum, the slowest cell and verify's share;
 5. LM kernel phase: ``rmsnorm``, ``fused_swiglu`` and ``flash_attention``
    against their plain versions on the card, in float32 and bfloat16 on
    the shapes of ``tests/test_kernels.py`` (under its ``TOL``), flash also
@@ -1011,6 +1028,325 @@ def store_phase():
           f"tensors on the host; the report its test holds): "
           + " | ".join(lines))
     return launches
+
+
+#: the compile phase's CLI processes at a time: compile is host work, one
+#: core a process
+COMPILE_WORKERS = 8
+#: the artifact fields that record wall time or the run (held out of the
+#: comparison with the corpus)
+WALL_FIELDS = ("timings", "provenance")
+
+
+def _mapping_fields(art) -> dict:
+    """An artifact's JSON minus what records wall time or the run
+    (``timings``, ``provenance``, each pass's ``wall_s``): the mapping,
+    its numbers, the motif and pass counters, the route cache, the lowered
+    forms and the verdict."""
+    out = {k: v for k, v in art.to_json().items() if k not in WALL_FIELDS}
+    out["pass_stats"] = [{k: v for k, v in row.items() if k != "wall_s"}
+                         for row in out["pass_stats"] or []]
+    return out
+
+
+def compile_worker(counts_path: str, argv) -> int:
+    """``chip_smoke.py --compile-worker COUNTS -- ARGS``: one
+    ``python -m repro_torch ARGS`` (the CLI's ``main``, in this process so
+    that its launch counters can be read), with the counters set to 0 just
+    before it and written to ``COUNTS`` as JSON just after."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.compiler.cli import main as cli_main
+
+    reset_counts()
+    rc = cli_main(argv)
+    with open(counts_path, "w") as f:
+        json.dump(read_counts(), f)
+    return rc
+
+
+def compile_phase(device: str = "cuda", names=None):
+    """The compiler on the card: ``python -m repro_torch compile W -u U
+    --all-jobs --verify --device DEVICE --store STORE --out-dir D`` for every
+    TABLE2 workload (``names``: a subset), ``COMPILE_WORKERS`` processes at
+    a time into one store, ``REPRO_QUICK`` unset, seed 0, full budgets.
+    Every artifact must equal the corpus file of its name (the JAX
+    package's compile of the same cell) in everything but wall time, and
+    its verdict the manifest's; ``sim_loop`` launches once per compile that
+    holds a lowered mapping and nothing else launches; ``diff --golden
+    tests/golden_ii_quick.json D`` has 0 regressed; ``store get`` of every
+    key, with place & route patched to fail: each proven cell hits and
+    serves the artifact its compile wrote, each other cell misses (a
+    verifying compile stores only what it proved); ``store warm --quick``
+    twice: the first compiles (unverified) the quick cells that hold no
+    proven mapping and finds the rest, the second compiles nothing.  On the
+    card, one cell compiled on the CPU equals its compile on the card, and
+    a traced compile gives the device's busy share.  Returns the phase's
+    ``sim_loop`` launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import CORPUS_DIR
+    from repro_torch.compiler.artifact import CompileResult
+    from repro_torch.compiler.cli import main as cli_main
+    from repro_torch.compiler.pipeline import job_grid
+    from repro_torch.core.spatial import SpatialPipelineMapper
+    from repro_torch.core.workloads import TABLE2, quick_workloads
+    from repro_torch.mapping.mappers import PipelineMapper
+
+    # the corpus is a full-budget compile: so must this be, in every process
+    os.environ.pop("REPRO_QUICK", None)
+    with open(os.path.join(CORPUS_DIR, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    grid = job_grid()
+    require(grid == {j: tuple(am) for j, am in manifest["jobs"].items()},
+            f"job_grid() {grid} differs from the manifest's "
+            f"{manifest['jobs']}")
+    table = [w for w in TABLE2 if names is None or w.name in names]
+    corpus = {}
+    for w in table:
+        for job in grid:
+            fn = f"{w.name}_u{w.unroll}__{job}.json"
+            corpus[fn] = CompileResult.load(os.path.join(CORPUS_DIR, fn))
+    # longest first by the corpus's own compile times, to balance the pool
+    cost = {w: sum(corpus[f"{w.name}_u{w.unroll}__{job}.json"]
+                   .timings["total"] for job in grid) for w in table}
+    table.sort(key=lambda w: -cost[w])
+    tmp = tempfile.mkdtemp(prefix="repro_compile_")
+    try:
+        store = os.path.join(tmp, "store")
+        out_dir = os.path.join(tmp, "out")
+        os.makedirs(out_dir)
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+        def run(w):
+            counts = os.path.join(tmp, f"{w.name}_u{w.unroll}.counts.json")
+            argv = ["compile", w.name, "-u", str(w.unroll), "--all-jobs",
+                    "--verify", "--device", device, "--store", store,
+                    "--out-dir", out_dir]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--compile-worker", counts, "--", *argv],
+                env=env, capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            counted = None
+            if os.path.exists(counts):
+                with open(counts) as f:
+                    counted = json.load(f)
+            return w, argv, proc, counted, secs
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(COMPILE_WORKERS) as pool:
+            runs = list(pool.map(run, table))
+        wall = time.perf_counter() - t0
+        parent = read_counts()
+        require(not any(parent.values()),
+                f"the parent process launched {parent} during the CLI runs")
+        launched = dict.fromkeys(parent, 0)
+        for w, argv, proc, counted, secs in runs:
+            key = f"{w.name}_u{w.unroll}"
+            want_rc = int(any(corpus[f"{key}__{job}.json"].verified is False
+                              for job in grid))
+            require(proc.returncode == want_rc and counted is not None,
+                    f"python -m repro_torch {' '.join(argv)} exited "
+                    f"{proc.returncode}, want {want_rc} (1 where a cell of "
+                    f"the corpus is unverified); stdout ends:\n"
+                    f"{proc.stdout[-2000:]}\nstderr ends:\n"
+                    f"{proc.stderr[-3000:]}")
+            for name, n in counted.items():
+                launched[name] += n
+
+        got = {}
+        for fn, want in corpus.items():
+            art = CompileResult.load(os.path.join(out_dir, fn))
+            got[fn] = art
+            require(_mapping_fields(art) == _mapping_fields(want),
+                    f"{fn}: the port's compile differs from the corpus in "
+                    + ", ".join(k for k, v in _mapping_fields(art).items()
+                                if v != _mapping_fields(want)[k]))
+            verdict = manifest["files"][fn]["verdict"]
+            require(verdict == ("OK" if art.verified else "SKIP")
+                    and (verdict == "SKIP") == (not art.mappings),
+                    f"{fn}: verified {art.verified} with "
+                    f"{len(art.mappings)} mapping(s); the manifest says "
+                    f"{verdict}")
+        forms = [fj for a in got.values() if a.compiled_sim
+                 for fj in a.compiled_sim["forms"]]
+        require(None not in forms,
+                "a mapping was not lowered: its verification ran on the "
+                "scalar oracle")
+        verifying = sum(1 for a in got.values() if a.mappings)
+        # the CPU runs the plain loop: no kernel launches there
+        want = {**dict.fromkeys(launched, 0),
+                "sim_loop": verifying if device == "cuda" else 0}
+        require(launched == want,
+                f"the compiles launched {launched}, want {want} (sim_loop "
+                "once a verifying compile that holds mappings, nothing "
+                "else)")
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["diff", "--golden",
+                           os.path.join(ROOT, "tests", "golden_ii_quick.json"),
+                           out_dir])
+        line = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("ii-diff:")]
+        require(rc == 0 and len(line) == 1 and " 0 regressed" in line[0],
+                f"diff --golden exited {rc}:\n{buf.getvalue()[-3000:]}")
+        golden = line[0]
+
+        # every key from the store, with no place & route and no launch
+        def no_pnr(self, dfg):
+            raise AssertionError("store get ran place & route")
+
+        reset_counts()
+        served = os.path.join(tmp, "served.json")
+        hits = 0
+        t0 = time.perf_counter()
+        with _patched(PipelineMapper, "map", no_pnr), \
+                _patched(SpatialPipelineMapper, "map", no_pnr):
+            for fn, art in got.items():
+                key, job = fn[:-len(".json")].split("__")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = cli_main(["store", "get", art.workload["name"],
+                                   "-u", str(art.workload["unroll"]),
+                                   "--job", job, "--dir", store,
+                                   "--out", served])
+                if not art.verified:
+                    # nothing proven enters the store: a miss
+                    require(rc == 1, f"store get {fn} (verified "
+                            f"{art.verified}) exited {rc}, want a miss")
+                    continue
+                hits += 1
+                require(rc == 0 and buf.getvalue().startswith("HIT"),
+                        f"store get {fn} exited {rc}: {buf.getvalue()}")
+                require(CompileResult.load(served).to_json()
+                        == art.to_json(),
+                        f"store get {fn} served another artifact")
+        get_s = time.perf_counter() - t0
+        gets = read_counts()
+        require(not any(gets.values()),
+                f"store get (verify policy never) launched {gets}")
+
+        warm = []
+        if names is None:
+            # the quick cells that hold no proven mapping were never stored
+            # by the verifying compiles: the first warm compiles those (no
+            # verify) and finds the rest; the second compiles nothing
+            quick = {f"{w.name}_u{w.unroll}__{job}.json"
+                     for w in quick_workloads() for job in grid}
+            unproven = sum(1 for fn in quick if not got[fn].verified)
+            for puts in (unproven, 0):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli_main(["store", "warm", "--quick", "--dir",
+                                   store])
+                warm.append(buf.getvalue().splitlines()[-1])
+                want_line = (f"warm done: {puts} compiled+stored, "
+                             f"{len(quick) - puts} already present")
+                require(rc == 0 and warm[-1].startswith(want_line),
+                        f"store warm --quick exited {rc}: {warm[-1]}, want "
+                        f"{want_line}")
+
+        totals = {fn: a.timings["total"] for fn, a in got.items()}
+        slow = max(totals, key=totals.get)
+        verify_s = sum(a.timings["verify"] for a in got.values())
+        # each process's first verifying compile also sets up its CUDA
+        # context (the grid's job order is each process's compile order)
+        first, rest = [], []
+        for w in table:
+            arts = [got[f"{w.name}_u{w.unroll}__{job}.json"] for job in grid]
+            secs = [a.timings["verify"] for a in arts if a.mappings]
+            first += secs[:1]
+            rest += secs[1:]
+        cpus = len(os.sched_getaffinity(0))
+        print(f"compile: {len(got)} cells ({len(table)} workloads x "
+              f"{len(grid)} jobs) through python -m repro_torch compile "
+              f"--all-jobs --verify --device {device} --store, "
+              f"{COMPILE_WORKERS} processes at a time on {cpus} CPUs "
+              f"(os.cpu_count() {os.cpu_count()}): every artifact = the "
+              f"corpus's in mappings, ii, cycles, makespan, spatial, motifs, "
+              f"pass and route-cache counters, compiled_sim and verified; "
+              f"verdicts = the manifest's; launches {launched} (sim_loop = "
+              f"{verifying} compiles with mappings); {golden}")
+        print(f"compile: seconds a cell (timings.total, measured in the "
+              f"workers) p50 {_pct(list(totals.values()), 50):.3f} p99 "
+              f"{_pct(list(totals.values()), 99):.3f} sum "
+              f"{sum(totals.values()):.3f}, slowest {slow} "
+              f"{totals[slow]:.3f}; verify {verify_s:.3f} s = "
+              f"{100 * verify_s / sum(totals.values()):.3f}% of the sum: "
+              f"{sum(first):.3f} s in the {len(first)} first verifying "
+              f"compiles of a process (p50 {_pct(first, 50):.3f} s, the "
+              f"CUDA context's set-up with it), {sum(rest):.3f} s in the "
+              f"other {len(rest)} (p50 {1e3 * _pct(rest, 50):.3f} ms, p99 "
+              f"{1e3 * _pct(rest, 99):.3f} ms); "
+              f"phase wall {wall:.3f} s; process wall a workload p50 "
+              f"{_pct([r[4] for r in runs], 50):.3f} max "
+              f"{max(r[4] for r in runs):.3f} s")
+        print(f"compile: store get of {len(got)} keys: {hits} hits (every "
+              f"verified artifact, served as compiled), {len(got) - hits} "
+              f"misses (the unverified, never stored), no place & route, no "
+              f"launch, {get_s:.3f} s in all; store warm --quick twice: "
+              + (" / ".join(warm) or "not run on a subset"))
+        if device == "cuda":
+            compile_card_vs_cpu(grid)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launched["sim_loop"]
+
+
+def compile_card_vs_cpu(grid) -> None:
+    """One cell (atax_u2 on the spatial job: six segments, one bucket)
+    compiled with ``verify=True`` on the CPU and on the card: the same
+    artifact but for wall time, one ``sim_loop`` launch; then the same
+    compile traced (the second of two traces): the device's busy share and
+    sim_loop's device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.compiler.pipeline import compile as port_compile
+
+    arch, mapper = grid["spatial"]
+    cell = dict(unroll=2, arch=arch, mapper=mapper, seed=0, verify=True)
+    cpu = port_compile("atax", device="cpu", **cell)
+    reset_counts()
+    card = port_compile("atax", device="cuda", **cell)
+    counts = read_counts()
+    require(counts == {**dict.fromkeys(counts, 0), "sim_loop": 1},
+            f"a compile on the card launched {counts}, want sim_loop once")
+    require(card.verified and _mapping_fields(card) == _mapping_fields(cpu),
+            "atax_u2 spatial: the card's compile differs from the CPU's")
+    # the profiler's first window in a process also pays its own set-up:
+    # the second traced compile is the one read
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = port_compile("atax", device="cuda", **cell)
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    loop = [e for e in dev if "sim_loop" in e.key]
+    n = sum(e.count for e in loop)
+    if busy_ms == 0 or n == 0:
+        busy = "not measured (no device time in the trace)"
+    else:
+        loop_ms = sum(e.self_device_time_total for e in loop) / 1e3 / n
+        busy = (f"sim_loop {loop_ms:.6f} ms device time a launch ({n} "
+                f"launch), device busy {busy_ms:.6f} ms of the traced "
+                f"compile's {traced_ms:.3f} ms wall "
+                f"({100 * busy_ms / traced_ms:.4f}% busy; timings.total "
+                f"{1e3 * traced.timings['total']:.3f} ms, verify "
+                f"{1e3 * traced.timings['verify']:.3f} ms)")
+    print(f"compile: atax_u2 spatial ({len(card.mappings)} segments) on the "
+          f"card = on the CPU but for wall time, 1 sim_loop launch; traced "
+          f"compile: {busy}")
 
 
 def _randn(shape, dtype, seed: int, scale=1.0):
@@ -3132,6 +3468,10 @@ def main() -> int:
                                 **store_phase()}
     print(f"phase: store (verify --dir, verifying gets, energy_sweep, "
           f"motifs) {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    loop["launches_by_path"]["compile"] = compile_phase()
+    print(f"phase: compile (the TABLE2 grid through the CLI, store get and "
+          f"warm, card vs CPU) {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
     records = lm_kernel_phase()
@@ -3186,4 +3526,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--compile-worker"] and sys.argv[3:4] == ["--"]:
+        sys.exit(compile_worker(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

@@ -7,7 +7,10 @@ package), rebuilt and validated against their fabric
 (:mod:`repro_torch.core.arch`), lowered into flat tensor form
 (:mod:`repro_torch.sim.lower`) and proven cycle by cycle on the card
 (:mod:`repro_torch.sim.step`, one ``sim_loop`` kernel launch a bucket).
-``python -m repro_torch verify|store`` is the command-line entry point.
+The compiler maps a DFG onto a fabric (:mod:`repro_torch.mapping`,
+:func:`repro_torch.compiler.pipeline.compile`) and proves each mapping
+the same way.  ``python -m repro_torch
+list|compile|inspect|diff|verify|store`` is the command-line entry point.
 The LM substrate (``models``, ``serve``, ``train``, ``launch``) serves and
 trains every family of the JAX zoo through the port's kernels.
 

@@ -1,19 +1,22 @@
 """Serializable mapping artifacts (port of ``repro/compiler/artifact.py``).
 
 A :class:`CompileResult` is the JSON form of one compile (schema
-``repro.compiler/artifact@1``..``@5``, written by the JAX package's
-``compile()``): the headline numbers, the full placement/routing
-mapping(s) with their DFG, and, from ``@5`` on, the lowered
-``compiled_sim`` forms bound to the mappings by ``mappings_sha256``.
-:meth:`CompileResult.to_json` writes the JAX package's form byte for
-byte, so the artifact store (:mod:`repro_torch.compiler.store`) digests
-alike in both packages.  :meth:`CompileResult.simulate` rebuilds and
-validates the stored mapping(s) against their fabric, then re-verifies
-them on the card, without re-running place & route.
+``repro.compiler/artifact@1``..``@5``, written by either package's
+``compile()``): the headline numbers, per-stage timings, motif-cover and
+per-pass statistics, the full placement/routing mapping(s) with their
+DFG, and, from ``@5`` on, the lowered ``compiled_sim`` forms bound to the
+mappings by ``mappings_sha256``.  :meth:`CompileResult.to_json` writes the
+JAX package's form, keys in its order, so the artifact store
+(:mod:`repro_torch.compiler.store`) digests alike in both packages.
+:meth:`CompileResult.simulate` rebuilds and validates the stored
+mapping(s) against their fabric, then re-verifies them on the card,
+without re-running place & route.
 """
 from __future__ import annotations
 
 import json
+import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -55,7 +58,14 @@ class CompileResult:
     degraded: Optional[Dict[str, object]] = None
     provenance: Dict[str, object] = field(default_factory=dict)
     route_cache: Optional[Dict[str, object]] = None
+    #: uniform per-pass breakdown from the mapper's pass pipeline: one row
+    #: per pass ({"name", "wall_s", "calls", ...}), in execution order
     pass_stats: Optional[List[Dict[str, object]]] = None
+    #: set by ``compile(..., store=...)`` only: True = served from the
+    #: store without P&R, False = freshly compiled (and inserted), None =
+    #: no store involved.  Runtime-only — never serialized, so a hit
+    #: round-trips byte-identically to the artifact it was stored from.
+    store_hit: Optional[bool] = field(default=None, compare=False)
 
     @property
     def key(self) -> str:
@@ -64,6 +74,12 @@ class CompileResult:
         if "name" in w and "unroll" in w:
             return f"{w['name']}_u{w['unroll']}"
         return str(w.get("dfg_name", "dfg"))
+
+    @property
+    def mapped(self) -> bool:
+        return bool(self.mappings) or (
+            self.spatial is not None and self.spatial.get("analytic")
+        )
 
     def to_json(self) -> Dict[str, object]:
         return {
@@ -134,6 +150,34 @@ class CompileResult:
         """Live, validated :class:`Mapping` objects for every stored record
         (one per spatial segment; exactly one for modulo mappers)."""
         return [mapping_from_record(rec, self.arch) for rec in self.mappings]
+
+    def populate_compiled_sim(self, iterations: int = 3) -> bool:
+        """Lower the stored mappings into ``repro.sim/compiled@1`` form and
+        attach them as ``compiled_sim`` (segments the lowering cannot
+        express are recorded as ``null``).  Returns ``False`` — leaving
+        the artifact unchanged — when there is nothing lowerable; never
+        raises: the forms are an accelerator, not a requirement."""
+        from repro_torch.sim.lower import LoweringUnsupported, lower_mapping
+
+        if not self.mappings:
+            return False
+        try:
+            rebuilt = self.rebuild_mappings()
+        except (ValueError, KeyError):
+            return False
+        forms: List[Optional[Dict[str, object]]] = []
+        for m in rebuilt:
+            try:
+                forms.append(lower_mapping(m, iterations=iterations)
+                             .to_json())
+            except LoweringUnsupported:
+                forms.append(None)
+        self.compiled_sim = {
+            "iterations": iterations,
+            "mappings_sha256": sha256_of_json(self.mappings),
+            "forms": forms,
+        }
+        return True
 
     def _stored_prepared(self, iterations: int, backend: str, device=None):
         """Rebuild a :class:`~repro_torch.sim.batch.PreparedBatch` for
@@ -214,3 +258,41 @@ class CompileResult:
             raise SimulationFault(
                 f"simulating {self.key}/{self.mapper} failed "
                 f"({type(e).__name__}: {e})") from e
+
+    # -- display -----------------------------------------------------------
+    def summary(self) -> Dict[str, object]:
+        out = {
+            "key": self.key,
+            "arch": self.arch,
+            "mapper": self.mapper,
+            "seed": self.seed,
+            "ii": self.ii,
+            "cycles": self.cycles,
+            "makespan": self.makespan,
+            "segments": len(self.mappings),
+            "verified": self.verified,
+            "timings": {k: round(v, 3) for k, v in self.timings.items()},
+        }
+        if self.route_cache:
+            out["route_cache"] = self.route_cache
+        if self.pass_stats:
+            out["passes"] = self.pass_stats
+        if self.motifs:
+            out["motifs"] = self.motifs
+        if self.spatial:
+            out["spatial"] = self.spatial
+        if self.degraded:
+            out["degraded"] = self.degraded
+        return out
+
+
+def new_provenance() -> Dict[str, object]:
+    return {
+        "created_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "repro_version": REPRO_VERSION,
+        # whether REPRO_QUICK budget clamping was live at compile time —
+        # the store key needs it (a clamped-budget mapping must never be
+        # served to a full-budget consumer), and only the artifact itself
+        # can carry it into a later `store put`
+        "quick": bool(os.environ.get("REPRO_QUICK")),
+    }

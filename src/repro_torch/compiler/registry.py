@@ -1,19 +1,28 @@
-"""Name registry of the fabrics (port of the arch half of
+"""Name registries of the mappers and the fabrics (port of
 ``repro/compiler/registry.py``).
 
-Arch entries are zero-argument builders returning an
-:class:`~repro_torch.core.arch.Arch`, registered under a canonical name
-with aliases:
+Mapper entries are factories ``factory(arch, seed=..., time_budget=...)``
+returning an object with ``.map(dfg)``; arch entries are zero-argument
+functions returning an :class:`~repro_torch.core.arch.Arch`.  Both are
+registered under a canonical name with aliases and keyword metadata
+(``jobs`` drives the evaluation grid,
+:func:`repro_torch.compiler.pipeline.job_grid`):
+
+    @register_mapper("hierarchical", jobs={"plaid": "plaid2x2"})
+    class HierarchicalMapper: ...
 
     @register_arch("plaid2x2", aliases=("plaid",))
     def _build(): return build_plaid(2, 2, "plaid2x2")
 
 Unknown names raise :class:`RegistryError` (a ``ValueError``) whose
-message lists every registered option.  The mapper half waits for the
-mapper's port.
+message lists every registered option.
 
-Leaf-level on purpose: ``repro_torch.core.arch`` registers its builders
-here at import time.
+Leaf-level on purpose: ``repro_torch.core.arch`` and
+``repro_torch.mapping.mappers`` register here at import time, and the
+pipeline imports them — a cycle unless the registry stays a leaf.  The
+lookup helpers (``get_mapper``, ``list_mappers``, ...) live in
+:mod:`repro_torch.compiler.pipeline`, whose imports guarantee the
+built-ins are registered before the first query.
 """
 from __future__ import annotations
 
@@ -75,7 +84,18 @@ class Registry:
         return name in self._items or name in self._aliases
 
 
+MAPPERS = Registry("mapper")
 ARCHES = Registry("arch")
+
+
+def register_mapper(name: str, **kw) -> Callable:
+    """Decorator: register a mapper factory (``cls(arch, seed=, time_budget=)``
+    with a ``.map(dfg)`` method) under ``name``.  Keyword metadata: ``jobs``
+    maps grid job names to arch names; ``result="spatial"`` marks
+    factories whose ``.map`` returns a
+    :class:`~repro_torch.core.spatial.SpatialResult` instead of a
+    :class:`~repro_torch.mapping.mapping.Mapping`."""
+    return MAPPERS.register(name, **kw)
 
 
 def register_arch(name: str, **kw) -> Callable:

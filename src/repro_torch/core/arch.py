@@ -15,9 +15,9 @@ static *resource graphs*:
 
 Resource nodes carry a per-cycle capacity; FU adjacency lists say which
 resources an FU's operand mux can read.  ``Mapping.validate()`` reads the
-FUs' op sets and ``reads`` and the resource nodes' ``cap``.  The routing
-engine of the JAX package's ``Arch`` (``routing_engine``) comes with the
-mapper's port.
+FUs' op sets and ``reads`` and the resource nodes' ``cap``; the mappers
+(:mod:`repro_torch.mapping`) route over the distance tables of
+:meth:`Arch.routing_engine` (:mod:`repro_torch.core.routing`).
 """
 from __future__ import annotations
 
@@ -65,6 +65,14 @@ class Arch:
     @property
     def n_fus(self) -> int:
         return len(self.fus)
+
+    def routing_engine(self):
+        """The (lazily built, cached) shared routing engine for this fabric:
+        all-pairs hop-distance tables + per-FU start/heuristic caches used by
+        every mapper's router.  See :mod:`repro_torch.core.routing`."""
+        from repro_torch.core.routing import engine_for
+
+        return engine_for(self)
 
     def mem_fus(self) -> List[FU]:
         return [f for f in self.fus if "load" in f.ops]
@@ -263,8 +271,9 @@ def make_arch(name: str) -> Arch:
 
     Names (and aliases) come from the ``@register_arch`` registry — new
     fabrics plug in by registering a builder, no edits here.  Arch objects
-    are immutable after construction, so every caller in a process shares
-    one fabric per canonical name.
+    are immutable after construction, and the routing engine's distance
+    tables hang off the instance — caching means every mapper and test in a
+    process shares one fabric and one set of tables per canonical name.
     """
     from repro_torch.compiler.registry import ARCHES
 

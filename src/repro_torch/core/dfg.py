@@ -1,16 +1,15 @@
-"""Dataflow-graph IR (port of the parts of ``repro/core/dfg.py`` that
-verification, the motif pass and the Track-A tie of the PCU kernel need:
-construction, the JSON form, the views the motif extractor reads, ASAP
-levels, the topological order and the reference interpreter).
+"""Dataflow-graph IR (port of ``repro/core/dfg.py``).
 
 A DFG node is one operation of the loop body (compute, load, store, or
 constant); edges are data dependencies.  Recurrence edges carry an
-inter-iteration ``distance`` (loop-carried dependency).
+inter-iteration ``distance`` (loop-carried dependency), which drives RecMII
+in modulo scheduling (section 5.1 of the paper).
 """
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 COMPUTE_OPS = {
     "add", "sub", "mul", "shl", "shr", "and", "or", "xor", "not",
@@ -30,6 +29,10 @@ class Node:
     @property
     def is_compute(self) -> bool:
         return self.op in COMPUTE_OPS
+
+    @property
+    def is_memory(self) -> bool:
+        return self.op in MEMORY_OPS
 
 
 @dataclass
@@ -95,12 +98,23 @@ class DFG:
     def compute_nodes(self) -> List[int]:
         return [n.id for n in self.nodes.values() if n.is_compute]
 
+    @property
+    def memory_nodes(self) -> List[int]:
+        return [n.id for n in self.nodes.values() if n.is_memory]
+
+    def succs(self, nid: int, *, intra_only: bool = True) -> List[int]:
+        return [e.dst for e in self.edges
+                if e.src == nid and (e.distance == 0 or not intra_only)]
+
     def preds(self, nid: int, *, intra_only: bool = True) -> List[int]:
         return [e.src for e in self.edges
                 if e.dst == nid and (e.distance == 0 or not intra_only)]
 
     def intra_edges(self) -> List[Edge]:
         return [e for e in self.edges if e.distance == 0]
+
+    def recurrence_edges(self) -> List[Edge]:
+        return [e for e in self.edges if e.distance > 0]
 
     # -- analyses ----------------------------------------------------------
     def asap(self) -> Dict[int, int]:
@@ -127,6 +141,47 @@ class DFG:
                         stack.append(e.dst)
         assert len(out) == len(self.nodes), "cycle in intra-iteration DFG"
         return out
+
+    def validate(self) -> None:
+        self.topo_order()  # raises on cycles
+        for e in self.edges:
+            assert e.src in self.nodes and e.dst in self.nodes
+
+    def rec_mii(self, latency: int = 1) -> int:
+        """Recurrence MII: max over recurrence edges of
+        ceil(cycle latency / distance), the cycle closed by the shortest
+        intra-iteration path from the edge's consumer back to its
+        producer (the generated DFGs carry only short recurrences)."""
+        best = 1
+        for re in self.recurrence_edges():
+            dist = self._shortest_path_len(re.dst, re.src)
+            if dist is None:
+                if re.src == re.dst:
+                    dist = 0
+                else:
+                    continue
+            cycle_lat = (dist + 1) * latency
+            best = max(best, -(-cycle_lat // re.distance))
+        return best
+
+    def _shortest_path_len(self, a: int, b: int) -> Optional[int]:
+        if a == b:
+            return 0
+        frontier = [a]
+        seen = {a}
+        d = 0
+        while frontier:
+            d += 1
+            nxt = []
+            for n in frontier:
+                for s in self.succs(n):
+                    if s == b:
+                        return d
+                    if s not in seen:
+                        seen.add(s)
+                        nxt.append(s)
+            frontier = nxt
+        return None
 
     def eval(self, inputs: Dict[int, float], iterations: int = 1) -> Dict[int, List[float]]:
         """Reference interpreter (per-iteration; recurrences via distance).
@@ -196,3 +251,30 @@ def _apply(op: str, a: float, b: float, c: float, leaf: float) -> float:
     if op == "select":
         return b if a != 0.0 else c
     raise ValueError(op)
+
+
+def random_dag(
+    n_nodes: int, seed: int = 0, p_edge: float = 0.25, mem_frac: float = 0.3
+) -> DFG:
+    """Random DAG generator for property tests (at most 2 inputs a node);
+    the same seed draws the JAX package's graph."""
+    rng = random.Random(seed)
+    g = DFG(f"rand{seed}")
+    ids: List[int] = []
+    ops = sorted(COMPUTE_OPS - {"select", "mac"})  # binary/unary ops
+    for i in range(n_nodes):
+        if ids and rng.random() < mem_frac / 2:
+            op = "store"
+        elif rng.random() < mem_frac:
+            op = "load"
+        else:
+            op = rng.choice(ops)
+        nid = g.add(op)
+        if op != "load":
+            k = 1 if op in ("abs", "not", "store") else rng.randint(1, 2)
+            cands = ([x for x in ids if rng.random() < p_edge]
+                     or (ids and [rng.choice(ids)]) or [])
+            for slot, src in enumerate(cands[:k]):
+                g.connect(src, nid, operand=slot)
+        ids.append(nid)
+    return g

@@ -1,5 +1,6 @@
-"""Corpus artifacts for the port's tests, and tampered copies of them that
-``Mapping.validate()`` rejects and a simulation cannot see.
+"""Corpus artifacts for the port's tests, tampered copies of them that
+``Mapping.validate()`` rejects and a simulation cannot see, and
+:func:`fields`, an artifact less what reads the clock.
 
 Each tampered copy starts from ``atax_u2__plaid.json`` of the TABLE2
 corpus (``src/repro_torch/corpus/table2/``), drops its ``compiled_sim``
@@ -23,6 +24,16 @@ import os
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(ROOT, "src", "repro_torch", "corpus", "table2")
 TAMPER_KINDS = ("op", "conflict", "read_port", "overuse")
+
+
+def fields(art) -> dict:
+    """An artifact's JSON minus what reads the clock: ``timings``,
+    ``provenance`` and each pass's ``wall_s``."""
+    out = {k: v for k, v in art.to_json().items()
+           if k not in ("timings", "provenance")}
+    out["pass_stats"] = [{k: v for k, v in row.items() if k != "wall_s"}
+                         for row in out["pass_stats"] or []]
+    return out
 
 
 def corpus_json(name: str) -> dict:

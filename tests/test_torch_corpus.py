@@ -163,10 +163,10 @@ def test_manifest_hashes_match_files():
 def test_corpus_covers_grid_at_full_budget(corpus):
     from repro.compiler.pipeline import job_grid
     from repro.core.workloads import TABLE2
-    from repro_torch.compiler.cli import JOB_GRID
+    from repro_torch.compiler.pipeline import job_grid as port_job_grid
 
     grid = job_grid()
-    assert JOB_GRID == grid
+    assert port_job_grid() == grid
     assert [fn for fn, _, _ in corpus] == sorted(
         f"{w.name}_u{w.unroll}__{job}.json" for w in TABLE2 for job in grid)
     for fn, jart, _ in corpus:

@@ -17,8 +17,9 @@ head dims 64 and 128, ``mma.sync`` for the other bf16 head dims up to 128
 and misaligned views, SIMT past it and in float32, a route the call
 cannot take refused; and flash's training forward with its row
 log-sum-exp and float32 output) against autograd of the plain versions,
-twice bit for bit, each by name; and a store round trip verified on
-the card (one ``sim_loop`` launch a verifying get).
+twice bit for bit, each by name; a store round trip verified on
+the card (one ``sim_loop`` launch a verifying get); and a compile verified
+on the card (one ``sim_loop`` launch, the CPU compile's artifact).
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -167,6 +168,28 @@ def test_store_round_trip_verified_on_the_card(cuda, tmp_path, monkeypatch):
     assert counters["cuda"] == counters["cpu"]
     assert counters["cuda"]["verify_failures"] == 1
     assert values["cuda"] == values["cpu"]
+
+
+def test_compile_verifies_on_the_card(cuda, monkeypatch):
+    """``compile("atax", unroll=2, verify=True, device="cuda")``: one
+    ``sim_loop`` launch and nothing else, no scalar oracle, and the
+    artifact of the same compile on the CPU but for wall time."""
+    import repro_torch.core.simulate as scalar
+    from repro_torch.compiler.pipeline import compile as port_compile
+
+    from _torch_artifacts import fields
+
+    def no_oracle(*a, **k):
+        raise AssertionError("the compile path reached the scalar oracle")
+
+    monkeypatch.setattr(scalar, "simulate", no_oracle)
+    monkeypatch.delenv("REPRO_QUICK", raising=False)
+    cpu = port_compile("atax", unroll=2, verify=True, device="cpu")
+    sim_loop_cuda.launches = sim_alu_cuda.launches = 0
+    card = port_compile("atax", unroll=2, verify=True, device="cuda")
+    assert (sim_loop_cuda.launches, sim_alu_cuda.launches) == (1, 0)
+    assert card.verified is True
+    assert fields(card) == fields(cpu)
 
 
 def _corpus_and_corrupted():

@@ -100,7 +100,18 @@ def test_module_list_covers_the_package():
                  "repro_torch.compiler.faultinject",
                  "repro_torch.compiler.journal", "repro_torch.compiler.store",
                  "repro_torch.core.collect", "repro_torch.core.power_area",
-                 "repro_torch.core.motifs", "repro_torch.core.fusion"):
+                 "repro_torch.core.motifs", "repro_torch.core.fusion",
+                 "repro_torch.core.routing", "repro_torch.core.workloads",
+                 "repro_torch.core.spatial", "repro_torch.mapping.mrrg",
+                 "repro_torch.mapping.cluster", "repro_torch.mapping.mappers",
+                 "repro_torch.mapping.passes.base",
+                 "repro_torch.mapping.passes.route",
+                 "repro_torch.mapping.passes.extract",
+                 "repro_torch.mapping.passes.place",
+                 "repro_torch.mapping.passes.global_place",
+                 "repro_torch.mapping.passes.negotiate",
+                 "repro_torch.mapping.passes.finalize",
+                 "repro_torch.compiler.pipeline"):
         assert want in mods
 
 
