@@ -61,6 +61,33 @@ Phases, in order; any failure exits non-zero before the last line:
    CPU equals its compile on the card (one launch); a traced compile's
    busy share and sim_loop's device time; compile seconds a cell p50 /
    p99 / sum, the slowest cell and verify's share;
+4d. collect phase (the paper's sweep, supervised: all 240 TABLE2 cells):
+   ``python -m repro_torch.core.collect --out T/results.json --bench-out
+   T/bench.json --store T/store --jobs 8 --batch-verify --device cuda
+   --strict`` (seed 0, full budgets, ``REPRO_QUICK`` unset; each cell a
+   worker process started from the runner's forkserver, never forked from
+   a process that holds a CUDA context), in a process of its own that
+   counts its launches and each worker's (``count_worker``): every record
+   equal to ``experiments/cgra/results.json`` but for wall time and the
+   store's counts, ``diff --golden tests/golden_ii_quick.json`` 0
+   regressed, the bench entry's store 0 hits / 210 misses and its batch
+   verify 203 mappings, 0 failed; ``sim_loop`` 60 in the verifying cells
+   plus 1 in the batch verify, nothing else; a second run on the same
+   ``--out`` runs nothing; a chaos run of atax_u2 under ``REPRO_FAULTS``
+   (plaid crashed twice, st hung past ``--cell-timeout``) records a
+   ``WorkerCrashed`` and a ``CompileTimeout`` and exits 1 under
+   ``--strict``, and a clean re-run heals the record; the sweep's wall,
+   cells/s, the cells' seconds (p50, p99, sum, slowest) and verify's share;
+4e. farm phase: ``python -m repro_torch serve --device cuda --workers 4``
+   over the collect phase's store: ``collect --remote`` (no store) equals
+   the cold sweep with 210 hits and no compile, ``farm.served_per_s``;
+   ``compile --remote --verify`` of a cell the store holds unverified,
+   proven by one ``sim_loop`` launch inside the daemon; then a cold
+   verifying remote compile (atax_u2 plaid, seed 1) that a worker compiles
+   on the card, equal to the same compile on the CPU; a warm remote
+   compile's ms at p50 and p99; SIGTERM drains (exit 0, the journal
+   compacted) and a restart over a stale socket serves the seed-1 artifact
+   warm; ``sim_loop`` 2 in all (daemon 1, its worker 1);
 5. LM kernel phase: ``rmsnorm``, ``fused_swiglu`` and ``flash_attention``
    against their plain versions on the card, in float32 and bfloat16 on
    the shapes of ``tests/test_kernels.py`` (under its ``TOL``), flash also
@@ -153,7 +180,8 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel of ``train_kernel_names`` by name and its device time by kind;
    then the card against the CPU in float32 at full width, batch 2 x 256
    (2 layers, the first of the full draw or the depth cut; zamba2 7,
-   whisper 4 + 4; ``ssm_chunk`` 64): loss and params after one AdamW step
+   whisper 4 + 4; qwen2_vl_72b 1 layer at batch 1 x 256; ``ssm_chunk``
+   64): loss and params after one AdamW step
    under ``PARITY_TOL``, each gradient leaf under ``GRAD_REL_TOL``, and
    for granite the card's dispatch of each layer equal to its recompute's
    in the backward, replayed on the CPU (``replayed_moe``); at smoke width
@@ -172,6 +200,7 @@ import copy
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1049,19 +1078,118 @@ def _mapping_fields(art) -> dict:
     return out
 
 
-def compile_worker(counts_path: str, argv) -> int:
-    """``chip_smoke.py --compile-worker COUNTS -- ARGS``: one
-    ``python -m repro_torch ARGS`` (the CLI's ``main``, in this process so
-    that its launch counters can be read), with the counters set to 0 just
-    before it and written to ``COUNTS`` as JSON just after."""
+#: the entry points a ``--count-worker`` process runs, by module
+COUNT_ENTRIES = {"repro_torch": "repro_torch.compiler.cli",
+                 "repro_torch.core.collect": "repro_torch.core.collect"}
+#: names the directory where each runner worker of a ``--count-worker``
+#: process writes its launch counts as it exits
+WORKER_COUNTS_VAR = "CHIP_SMOKE_WORKER_COUNTS"
+
+
+class _WorkerCounts:
+    """The launch counts of one runner worker process (a cell of the
+    sweep, a compile of the farm): set to 0 as the worker starts, written
+    to ``$CHIP_SMOKE_WORKER_COUNTS/<pid>.json`` as it exits (a worker that
+    crashes or is killed writes nothing)."""
+
+    def start(self):
+        from multiprocessing import util
+
+        reset_counts()
+        util.Finalize(None, self.dump, exitpriority=10)
+
+    def dump(self):
+        path = os.path.join(os.environ[WORKER_COUNTS_VAR],
+                            f"{os.getpid()}.json")
+        with open(path, "w") as f:
+            json.dump(read_counts(), f)
+
+
+if __name__ == "__mp_main__" and os.environ.get(WORKER_COUNTS_VAR):
+    # imported as the main module of a runner's forkserver (or of a spawned
+    # worker) under a --count-worker process: multiprocessing runs
+    # _WorkerCounts.start in each worker process it starts from here
+    import multiprocessing.util
+
+    _WORKER_COUNTS = _WorkerCounts()
+    multiprocessing.util.register_after_fork(_WORKER_COUNTS,
+                                             _WorkerCounts.start)
+
+
+def count_worker(counts_path: str, entry: str, argv) -> int:
+    """``chip_smoke.py --count-worker COUNTS ENTRY -- ARGS``: one ``python
+    -m ENTRY ARGS`` (its ``main``, in this process so that its launch
+    counters can be read), with the counters set to 0 just before it; just
+    after, ``COUNTS`` gets this process's counts (``process``) and the sum
+    of its runner workers' (``workers``, each worker counting its own: a
+    CUDA context does not cross processes), as JSON."""
+    import importlib
+
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    workers = f"{counts_path}.workers"
+    os.makedirs(workers)
+    os.environ[WORKER_COUNTS_VAR] = workers
+    entry_main = importlib.import_module(COUNT_ENTRIES[entry]).main
+    reset_counts()
+    rc = entry_main(argv)
+    own = read_counts()
+    out = {"process": own, "workers": dict.fromkeys(own, 0),
+           "worker_processes": 0}
+    for fn in os.listdir(workers):
+        with open(os.path.join(workers, fn)) as f:
+            for name, n in json.load(f).items():
+                out["workers"][name] += n
+        out["worker_processes"] += 1
+    shutil.rmtree(workers)
+    with open(counts_path, "w") as f:
+        json.dump(out, f)
+    return rc
+
+
+def _counted(counts) -> dict:
+    """A ``count_worker`` file's launches, the process's and its
+    workers' summed."""
+    return {name: n + counts["workers"][name]
+            for name, n in counts["process"].items()}
+
+
+def _count_cmd(counts_path: str, entry: str, argv):
+    """The command line of one ``count_worker`` process."""
+    return [sys.executable, os.path.abspath(__file__), "--count-worker",
+            counts_path, entry, "--", *argv]
+
+
+def golden_diff(path: str) -> str:
+    """``python -m repro_torch diff --golden tests/golden_ii_quick.json
+    PATH`` (artifacts or a collect results file): its summary line, which
+    must count 0 regressed."""
     from repro_torch.compiler.cli import main as cli_main
 
-    reset_counts()
-    rc = cli_main(argv)
-    with open(counts_path, "w") as f:
-        json.dump(read_counts(), f)
-    return rc
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["diff", "--golden",
+                       os.path.join(ROOT, "tests", "golden_ii_quick.json"),
+                       path])
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("ii-diff:")]
+    require(rc == 0 and len(line) == 1 and " 0 regressed" in line[0],
+            f"diff --golden {path} exited {rc}:\n{buf.getvalue()[-3000:]}")
+    return line[0]
+
+
+def _run_counted(tmp: str, tag: str, entry: str, argv, env, timeout: float):
+    """One ``count_worker`` process to its end: (process, its launches
+    summed over the process and its workers, the raw counts, seconds)."""
+    counts = os.path.join(tmp, f"{tag}.counts.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(_count_cmd(counts, entry, argv), env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    raw = None
+    if os.path.exists(counts):
+        with open(counts) as f:
+            raw = json.load(f)
+    return proc, (None if raw is None else _counted(raw)), raw, secs
 
 
 def compile_phase(device: str = "cuda", names=None):
@@ -1119,20 +1247,11 @@ def compile_phase(device: str = "cuda", names=None):
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
 
         def run(w):
-            counts = os.path.join(tmp, f"{w.name}_u{w.unroll}.counts.json")
             argv = ["compile", w.name, "-u", str(w.unroll), "--all-jobs",
                     "--verify", "--device", device, "--store", store,
                     "--out-dir", out_dir]
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__),
-                 "--compile-worker", counts, "--", *argv],
-                env=env, capture_output=True, text=True, timeout=600)
-            secs = time.perf_counter() - t0
-            counted = None
-            if os.path.exists(counts):
-                with open(counts) as f:
-                    counted = json.load(f)
+            proc, counted, _, secs = _run_counted(
+                tmp, f"{w.name}_u{w.unroll}", "repro_torch", argv, env, 600)
             return w, argv, proc, counted, secs
 
         reset_counts()
@@ -1185,16 +1304,7 @@ def compile_phase(device: str = "cuda", names=None):
                 "once a verifying compile that holds mappings, nothing "
                 "else)")
 
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli_main(["diff", "--golden",
-                           os.path.join(ROOT, "tests", "golden_ii_quick.json"),
-                           out_dir])
-        line = [ln for ln in buf.getvalue().splitlines()
-                if ln.startswith("ii-diff:")]
-        require(rc == 0 and len(line) == 1 and " 0 regressed" in line[0],
-                f"diff --golden exited {rc}:\n{buf.getvalue()[-3000:]}")
-        golden = line[0]
+        golden = golden_diff(out_dir)
 
         # every key from the store, with no place & route and no launch
         def no_pnr(self, dfg):
@@ -1347,6 +1457,433 @@ def compile_card_vs_cpu(grid) -> None:
     print(f"compile: atax_u2 spatial ({len(card.mappings)} segments) on the "
           f"card = on the CPU but for wall time, 1 sim_loop launch; traced "
           f"compile: {busy}")
+
+
+#: the ``collect`` phase's worker processes (the card machine's cores)
+COLLECT_JOBS = 8
+#: what a sweep's record holds beyond the JAX package's results file: wall
+#: time, and the store's hits and misses when the sweep runs on a store
+RECORD_RUN_FIELDS = ("wall_s", "store")
+#: the chaos run's per-cell timeout: the hung cell's wall, and far above
+#: an atax_u2 cell's seconds
+CHAOS_CELL_TIMEOUT_S = 10.0
+#: the chaos plan (``REPRO_FAULTS``): atax_u2's plaid cell crashes on its
+#: first two attempts, its st cell hangs past the per-cell timeout
+CHAOS_FAULTS = (
+    {"mode": "crash", "site": "worker", "match": "atax_u2/plaid",
+     "attempts": [0, 1]},
+    {"mode": "hang", "site": "worker", "match": "atax_u2/st",
+     "seconds": 120},
+)
+
+
+def _record_fields(rec) -> dict:
+    """A sweep record less what records the run (``RECORD_RUN_FIELDS``)."""
+    return {k: v for k, v in rec.items() if k not in RECORD_RUN_FIELDS}
+
+
+def _require_rc(proc, want: int, what: str) -> None:
+    require(proc.returncode == want,
+            f"{what} exited {proc.returncode}, want {want}; stdout ends:\n"
+            f"{proc.stdout[-3000:]}\nstderr ends:\n{proc.stderr[-3000:]}")
+
+
+def collect_phase(device: str = "cuda", workloads=None):
+    """The paper's sweep on the card: ``python -m repro_torch.core.collect
+    --out T/results.json --bench-out T/bench.json --store T/store --jobs 8
+    --batch-verify --device DEVICE --strict`` (``workloads``: a subset of
+    TABLE2 keys, for a rehearsal on the CPU), 30 workloads x 8 jobs at seed
+    0, full budgets, ``REPRO_QUICK`` unset, each cell in a worker started
+    from the runner's forkserver, in a process of its own that counts its
+    launches and its workers'.  Every record equals the JAX package's
+    ``experiments/cgra/results.json`` in every field but wall time and the
+    store's counts (0 hits, 7 misses a workload); ``diff --golden
+    tests/golden_ii_quick.json`` 0 regressed; the bench entry's store 0 /
+    210 and its batch verify of every stored mapping without a failure;
+    ``sim_loop`` once a verifying cell (plaid, st) and once a bucket of the
+    batch verify, nothing else.  A second run on the same ``--out`` runs
+    nothing.  A chaos run of atax_u2 under ``REPRO_FAULTS``
+    (``CHAOS_FAULTS``) records a ``WorkerCrashed`` (2 attempts, exit 137)
+    and a ``CompileTimeout`` (1 attempt) and exits 1 under ``--strict``;
+    a clean re-run heals the record to the results file's.  Returns
+    (``sim_loop`` launches of the sweep, the temp directory, which holds
+    the store and the results for the farm phase, and the results)."""
+    import tempfile
+
+    from repro_torch.compiler.store import ArtifactStore
+    from repro_torch.core.collect import job_names
+    from repro_torch.core.workloads import TABLE2
+
+    os.environ.pop("REPRO_QUICK", None)
+    with open(os.path.join(ROOT, "experiments", "cgra", "results.json")) as f:
+        reference = json.load(f)
+    keys = [f"{w.name}_u{w.unroll}" for w in TABLE2
+            if workloads is None or f"{w.name}_u{w.unroll}" in workloads]
+    names = job_names()
+    n_cells = len(keys) * (len(names) - 1)  # the motif job compiles nothing
+    tmp = tempfile.mkdtemp(prefix="repro_collect_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("REPRO_FAULTS", None)
+    out = os.path.join(tmp, "results.json")
+    bench = os.path.join(tmp, "bench.json")
+    store = os.path.join(tmp, "store")
+    argv = ["--out", out, "--bench-out", bench, "--store", store, "--jobs",
+            str(COLLECT_JOBS), "--batch-verify", "--device", device,
+            "--strict"]
+    if workloads is not None:
+        argv += ["--workloads", ",".join(keys)]
+
+    reset_counts()
+    proc, launched, raw, wall = _run_counted(tmp, "sweep",
+                                             "repro_torch.core.collect",
+                                             argv, env, 900)
+    _require_rc(proc, 0, "the collect sweep")
+    parent = read_counts()
+    require(not any(parent.values()),
+            f"chip_smoke's own process launched {parent} during the sweep")
+    with open(out) as f:
+        results = json.load(f)
+    require(sorted(results) == sorted(keys),
+            f"the sweep recorded {sorted(results)}, want {keys}")
+    for key in keys:
+        rec = results[key]
+        require(_record_fields(rec) == _record_fields(reference[key]),
+                f"{key}: the sweep's record differs from the JAX package's "
+                "results file in "
+                + ", ".join(k for k in set(rec) | set(reference[key])
+                            if k not in RECORD_RUN_FIELDS
+                            and rec.get(k) != reference[key].get(k)))
+        require(rec["store"] == {"hits": 0, "misses": len(names) - 1},
+                f"{key}: store {rec['store']} in a cold sweep")
+    # the golden file names every quick workload: a subset misses some
+    golden = (golden_diff(out) if workloads is None
+              else "ii-diff: not run on a subset")
+    with open(bench) as f:
+        runs = json.load(f)["runs"]
+    entry = runs[-1]
+    require(len(runs) == 1 and entry["store"]["hits"] == 0
+            and entry["store"]["misses"] == n_cells
+            and "failed_cells" not in entry,
+            f"the sweep's bench entry {entry}")
+    sim = entry["sim_verify"]
+    n_mappings = sum(len(a.mappings) for _, a in
+                     ArtifactStore(store, device="cpu").iter_artifacts())
+    require(sim["mappings"] == n_mappings and sim["failed"] == 0
+            and sim["backend"] == device and sim["scalar_fallbacks"] == 0,
+            f"the batch verify {sim}, want {n_mappings} mappings on "
+            f"{device}, 0 failed")
+    verifying = len(keys) * 2  # plaid and st
+    want = {**dict.fromkeys(launched, 0),
+            "sim_loop": (verifying + 1) if device == "cuda" else 0}
+    want_workers = {**dict.fromkeys(launched, 0),
+                    "sim_loop": verifying if device == "cuda" else 0}
+    require(launched == want and raw["workers"] == want_workers,
+            f"the sweep launched {raw}, want {want} in all, "
+            f"{want_workers} in the workers (sim_loop once a verifying "
+            f"cell, once a bucket of the batch verify, nothing else)")
+    arts = dict(ArtifactStore(store, device="cpu").iter_artifacts())
+    cells = {key.describe(): art.timings["total"]
+             for key, art in arts.items()}
+    verify_s = [art.timings["verify"] for art in arts.values()
+                if art.verified is not None]
+    slow = max(cells, key=cells.get)
+    print(f"collect: {len(keys)} workloads x {len(names)} jobs through "
+          f"python -m repro_torch.core.collect --store --jobs "
+          f"{COLLECT_JOBS} --batch-verify --device {device} --strict, each "
+          f"cell a worker "
+          f"{'from the runner forkserver' if device == 'cuda' else 'forked'}"
+          f": every record = "
+          f"experiments/cgra/results.json but for wall_s and store "
+          f"(0 hits, {len(names) - 1} misses a workload); {golden}; bench "
+          f"store {entry['store']['hits']} hits / {entry['store']['misses']} "
+          f"misses; batch verify {sim['mappings']} mappings, {sim['failed']} "
+          f"failed, {sim['mappings_per_s']} mappings/s; launches {launched} "
+          f"({raw['workers']['sim_loop']} in {raw['worker_processes']} "
+          f"worker processes, {raw['process']['sim_loop']} in the batch "
+          f"verify)")
+    print(f"collect: sweep wall {wall:.3f} s (the process; bench entry "
+          f"wall_s {entry['wall_s']}), {len(keys) * len(names) / wall:.3f} "
+          f"cells/s; cell seconds (timings.total of the {len(cells)} "
+          f"compiled cells, from the store) sum {sum(cells.values()):.3f}, "
+          f"p50 {_pct(list(cells.values()), 50):.3f}, p99 "
+          f"{_pct(list(cells.values()), 99):.3f}, slowest {slow} "
+          f"{cells[slow]:.3f}; records' cpu_s {entry['cpu_s']}; verify "
+          f"{sum(verify_s):.3f} s in the {len(verify_s)} verifying cells "
+          f"(p50 {_pct(verify_s, 50):.3f} s"
+          f"{', each with its process CUDA start' if device == 'cuda' else ''}"
+          f") = {100 * sum(verify_s) / sum(cells.values()):.3f}% of the cell "
+          f"seconds")
+
+    # a second run on the same --out: nothing to do, nothing appended
+    with open(out, "rb") as f:
+        before = f.read()
+    proc, again, _, secs = _run_counted(tmp, "resume",
+                                        "repro_torch.core.collect", argv,
+                                        env, 300)
+    _require_rc(proc, 0, "the collect re-run")
+    with open(out, "rb") as f, open(bench) as g:
+        require(f.read() == before and len(json.load(g)["runs"]) == 1
+                and not any(again.values()),
+                f"a re-run on the same --out changed the results or the "
+                f"bench, or launched {again}")
+
+    # chaos: a crashed and a hung cell become records; a re-run heals them
+    chaos = os.path.join(tmp, "chaos.json")
+    cargs = ["--out", chaos, "--workloads", "atax_u2", "--jobs",
+             str(COLLECT_JOBS), "--cell-timeout", str(CHAOS_CELL_TIMEOUT_S),
+             "--retries", "1", "--device", device, "--strict"]
+    proc, _, _, chaos_s = _run_counted(
+        tmp, "chaos", "repro_torch.core.collect", cargs,
+        dict(env, REPRO_FAULTS=json.dumps(list(CHAOS_FAULTS))), 300)
+    _require_rc(proc, 1, "the chaos run (--strict, two failed cells)")
+    with open(chaos) as f:
+        rec = json.load(f)["atax_u2"]
+    crash, hang = rec["failures"]["plaid"], rec["failures"]["st"]
+    require(crash["error"] == "WorkerCrashed" and crash["attempts"] == 2
+            and crash["exitcode"] == 137 and hang["error"] == "CompileTimeout"
+            and hang["attempts"] == 1 and rec["ii"]["plaid"] is None
+            and rec["ii"]["st"] is None
+            and sorted(rec["partial_parts"]) == sorted(
+                j for j in names if j not in ("plaid", "st")),
+            f"the chaos run recorded {rec.get('failures')}")
+    proc, healed_launches, _, heal_s = _run_counted(
+        tmp, "heal", "repro_torch.core.collect", cargs, env, 300)
+    _require_rc(proc, 0, "the healing re-run")
+    with open(chaos) as f:
+        healed = json.load(f)["atax_u2"]
+    require(_record_fields(healed) == _record_fields(reference["atax_u2"])
+            and "store" not in healed,
+            f"the healed atax_u2 record differs from the results file's: "
+            f"{healed}")
+    want_heal = {**dict.fromkeys(healed_launches, 0),
+                 "sim_loop": 2 if device == "cuda" else 0}
+    require(healed_launches == want_heal,
+            f"the healing run launched {healed_launches}, want {want_heal} "
+            f"(the two failed cells verify again, nothing else runs)")
+    print(f"collect: re-run on the same --out {secs:.3f} s, nothing run or "
+          f"appended; chaos (atax_u2 under REPRO_FAULTS: plaid crashed at "
+          f"attempts 0 and 1, st hung past --cell-timeout "
+          f"{CHAOS_CELL_TIMEOUT_S}) {chaos_s:.3f} s: WorkerCrashed "
+          f"(2 attempts, exit 137) and CompileTimeout (1 attempt) recorded, "
+          f"exit 1 under --strict; the clean re-run {heal_s:.3f} s healed "
+          f"the record to the results file's, re-running the 2 failed "
+          f"cells only ({healed_launches['sim_loop']} sim_loop launches)")
+    return launched["sim_loop"], tmp, results
+
+
+#: the farm phase's compile workers (``serve --workers``)
+FARM_WORKERS = 4
+
+
+def _start_farm(tmp: str, tag: str, store: str, sock: str, device: str,
+                env):
+    """A ``python -m repro_torch serve`` daemon in a ``count_worker``
+    process, once it answers a ping: (process, counts path, log path)."""
+    from repro_torch.serve_farm.client import farm_ping
+
+    counts = os.path.join(tmp, f"{tag}.counts.json")
+    log = os.path.join(tmp, f"{tag}.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            _count_cmd(counts, "repro_torch",
+                       ["serve", "--dir", store, "--socket", sock,
+                        "--device", device, "--workers",
+                        str(FARM_WORKERS)]),
+            env=env, stdout=f, stderr=subprocess.STDOUT, text=True)
+    deadline = time.monotonic() + 120
+    while not farm_ping(sock, timeout_s=2.0):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            proc.wait()
+            with open(log) as f:
+                require(False, f"the farm daemon did not come up; its log "
+                        f"ends:\n{f.read()[-3000:]}")
+        time.sleep(0.2)
+    return proc, counts, log
+
+
+def _stop_farm(proc, counts: str, log: str):
+    """SIGTERM, the drain, exit 0: the daemon's counts and log."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    with open(log) as f:
+        text = f.read()
+    require(rc == 0 and "drained; journal compacted" in text,
+            f"the farm daemon exited {rc} on SIGTERM; its log ends:\n"
+            f"{text[-3000:]}")
+    with open(counts) as f:
+        return json.load(f), text
+
+
+def farm_phase(tmp: str, results, device: str = "cuda"):
+    """The compile farm on the card, over the collect phase's store:
+    ``python -m repro_torch serve --dir T/store --socket S --device DEVICE
+    --workers 4`` (a process that counts its launches and its workers').
+    (1) ``collect --remote S`` with no store: every record equals the cold
+    sweep's but for wall time and the store's counts (7 hits a workload),
+    and the daemon compiled nothing (``hits`` = the cells, ``compiles`` 0);
+    (2) ``compile atax -u 2 --job node_on_plaid --remote S --verify``, a
+    cell the store holds unverified: served warm, proven inside the
+    daemon; (3) then, with the daemon holding a CUDA context, a cold
+    verifying remote compile of a key the store lacks (atax_u2 plaid, seed
+    1): a worker compiles it, verified, equal to the same compile on the
+    CPU but for wall time; (4) a warm remote compile of every cell, ms at
+    p50 and p99; (5) SIGTERM: drained, exit 0, the journal compacted to its
+    header; a restart over a stale socket file serves the seed-1 artifact
+    warm.  ``sim_loop``: once in the daemon (2), once in its worker (3),
+    nothing else anywhere.  Returns the phase's ``sim_loop`` launches."""
+    import socket
+
+    from repro_torch.compiler.artifact import CompileResult
+    from repro_torch.compiler.pipeline import compile as port_compile
+    from repro_torch.compiler.pipeline import job_grid
+    from repro_torch.core.collect import VERIFY_JOBS
+    from repro_torch.serve_farm.client import farm_status, remote_compile
+
+    store = os.path.join(tmp, "store")
+    sock = os.path.join(tmp, "farm.sock")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("REPRO_FAULTS", None)
+    grid = job_grid()
+    keys = sorted(results)
+    daemon, counts, log = _start_farm(tmp, "farm", store, sock, device, env)
+    try:
+        # (1) the whole sweep served warm
+        remote = os.path.join(tmp, "remote.json")
+        rbench = os.path.join(tmp, "remote_bench.json")
+        argv = ["--out", remote, "--bench-out", rbench, "--remote", sock,
+                "--jobs", str(COLLECT_JOBS), "--device", device, "--strict"]
+        if len(keys) < 30:
+            argv += ["--workloads", ",".join(keys)]
+        proc, launched, _, wall = _run_counted(
+            tmp, "remote", "repro_torch.core.collect", argv, env, 600)
+        _require_rc(proc, 0, "collect --remote")
+        with open(remote) as f:
+            served = json.load(f)
+        for key in keys:
+            require(_record_fields(served[key]) == _record_fields(results[key])
+                    and served[key]["store"] == {
+                        "hits": results[key]["store"]["misses"],
+                        "misses": 0},
+                    f"{key}: the farm's record differs from the cold "
+                    f"sweep's: {served[key]}")
+        status = farm_status(sock)["counters"]
+        n_cells = len(keys) * len(grid)
+        require(status["compiles"] == 0 and status["hits"] == n_cells
+                and status["failures"] == 0 and status["shed"] == 0
+                and not any(launched.values()),
+                f"the farm's counters after the remote sweep {status}, want "
+                f"{n_cells} hits and no compile; the sweep launched "
+                f"{launched}")
+        with open(rbench) as f:
+            farm = json.load(f)["runs"][-1]["farm"]
+        # (2) an unverified cell, proven warm inside the daemon
+        arch, mapper = grid["node_on_plaid"]
+        proven = os.path.join(tmp, "proven.json")
+        proc, launched2, _, _ = _run_counted(
+            tmp, "proven", "repro_torch",
+            ["compile", "atax", "-u", "2", "--arch", arch, "--mapper",
+             mapper, "--remote", sock, "--verify", "--device", device,
+             "--out", proven], env, 300)
+        _require_rc(proc, 0, "compile --remote --verify (warm)")
+        art = CompileResult.load(proven)
+        status = farm_status(sock)["counters"]
+        require("[store hit]" in proc.stdout and art.verified is True
+                and status["hits"] == n_cells + 1
+                and status["compiles"] == 0 and not any(launched2.values()),
+                f"the unverified node_on_plaid cell: {proc.stdout.strip()}, "
+                f"verified {art.verified}, counters {status}, client "
+                f"launches {launched2}")
+        # (3) cold, verifying, after the daemon touched the card: the
+        # client from this process (it sends sockets, launches nothing)
+        arch, mapper = grid["plaid"]
+        t0 = time.perf_counter()
+        art = remote_compile(sock, workload="atax", unroll=2, arch=arch,
+                             mapper=mapper, seed=1, verify=True)
+        cold_s = time.perf_counter() - t0
+        cpu = port_compile("atax", unroll=2, arch=arch, mapper=mapper,
+                           seed=1, verify=True, device="cpu")
+        status = farm_status(sock)["counters"]
+        require(art.store_hit is False and art.verified is True
+                and _mapping_fields(art) == _mapping_fields(cpu)
+                and status["compiles"] == 1 and status["failures"] == 0,
+                f"the cold remote compile: hit {art.store_hit}, verified "
+                f"{art.verified}, equal to the CPU's "
+                f"{_mapping_fields(art) == _mapping_fields(cpu)}, counters "
+                f"{status}")
+        # (4) warm remote compiles, one a cell, timed from this process
+        ms = []
+        for key in keys:
+            name, unroll = key.rsplit("_u", 1)
+            for job, (arch, mapper) in grid.items():
+                t0 = time.perf_counter()
+                got = remote_compile(sock, workload=name, unroll=int(unroll),
+                                     arch=arch, mapper=mapper,
+                                     verify=job in VERIFY_JOBS)
+                ms.append(1e3 * (time.perf_counter() - t0))
+                require(got.store_hit is True, f"{key}/{job} missed")
+        status = farm_status(sock)["counters"]
+    except BaseException:
+        daemon.kill()
+        daemon.wait()
+        raise
+    # (5) the drain, and a restart over a stale socket
+    journal = os.path.join(store, "journal.jsonl")
+    farm_counts, _ = _stop_farm(daemon, counts, log)
+    with open(journal) as f:
+        lines = f.read().splitlines()
+    require(len(lines) == 1 and not os.path.exists(sock),
+            f"after the drain the journal holds {len(lines)} lines (want "
+            f"its header alone) and the socket exists: "
+            f"{os.path.exists(sock)}")
+    stale = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    stale.bind(sock)
+    stale.close()  # the file stays: what a kill -9 leaves behind
+    daemon, counts2, log2 = _start_farm(tmp, "restart", store, sock, device,
+                                        env)
+    try:
+        arch, mapper = grid["plaid"]
+        again = remote_compile(sock, workload="atax", unroll=2, arch=arch,
+                               mapper=mapper, seed=1, verify=True)
+    except BaseException:
+        daemon.kill()
+        daemon.wait()
+        raise
+    restart_counts, _ = _stop_farm(daemon, counts2, log2)
+    require(again.store_hit is True and again.mappings == art.mappings
+            and not any(_counted(restart_counts).values()),
+            f"the restarted farm: hit {again.store_hit}, same mapping "
+            f"{again.mappings == art.mappings}, launches {restart_counts}")
+    launched = _counted(farm_counts)
+    want = {**dict.fromkeys(launched, 0),
+            "sim_loop": 2 if device == "cuda" else 0}
+    require(launched == want, f"the farm launched {farm_counts}, want "
+            f"{want}: once proving the warm hit, once in the cold compile's "
+            f"worker")
+    print(f"farm: python -m repro_torch serve --device {device} --workers "
+          f"{FARM_WORKERS} over the sweep's store: collect --remote "
+          f"{wall:.3f} s, {n_cells} cells served warm, every record = the "
+          f"cold sweep's, daemon hits {n_cells} compiles 0, "
+          f"farm.served_per_s {farm['served_per_s']} (served "
+          f"{farm['served']}); an unverified cell proven warm in the daemon; "
+          f"a cold verifying remote compile (atax_u2 plaid seed 1) after the "
+          f"daemon's launch: {cold_s:.3f} s, verified, = the CPU's compile; "
+          f"launches {launched} (daemon {farm_counts['process']['sim_loop']}"
+          f", its workers {farm_counts['workers']['sim_loop']} in "
+          f"{farm_counts['worker_processes']} worker processes)")
+    print(f"farm: warm remote compile ms (this process, {len(ms)} cells) "
+          f"p50 {_pct(ms, 50):.3f} p99 {_pct(ms, 99):.3f}; counters "
+          f"{status}; SIGTERM drained, exit 0, journal compacted to its "
+          f"header; restarted over a stale socket file: the seed-1 artifact "
+          f"served warm, no launch")
+    return launched["sim_loop"]
 
 
 def _randn(shape, dtype, seed: int, scale=1.0):
@@ -3118,8 +3655,14 @@ def _run_config(cfg, B: int, T: int):
                      total_steps=10)
 
 
-#: the train parity slice's depth where not 2 (``PARITY_LAYERS``'s reasons)
-TRAIN_PARITY_LAYERS = {"zamba2_1_2b": 7, "whisper_tiny": 4}
+#: the train parity slice's depth where not 2 (``PARITY_LAYERS``'s reasons;
+#: qwen2_vl_72b one layer: the float32 CPU half of its 2 x 256 slice at 2
+#: layers took about 238 s of the script's limit)
+TRAIN_PARITY_LAYERS = {"zamba2_1_2b": 7, "whisper_tiny": 4,
+                       "qwen2_vl_72b": 1}
+#: the train parity slice's batch of 256-token sequences where not 2
+#: (qwen2_vl_72b: its 152064-word head is most of its CPU half's work)
+TRAIN_PARITY_BATCH = {"qwen2_vl_72b": 1}
 #: the train parity slices drawn at the fan-in scale (``fan_in_scaled``):
 #: whisper_tiny's full depth is 4, so each stacked weight of its full draw
 #: has std 1 / 2 on 384-wide rows, and the CPU's own float32 gradients miss
@@ -3210,7 +3753,8 @@ def replayed_moe(dispatch, swaps):
 
 def train_parity_phase(arch: str) -> None:
     """The card (kernels) against the CPU (plain versions) in float32 at
-    full width, batch 2 x 256, on ``train_parity_model``: the loss within
+    full width, batch 2 x 256 (``TRAIN_PARITY_BATCH``), on
+    ``train_parity_model``: the loss within
     ``PARITY_TOL``, each gradient leaf within ``GRAD_REL_TOL`` relative L2
     error, the params after one AdamW step within ``PARITY_TOL``.  For an
     MoE model the card's dispatch of each layer, recorded in the forward,
@@ -3230,8 +3774,9 @@ def train_parity_phase(arch: str) -> None:
     cfg = card.cfg
     n = cfg.n_layers
     cpu = zoo.build(cfg, tree_map(lambda t: t.cpu(), card.params))
-    batch = batch_for_step(cfg, ShapeSpec("parity", 256, 2, "train"), SEED, 0)
-    ocfg = steps_lib.adamw_config(cfg, _run_config(cfg, 2, 256))
+    B = TRAIN_PARITY_BATCH.get(arch, 2)
+    batch = batch_for_step(cfg, ShapeSpec("parity", 256, B, "train"), SEED, 0)
+    ocfg = steps_lib.adamw_config(cfg, _run_config(cfg, B, 256))
 
     results, swaps, dispatch, note = {}, {}, {}, ""
     for where, model in (("cuda", card), ("cpu", cpu)):
@@ -3287,7 +3832,7 @@ def train_parity_phase(arch: str) -> None:
                 for (key, a), (_, b) in zip(items(pc), items(ph)))
     depth = f"{n} layers" if cfg.family != "encdec" else \
         f"{cfg.n_enc_layers} + {n} layers, {cfg.enc_seq} audio frames"
-    print(f"parity: {arch} train step full width, {depth}, f32, batch 2 x "
+    print(f"parity: {arch} train step full width, {depth}, f32, batch {B} x "
           f"256: loss {lc.item():.6f} (card) vs {lh.item():.6f} (CPU), diff "
           f"{err:.3g} (rtol {PARITY_TOL['rtol']} atol {PARITY_TOL['atol']}); "
           f"every gradient leaf within {GRAD_REL_TOL} relative L2 (worst "
@@ -3472,6 +4017,18 @@ def main() -> int:
     loop["launches_by_path"]["compile"] = compile_phase()
     print(f"phase: compile (the TABLE2 grid through the CLI, store get and "
           f"warm, card vs CPU) {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    swept, sweep_dir, results = collect_phase()
+    loop["launches_by_path"]["collect"] = swept
+    print(f"phase: collect (the TABLE2 sweep, supervised; resume, chaos) "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    try:
+        loop["launches_by_path"]["farm"] = farm_phase(sweep_dir, results)
+    finally:
+        shutil.rmtree(sweep_dir, ignore_errors=True)
+    print(f"phase: farm (serve, collect --remote, compile --remote, drain) "
+          f"{time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
     records = lm_kernel_phase()
@@ -3526,6 +4083,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--compile-worker"] and sys.argv[3:4] == ["--"]:
-        sys.exit(compile_worker(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--count-worker"] and sys.argv[4:5] == ["--"]:
+        sys.exit(count_worker(sys.argv[2], sys.argv[3], sys.argv[5:]))
     sys.exit(main())

@@ -1,12 +1,12 @@
 """``python -m repro_torch`` — the toolchain CLI of the port (port of
-``plaid-compile``, ``repro/compiler/cli.py``, less ``serve`` and
-``compile --remote``: the compile farm is not ported).
+``plaid-compile``, ``repro/compiler/cli.py``).
 
     python -m repro_torch list
     python -m repro_torch compile WORKLOAD [-u U] [--arch A --mapper M |
                                   --job J | --all-jobs] [--verify]
                                   [--device cuda|cpu] [--store DIR]
-                                  [--deadline-s S] [--fallback-mapper M]
+                                  [--remote SOCKET] [--deadline-s S]
+                                  [--fallback-mapper M]
                                   [--out PATH | --out-dir DIR]
     python -m repro_torch inspect ARTIFACT... [--verify] [--device cuda|cpu]
     python -m repro_torch diff A B | diff --golden GOLDEN PATHS...
@@ -15,14 +15,20 @@
                                  [--backend numpy]
                                  [--bench-out PATH [--bench-note TAG]]
     python -m repro_torch store get|put|ls|gc|warm --dir STORE ...
+    python -m repro_torch serve --dir STORE --socket PATH [--workers N]
+                                [--queue-limit N] [--deadline-s S]
+                                [--retries N] [--start-method M]
+                                [--device cuda|cpu]
 
 ``list``: the registered mappers, fabrics and the evaluation grid.
 ``compile``: place & route one workload (:func:`repro_torch.compiler.
 pipeline.compile`) into an artifact; ``--all-jobs`` sweeps the grid into
 ``--out-dir``, ``--verify`` proves each mapping on ``--device`` (``cuda``
 by default, refused before place & route when there is none), ``--store``
-makes each compile cache-first.  ``inspect``: summarize artifacts,
-``--verify`` re-simulates them without place & route.  ``diff``: two
+makes each compile cache-first, ``--remote`` sends a cache miss to a farm
+daemon (a local compile when it cannot be reached).  ``inspect``:
+summarize artifacts, ``--verify`` re-simulates them without place &
+route.  ``diff``: two
 artifacts, or artifacts against a golden II file (exit 1 on a
 regression).
 
@@ -42,11 +48,17 @@ warm (compile a workload x job grid into it) the content-addressed
 artifact store (:mod:`repro_torch.compiler.store`), which the JAX
 package's ``plaid-compile store`` reads and writes alike.
 
+``serve``: the compile-farm daemon (:mod:`repro_torch.serve_farm`) over a
+Unix socket, on ``--device`` (``cuda`` by default, refused when there is
+none): cache-first, in-flight dedup, load-shedding, a drain on SIGTERM.
+Either package's client talks to it.
+
 Exit codes, as ``plaid-compile``: 0 success, 1 a verification failed, a
 golden regression, a store miss (or nothing to verify), 2 usage error or
 no such device, and the taxonomy's codes 10+
 (:mod:`repro_torch.compiler.errors`; 10 when the batched verdicts diverge
-from the scalar oracle under ``--parity``, 12 a ``--deadline-s`` timeout).
+from the scalar oracle under ``--parity``, 12 a ``--deadline-s`` timeout,
+17 a farm that shed the request, 18 a farm that cannot be reached).
 """
 from __future__ import annotations
 
@@ -261,6 +273,7 @@ def _compile_one(args, arch: str, mapper: str, job: Optional[str],
         iterations=args.iterations,
         verify=args.verify,
         store=store,
+        remote=args.remote,
         deadline_s=args.deadline_s,
         fallback_mapper=args.fallback_mapper,
         device=args.device,
@@ -694,6 +707,26 @@ def _cmd_store_warm(args) -> int:
     return 0
 
 
+def _cmd_serve(args) -> int:
+    """Run the compile-farm daemon (blocks until SIGTERM/SIGINT drain);
+    refused, exit 2, when ``--device`` cannot run the cycle loop."""
+    from repro_torch.serve_farm.daemon import serve
+
+    why = _device_error(args)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return 2
+    return serve(
+        args.dir, args.socket,
+        workers=args.workers,
+        queue_limit=args.queue_limit,
+        default_deadline_s=args.deadline_s,
+        retries=args.retries,
+        start_method=args.start_method,
+        device=args.device,
+    )
+
+
 def _cmd_store(args) -> int:
     return {
         "get": _cmd_store_get,
@@ -716,8 +749,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
         description="Plaid CGRA toolchain, PyTorch/CUDA port",
-        epilog="Not ported yet: plaid-compile's compile-farm daemon "
-               "(serve) and its client (compile --remote).",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -729,8 +760,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("list", help="registered mappers/arches and the job grid")
 
-    c = sub.add_parser("compile", help="compile one workload to an artifact",
-                       epilog="--remote (the compile farm) is not ported.")
+    c = sub.add_parser("compile", help="compile one workload to an artifact")
     c.add_argument("workload", help="TABLE2 workload name, e.g. atax")
     c.add_argument("-u", "--unroll", type=int, default=None)
     c.add_argument("--arch", default="plaid2x2")
@@ -753,6 +783,10 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--store", default=None, metavar="DIR",
                    help="artifact store: serve a cached mapping without "
                         "P&R, insert on miss")
+    c.add_argument("--remote", default=None, metavar="SOCKET",
+                   help="python -m repro_torch serve socket: offload cache "
+                        "misses to the farm daemon (retries with backoff; "
+                        "falls back to a local compile when unreachable)")
     c.add_argument("--deadline-s", type=float, default=None, metavar="S",
                    help="wall-clock P&R deadline; exceeding it raises "
                         "CompileTimeout (exit code 12) unless "
@@ -849,6 +883,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated <name>_u<unroll> keys")
     wm.add_argument("--job", default=None, help="restrict to one grid job")
     wm.add_argument("--seed", type=int, default=0)
+
+    sv = sub.add_parser("serve",
+                        help="compile-farm daemon over a Unix socket "
+                             "(cache-first, dedup, load-shedding, "
+                             "SIGTERM drain)")
+    sv.add_argument("--dir", default="artifacts/store",
+                    help="artifact store the farm serves from and compiles "
+                         "into (default artifacts/store)")
+    sv.add_argument("--socket", required=True, metavar="PATH",
+                    help="Unix-domain socket path to listen on")
+    sv.add_argument("--workers", type=int, default=2,
+                    help="supervised compile worker threads (default 2)")
+    sv.add_argument("--queue-limit", type=int, default=8,
+                    help="max queued+running jobs before load-shedding "
+                         "with ServiceOverloaded (default 8)")
+    sv.add_argument("--deadline-s", type=float, default=600.0, metavar="S",
+                    help="per-request compile deadline when the client "
+                         "sends none (default 600)")
+    sv.add_argument("--retries", type=int, default=1,
+                    help="re-attempts for crashed compile workers "
+                         "(default 1)")
+    sv.add_argument("--start-method", default=None,
+                    choices=("fork", "spawn", "forkserver"),
+                    help="worker multiprocessing start method (default: "
+                         "platform; forkserver when --device is a card)")
+    _device_arg(sv, "the farm (verifying hits and its workers' compiles)")
     return ap
 
 
@@ -865,6 +925,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "diff": _cmd_diff,
         "verify": _cmd_verify,
         "store": _cmd_store,
+        "serve": _cmd_serve,
     }[args.cmd]
     try:
         return handler(args)

@@ -23,8 +23,9 @@ Verification (``verify=True``) lowers the mapping(s) into their
 :meth:`CompileResult.simulate` on ``device`` (``cuda`` unless the caller
 asks for the CPU): one ``sim_loop`` launch a bucket on a card.  A
 disproven mapping records ``verified=False``; a device fault propagates —
-nothing degrades to the scalar oracle.  The compile farm
-(``compile(remote=...)``) is not ported.
+nothing degrades to the scalar oracle.  ``compile(remote=...)`` offloads a
+cache miss to a compile-farm daemon (:mod:`repro_torch.serve_farm`), which
+proves what it serves on its own device.
 """
 from __future__ import annotations
 
@@ -236,8 +237,10 @@ def compile(
     iterations: Optional[int] = None,
     verify: bool = False,
     store: Optional[Union[str, ArtifactStore]] = None,
+    remote: Optional[str] = None,
     deadline_s: Optional[float] = None,
     fallback_mapper: Optional[str] = None,
+    fallback_deadline_s: Optional[float] = None,
     device=None,
 ) -> CompileResult:
     """Run the full pipeline and return a serializable :class:`CompileResult`.
@@ -260,6 +263,18 @@ def compile(
     degrades to a cold compile and an unwritable one to an uncached
     result, each with a warning.
 
+    ``remote`` (a Unix-socket path) offloads a cache miss to a ``python -m
+    repro_torch serve`` farm daemon (:mod:`repro_torch.serve_farm`)
+    instead of compiling locally: the request is retried with bounded
+    exponential backoff, and when the farm stays unreachable (circuit
+    breaker open, daemon draining) the compile **falls back to local**
+    with a warning.  A farm-side overload shed
+    (:class:`~repro_torch.compiler.errors.ServiceOverloaded`) that
+    outlasts the retries propagates typed.  Raw ``DFG`` inputs are never
+    farmed (the protocol ships workload names, not graphs) and compile
+    locally with a warning.  The request carries no device: the farm
+    proves what it serves on its own.
+
     ``deadline_s`` bounds place & route by wall clock: the pass pipelines
     check it cooperatively and raise
     :class:`~repro_torch.compiler.errors.CompileTimeout` carrying the
@@ -269,8 +284,9 @@ def compile(
 
     ``fallback_mapper`` turns a timeout or an infeasible primary mapping
     into graceful degradation: the named mapper is re-run on the same
-    inputs with no deadline, and the artifact is stamped with a
-    ``degraded`` block instead of raising.
+    inputs — with no deadline unless ``fallback_deadline_s`` is given —
+    and the artifact is stamped with a ``degraded`` block instead of
+    raising.
     Degraded and verify-failed artifacts never enter the store.
     """
     t0 = time.perf_counter()
@@ -300,6 +316,22 @@ def compile(
         cached = serve_from_store(store, key, verify=verify, device=device)
         if cached is not None:
             return cached
+    if remote is not None:
+        if w is None:
+            print("warning: raw DFG inputs cannot be farmed (the protocol "
+                  "ships workload names); compiling locally", flush=True)
+        else:
+            from repro_torch.compiler.errors import FarmUnavailable
+            from repro_torch.serve_farm.client import remote_compile
+
+            try:
+                return remote_compile(
+                    remote, workload=w.name, unroll=w.unroll,
+                    arch=arch_name, mapper=mapper_name, seed=seed,
+                    budget=budget, iterations=iterations, verify=verify,
+                    deadline_s=deadline_s)
+            except FarmUnavailable as e:
+                print(f"warning: {e}; compiling locally", flush=True)
     t_frontend = time.perf_counter()
 
     def _pnr(name: str, dl_s: Optional[float]):
@@ -335,7 +367,8 @@ def compile(
         e.elapsed_s = e.elapsed_s or (time.perf_counter() - t_frontend)
         if fb_name is None:
             raise
-        # timeout leg: re-run with the fallback mapper, unbounded
+        # timeout leg: re-run with the fallback mapper, unbounded unless
+        # the caller set a deadline for it too
         degraded = {
             "requested_mapper": mapper_name,
             "fallback": fb_name,
@@ -348,7 +381,7 @@ def compile(
     if degraded is not None:
         mapper_name = fb_name
         meta = MAPPERS.meta(fb_name)
-        mapper_obj, result = _pnr(fb_name, None)
+        mapper_obj, result = _pnr(fb_name, fallback_deadline_s)
     t_pnr = time.perf_counter()
 
     # per-stage P&R split + route-cache counters (the spatial mapper

@@ -111,7 +111,10 @@ def test_module_list_covers_the_package():
                  "repro_torch.mapping.passes.global_place",
                  "repro_torch.mapping.passes.negotiate",
                  "repro_torch.mapping.passes.finalize",
-                 "repro_torch.compiler.pipeline"):
+                 "repro_torch.compiler.pipeline",
+                 "repro_torch.core.runner", "repro_torch.serve_farm.protocol",
+                 "repro_torch.serve_farm.client",
+                 "repro_torch.serve_farm.daemon"):
         assert want in mods
 
 
