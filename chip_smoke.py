@@ -167,10 +167,11 @@ Phases, in order; any failure exits non-zero before the last line:
    path, the launch counters read just around each run) for A =
    llama3_2_3b (dense), granite_moe_1b_a400m (moe, ``remat="nothing"``),
    zamba2_1_2b (hybrid: the SSD's backward, the gated norm's
-   rmsnorm_bwd, the shared block's summed gradient), whisper_tiny
+   rmsnorm_bwd, the shared block's summed gradient; ``--layers 13``),
+   whisper_tiny
    (encdec: the plain encoder and cross-attention backward, 1500 audio
    frames), falcon_mamba_7b (ssm: the Mamba-1 scan's backward; ``--layers
-   8``) and qwen2_vl_72b (vlm: M-RoPE and ``embeds`` in training;
+   4``) and qwen2_vl_72b (vlm: M-RoPE and ``embeds`` in training;
    ``--layers 2``) (``TRAIN_RUNS``): finite losses, the first (moe: its
    nll) within 0.1 of ln V, finite gradient norms, exactly the launches
    of ``train_launches`` (llama 4 x 113 / 57 / 56 / 28 / 56 / 28:
@@ -188,7 +189,21 @@ Phases, in order; any failure exits non-zero before the last line:
    on the card (llama3_2_3b): the loss falls on a repeated batch, a
    resumed run is bit-identical to a straight one, the injected failure
    is retried, a refused launch propagates, and 2 x 2 gradient
-   accumulation equals one step of 4.
+   accumulation equals one step of 4;
+12. plan phase (the launch planner, no extra card step): the dry run
+   (``repro_torch.launch.dryrun``) at world size 1 on the card's host
+   mesh predicts llama3_2_3b's train step at 4 x 4096 and its served
+   prefill at 4 x 500, which phases 11 and 6 measured: the predicted peak
+   within 15% of ``max_memory_allocated`` (the train run's, and the served
+   prefill's own, run again), the traced kernel calls equal to the card's
+   launches (and to ``train_launches`` / ``serve_launches``) exactly,
+   model FLOPs (6ND) over the train step's traced FLOPs in [0.5, 1.0],
+   and the roofline's time over the measured time and its fraction
+   printed; then every applicable llama3_2_3b cell on the 256- and
+   512-GPU production meshes and arctic_480b's ``train_4k`` on 512, each
+   ``status: "ok"``, a device's GiB beside the card's memory and the
+   dominant roofline term; then ``examples/torch_quickstart.py`` on
+   ``cuda``.
 
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -207,16 +222,16 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the H100 rates (NVIDIA data sheet) and the bound from them: one copy, the
+# roofline's, so that the kernel table's bounds and the dry run agree
+from repro_torch.launch.roofline import (  # noqa: E402
+    FP32_OPS_PER_S, HBM_BYTES_PER_S, bound_ms as _bound)
+
 SEED = 0
-#: H100 SXM HBM3 rate (NVIDIA data sheet), for the memory bound
-HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12
 #: sim_alu moves one int32 opcode + four float32 operands in and one
 #: float32 result out per element
 SIM_ALU_BYTES_PER_ELEM = 24
-#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
-BF16_OPS_PER_S = 989e12
 SIM_ALU_SOURCE = "src/repro_torch/kernels/csrc/sim_alu.cu"
 SIM_LOOP_SOURCE = "src/repro_torch/kernels/csrc/sim_loop.cu"
 SIM_ALU_REPLACES = "src/repro/kernels/sim_alu.py:53"
@@ -1955,13 +1970,6 @@ def _device_txt(k_dev) -> str:
     return f"{k_dev:.6f} ms device time"
 
 
-def _bound(n_bytes: float, ops: float, ops_rate: float):
-    bounds = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
-              "operations": ops / ops_rate * 1e3}
-    by = max(bounds, key=bounds.get)
-    return bounds[by], by
-
-
 #: the serve path's kernel shapes of each served model: d_model, d_ff,
 #: query heads over kv heads at batch 4, head dim
 LM_SHAPES = {"llama3_2_3b": (3072, 8192, 96, 32, 128),
@@ -1979,7 +1987,7 @@ def lm_kernel_cases():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.fused_swiglu import (ROUTE_NAMES,
                                                   fused_swiglu_cuda, route)
@@ -1995,7 +2003,7 @@ def lm_kernel_cases():
                 "rmsnorm", f"({M},{D})", lambda x=x, s=s: rmsnorm_cuda(x, s),
                 lambda x=x, s=s: ref.rmsnorm(x, s),
                 lambda x=x, s=s, D=D: F.rms_norm(x, (D,), s, 1e-6),
-                (2 * M * D + D) * 2, 4 * M * D, FP32_OPS_PER_S, (), None))
+                *cost.rmsnorm(M, D, 2), (), None))
         for M in (2000, 4):
             x = _randn((M, D), bf, 3)
             w1, w3 = (_randn((D, Ff), bf, i, D ** -0.5) for i in (4, 5))
@@ -2004,15 +2012,13 @@ def lm_kernel_cases():
                 "fused_swiglu", f"({M},{D})x({D},{Ff})",
                 lambda x=x, w1=w1, w3=w3: fused_swiglu_cuda(x, w1, w3),
                 lambda x=x, w1=w1, w3=w3: ref.fused_swiglu(x, w1, w3), None,
-                (M * D + 2 * D * Ff + M * Ff) * 2,
-                4 * M * D * Ff + 5 * M * Ff, BF16_OPS_PER_S,
+                *cost.fused_swiglu(M, D, Ff, 2),
                 (("x @ w1", lambda x=x, w1=w1: x @ w1),
                  ("x @ [w1 | w3]", lambda x=x, w13=w13: x @ w13)),
                 ROUTE_NAMES[route(M, D, Ff, bf)]))
         S, g = 500, H // Hkv
         q = _randn((H, S, d), bf, 6)
         k, v = (_randn((Hkv, S, d), bf, i) for i in (7, 8))
-        pairs = H * S * (S + 1) // 2  # live (q, k) pairs of the causal band
         cases.append((
             "flash_attention", f"({H},{S},{d}) causal kv_group {g}",
             lambda q=q, k=k, v=v, g=g: flash_attention_cuda(
@@ -2022,8 +2028,7 @@ def lm_kernel_cases():
             lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True,
                 enable_gqa=True)[0],
-            (2 * H + 2 * Hkv) * S * d * 2, 4 * d * pairs, BF16_OPS_PER_S,
-            (), None))
+            *cost.flash_attention(H, Hkv, S, d, 2), (), None))
     return cases
 
 
@@ -2506,13 +2511,21 @@ def serve_phase(arch: str, decode_check: bool):
 
     model, prompts = out["model"], out["prompts"]
     extra = out["extra_batch"] or {}
-    # the served prefill again, traced (and its MoE dispatch recorded)
+    # the served prefill again, traced (and its MoE dispatch recorded), with
+    # its own peak device memory and launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     with torch.inference_mode(), recorded_moe() as calls, profile(
             activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         cache, _ = model.prefill({"tokens": prompts, **extra})
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
+    MEASURED[f"serve {arch}"] = {
+        "run_peak_gib": peak, "prefill_s": info["prefill_s"],
+        "prefill_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "prefill_launches": {k: v for k, v in read_counts().items() if v}}
     report_trace(prof, f"{arch}: the prefill (batch {batch} x {prompt_len})",
                  info["prefill_s"] * 1e3, traced_ms)
     if calls:  # the same prefill as the served one: its dispatch
@@ -2545,10 +2558,11 @@ def serve_phase(arch: str, decode_check: bool):
     return counts
 
 
-def serve_launches(cfg):
+def serve_launches(cfg, passes: int = 32):
     """The kernels' launches in one serve run (1 prefill + 31 decode
-    steps, 32 passes): rmsnorm ln1 + ln2 a layer and ln_f a pass (one ln
-    a Mamba-1 layer; ln and the gated norm a Mamba-2 layer, ln1 + ln2 a
+    steps, 32 passes; ``passes=1`` is the prefill alone): rmsnorm ln1 +
+    ln2 a layer and ln_f a pass (one ln a Mamba-1 layer; ln and the
+    gated norm a Mamba-2 layer, ln1 + ln2 a
     shared-attention site; ln1, ln_x and ln2 a decoder layer, and once in
     the prefill 2 an encoder layer and ln_enc); fused_swiglu one MLP a
     dense layer or site a pass (only arctic's dense branch among the MoE
@@ -2557,21 +2571,23 @@ def serve_launches(cfg):
     the encoder and cross-attention are non-causal and take none); with
     qk-norm rmsnorm twice more a layer a pass, once over q's rows and once
     over k's (qwen3_14b: 161 x 32 = 5152)."""
-    L = cfg.n_layers
+    L, P = cfg.n_layers, passes
     if cfg.family == "ssm":
-        return {"rmsnorm": (L + 1) * 32}
-    if cfg.family == "hybrid":
+        out = {"rmsnorm": (L + 1) * P}
+    elif cfg.family == "hybrid":
         sites = L // cfg.attn_every
-        return {"rmsnorm": (2 * L + 2 * sites + 1) * 32,
-                "fused_swiglu": sites * 32, "flash_attention": sites}
-    if cfg.family == "encdec":
+        out = {"rmsnorm": (2 * L + 2 * sites + 1) * P,
+               "fused_swiglu": sites * P, "flash_attention": sites}
+    elif cfg.family == "encdec":
         enc = cfg.n_enc_layers
-        return {"rmsnorm": 2 * enc + 1 + (3 * L + 1) * 32,
-                "fused_swiglu": enc + L * 32, "flash_attention": L}
-    swiglu = cfg.family != "moe" or bool(cfg.moe_dense_ff)
-    norms = 4 if cfg.qk_norm else 2  # q_norm and k_norm: one call each
-    return {"rmsnorm": (norms * L + 1) * 32, "fused_swiglu": swiglu * L * 32,
-            "flash_attention": L}
+        out = {"rmsnorm": 2 * enc + 1 + (3 * L + 1) * P,
+               "fused_swiglu": enc + L * P, "flash_attention": L}
+    else:
+        swiglu = cfg.family != "moe" or bool(cfg.moe_dense_ff)
+        norms = 4 if cfg.qk_norm else 2  # q_norm and k_norm: one call each
+        out = {"rmsnorm": (norms * L + 1) * P,
+               "fused_swiglu": swiglu * L * P, "flash_attention": L}
+    return {k: v for k, v in out.items() if v}
 
 
 @contextlib.contextmanager
@@ -3095,12 +3111,15 @@ TRACE_GROUPS = (
 TRAINED = "llama3_2_3b"
 #: each trained model (the fourth main path, one run each), with its depth
 #: cut where its state does not fit one card at 12 bytes a parameter:
-#: falcon_mamba_7b's 64 layers need about 84 GB (8 layers and the
-#: embedding, 1.11 B parameters, about 13.3 GB), qwen2_vl_72b's 80 about
-#: 870 GB (2 layers and the embedding, 3.0 B, about 36 GB)
+#: falcon_mamba_7b's 64 layers need about 84 GB (4 layers and the
+#: embedding, 0.69 B parameters, about 8.3 GB), qwen2_vl_72b's 80 about
+#: 870 GB (2 layers and the embedding, 3.0 B, about 36 GB); and zamba2_1_2b
+#: at 13 of its 38 layers (two shared-block sites and a tail layer), which
+#: fits whole but is host-bound: falcon's cut from 8 layers and zamba2's
+#: pay for the plan phase's time
 TRAIN_RUNS = {"llama3_2_3b": None, "granite_moe_1b_a400m": None,
-              "zamba2_1_2b": None, "whisper_tiny": None,
-              "falcon_mamba_7b": 8, "qwen2_vl_72b": 2}
+              "zamba2_1_2b": 13, "whisper_tiny": None,
+              "falcon_mamba_7b": 4, "qwen2_vl_72b": 2}
 #: every run's traffic: batch x sequence (train_4k's sequence; the global
 #: batch cut from 256 to 4), and its steps
 TRAIN_SHAPE = (4, 4096)
@@ -3131,13 +3150,13 @@ def train_launches(cfg, steps: int):
     * moe: the same without the gate (arctic's dense branch has one);
       granite recomputes all 24 blocks under ``"nothing"``: 97 / 49 / 0 /
       0 / 48 / 24;
-    * ssm: one rmsnorm a Mamba-1 layer and ln_f: falcon's 8 layers
-      17 / 9;
+    * ssm: one rmsnorm a Mamba-1 layer and ln_f: falcon's 4 layers
+      9 / 5;
     * hybrid: each Mamba-2 layer's ln and its gated norm (rmsnorm over
       d_inner), recomputed; the shared block at each of the L //
       attn_every sites (ln1, ln2, the gate, attention) is not
-      checkpointed: zamba2 2 x 38 + 2 x 38 + 2 x 6 + 1 = 165 / 89 / 6 /
-      6 / 6 / 6;
+      checkpointed: zamba2's 13 layers (its run's cut) 2 x 13 + 2 x 13
+      + 2 x 2 + 1 = 57 / 31 / 2 / 2 / 2 / 2 (165 / 89 / 6 at all 38);
     * encdec: an encoder layer's ln1, ln2 and gate, recomputed (its
       attention is the plain non-causal one, no kernel), ln_enc once; a
       decoder layer's ln1, ln_x, ln2, gate and causal self-attention,
@@ -3268,7 +3287,7 @@ def bwd_kernel_cases():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     from repro_torch.kernels.fused_swiglu import swiglu_gate_bwd_cuda
@@ -3285,13 +3304,13 @@ def bwd_kernel_cases():
         "rmsnorm_bwd", f"({M},{D})", lambda: rmsnorm_bwd_cuda(x, s, dy),
         lambda: _grads(ref.rmsnorm, (x, s), dy),
         lambda: torch.autograd.grad(y_lib, (xs, ss), dy, retain_graph=True),
-        3 * M * D * 2 + 2 * D * 2, 10 * M * D, FP32_OPS_PER_S)]
+        *cost.rmsnorm_bwd(M, D, 2))]
     a, b, dh = (_randn((M, Ff), bf, i) for i in (63, 64, 65))
     cases.append((
         "swiglu_gate_bwd", f"({M},{Ff})",
         lambda: swiglu_gate_bwd_cuda(a, b, dh),
-        lambda: _grads(_gate_plain, (a, b), dh), None, 5 * M * Ff * 2,
-        12 * M * Ff, FP32_OPS_PER_S))
+        lambda: _grads(_gate_plain, (a, b), dh), None,
+        *cost.swiglu_gate_bwd(M * Ff, 2)))
     g = H // Hkv
     q = _randn((H, T, d), bf, 66)
     k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
@@ -3300,7 +3319,6 @@ def bwd_kernel_cases():
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
     y_sdpa = F.scaled_dot_product_attention(
         ql[None], kl[None], vl[None], is_causal=True, enable_gqa=True)[0]
-    pairs = H * T * (T + 1) // 2
     cases.append((
         "flash_attention_bwd", f"({H},{T},{d}) causal kv_group {g}",
         lambda: flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
@@ -3308,8 +3326,7 @@ def bwd_kernel_cases():
         lambda: _flash_plain_grads(q, k, v, dout, g, dict(causal=True)),
         lambda: torch.autograd.grad(y_sdpa, (ql, kl, vl), dout,
                                     retain_graph=True),
-        (4 * H + 4 * Hkv) * T * d * 2 + H * T * 4, 10 * d * pairs,
-        BF16_OPS_PER_S))
+        *cost.flash_attention_bwd(H, Hkv, T, d, 2)))
     return cases
 
 
@@ -3555,6 +3572,9 @@ def train_path_phase(arch: str):
     want.update(train_launches(cfg, TRAIN_STEPS))
     require(counts == want, f"{arch} train launch counts {counts}, want "
             f"{want}")
+    MEASURED[f"train {arch}"] = {
+        "peak_gib": out["peak_gib"], "step_s": out["step_s_median"],
+        "launches": {k: v for k, v in counts.items() if v}}
     model, opt_state = out["model"], out["opt_state"]
     n_params = sum(p.numel() for p in model.parameters())
     depth = "" if layers is None else \
@@ -3637,11 +3657,11 @@ def kernel_step_times(arch, cfg, prof) -> None:
         line = (f"train: {arch} {name}: {n} launches a step, {ms / n:.6f} ms "
                 f"of device time a launch in the traced step")
         if name == "flash_attention_bwd":
+            from repro_torch.kernels import cost
+
             H, Hkv, d = B * cfg.n_heads, B * cfg.n_kv_heads, \
                 cfg.resolved_head_dim
-            pairs = H * T * (T + 1) // 2
-            bound, by = _bound((4 * H + 4 * Hkv) * T * d * 2 + H * T * 4,
-                               10 * d * pairs, BF16_OPS_PER_S)
+            bound, by = _bound(*cost.flash_attention_bwd(H, Hkv, T, d, 2))
             line += (f"; bound {bound:.6f} ms ({by}) at ({H}, {T}, {d}) "
                      f"causal kv_group {cfg.n_heads // cfg.n_kv_heads}")
         print(line)
@@ -3950,6 +3970,183 @@ def train_smoke_phase() -> None:
           f"{PARITY_TOL['atol']})")
 
 
+#: what the serve and train phases measured, for the plan phase: per
+#: ``"serve ARCH"`` the run's peak, the prefill's seconds, and the served
+#: prefill's own peak and launches (run again, counters from 0); per
+#: ``"train ARCH"`` the run's peak, its median step and its launches
+MEASURED = {}
+#: the model whose measured train and serve steps the plan predicts
+PLAN_MODEL = "llama3_2_3b"
+#: the prediction's peak within this share of ``max_memory_allocated``
+PLAN_PEAK_TOL = 0.15
+#: model FLOPs (6ND) over the traced FLOPs of the train step, held here
+PLAN_USEFUL = (0.5, 1.0)
+#: the production-mesh cells of the plan phase (every applicable shape of
+#: llama3_2_3b on both meshes, arctic_480b's training on 512 GPUs)
+PLAN_MESH_CELLS = [("llama3_2_3b", name, mp)
+                   for name in ("train_4k", "prefill_32k", "decode_32k")
+                   for mp in (False, True)] + [("arctic_480b", "train_4k",
+                                                True)]
+
+
+def plan_phase() -> None:
+    """The launch planner against the card (no extra card step): the dry
+    run at world size 1 (``launch.mesh.host_mesh``, the card's program)
+    predicts the train step and the prefill that the train and serve
+    phases ran; each prediction's peak is held within ``PLAN_PEAK_TOL`` of
+    the measured one, its kernel calls to the card's launches exactly
+    (and to ``train_launches`` / ``serve_launches``), the train step's
+    model FLOPs over its traced FLOPs to ``PLAN_USEFUL``; the roofline's
+    time over the measured time and its fraction are printed.  Then the
+    production-mesh cells (``PLAN_MESH_CELLS``, each on its fake group)
+    reach ``status: "ok"``, each device's GiB beside the card's memory,
+    and ``examples/torch_quickstart.py`` runs on the card.  The cells
+    (host work alone, ``python -m repro_torch.launch.dryrun`` processes)
+    and the quickstart's process start first and run beside the world-1
+    predictions."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+
+    def start(cmd, tag, env):  # output to files: nothing waits on a pipe
+        with open(os.path.join(tmp, tag + ".log"), "w") as log:
+            return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                    env=env)
+
+    t0 = time.perf_counter()
+    quick = start([sys.executable, os.path.join(ROOT, "examples",
+                                                "torch_quickstart.py"),
+                   "--device", "cuda"], "quickstart",
+                  dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    procs = []
+    for arch, name, mp in PLAN_MESH_CELLS:
+        tag = dryrun.cell_tag(arch, name, mp)
+        path = os.path.join(tmp, tag + ".json")
+        procs.append((arch, name, mp, path, start(
+            dryrun.cell_command(arch, name, mp, path, "cuda"), tag,
+            dryrun.subprocess_env())))
+    try:
+        _plan_world_one()
+        _plan_mesh_cells(procs)
+        quick.wait(timeout=300)
+        with open(os.path.join(tmp, "quickstart.log")) as f:
+            out = f.read()
+        for line in out.splitlines()[-8:]:
+            print(f"quickstart: {line}")
+        require(quick.returncode == 0, f"examples/torch_quickstart.py "
+                f"exited {quick.returncode}: {out[-2000:]}")
+        print(f"plan: examples/torch_quickstart.py on cuda exited 0, "
+              f"{time.perf_counter() - t0:.3f} s after the phase began")
+    finally:
+        for proc in [quick] + [p[-1] for p in procs]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _plan_world_one() -> None:
+    """(a) and (b) of the plan phase: the world-1 predictions."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import host_mesh
+
+    cfg = get_config(PLAN_MODEL)
+    B, T = TRAIN_SHAPE
+    pb, pt, _ = SERVE_SHAPES[PLAN_MODEL]
+    tm, sm = MEASURED[f"train {PLAN_MODEL}"], MEASURED[f"serve {PLAN_MODEL}"]
+    cells = (
+        (ShapeSpec(f"train_4k@{B}x{T}", T, B, "train"), tm["peak_gib"],
+         tm["step_s"], "median step of the time: line",
+         {k: v // TRAIN_STEPS for k, v in tm["launches"].items()},
+         train_launches(cfg, 1)),
+        (ShapeSpec(f"prefill@{pb}x{pt}", pt, pb, "prefill"),
+         sm["prefill_peak_gib"], sm["prefill_s"], "the serve run's prefill",
+         sm["prefill_launches"], serve_launches(cfg, passes=1)))
+    with host_mesh(device="cuda") as mesh:
+        for shape, peak, secs, what, card, want in cells:
+            rec = dryrun.run_cell(PLAN_MODEL, shape.name, False, shape=shape,
+                                  mesh=mesh, device="cuda")
+            require(rec.get("status") == "ok", f"plan {shape.name}: {rec}")
+            t = roofline.terms(rec, cfg, shape)
+            pred = rec["peak_bytes"] / 2 ** 30
+            useful = t["model_flops"] / t["flops_per_device"]
+            print(f"plan: {PLAN_MODEL} {shape.name} at world 1 "
+                  f"({rec['traced_on']}, traced in {rec['trace_s']} s): "
+                  f"predicted peak {pred:.3f} GiB (arguments "
+                  f"{rec['argument_size_in_bytes'] / 2 ** 30:.3f} + temp "
+                  f"{rec['temp_size_in_bytes'] / 2 ** 30:.3f}), measured "
+                  f"max_memory_allocated {peak:.3f} GiB: predicted / "
+                  f"measured {pred / peak:.4f}; traced FLOPs "
+                  f"{t['flops_per_device']:.6g} (kernels "
+                  f"{rec['kernel_flops']:.6g}), model FLOPs "
+                  f"{t['model_flops']:.6g}: traced / model "
+                  f"{1 / useful:.4f}, model / traced {useful:.4f}; "
+                  f"roofline compute {t['compute_s']:.6f} s, memory "
+                  f"{t['memory_s']:.6f} s ({t['bytes_per_device']:.6g} "
+                  f"bytes), collective {t['collective_s']:.6f} s: "
+                  f"{t['roofline_s']:.6f} s ({t['dominant']}), measured "
+                  f"{secs:.6f} s ({what}): roofline / measured "
+                  f"{t['roofline_s'] / secs:.4f}; roofline fraction "
+                  f"{t['roofline_fraction']:.4f}")
+            require(abs(pred / peak - 1) <= PLAN_PEAK_TOL,
+                    f"plan {shape.name}: predicted peak {pred:.3f} GiB, "
+                    f"measured {peak:.3f} GiB")
+            require(rec["kernels"] == want == card,
+                    f"plan {shape.name}: traced kernel calls "
+                    f"{rec['kernels']}, want {want}, the card launched "
+                    f"{card}")
+            print(f"plan: {shape.name} traced kernel calls {rec['kernels']} "
+                  f"= the formula's = the card's launches"
+                  + (f" / {TRAIN_STEPS} steps" if shape.kind == "train"
+                     else " in the served prefill"))
+            if shape.kind == "train":
+                lo, hi = PLAN_USEFUL
+                require(lo <= useful <= hi, f"plan {shape.name}: model / "
+                        f"traced FLOPs {useful:.4f} outside {PLAN_USEFUL}")
+            else:  # the prefill's head runs on the last token only
+                print(f"plan: {shape.name} serve run peak "
+                      f"{sm['run_peak_gib']:.3f} GiB (the weights' float32 "
+                      "draw included; not predicted)")
+
+
+def _plan_mesh_cells(procs) -> None:
+    """(c): each production-mesh cell's record, from its process."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import roofline
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, name, mp, path, proc in procs:
+        proc.wait(timeout=600)
+        with open(path[:-len(".json")] + ".log") as f:
+            log = f.read()
+        require(proc.returncode == 0 and os.path.exists(path),
+                f"plan {arch} {name} {'mp' if mp else 'sp'}: exit "
+                f"{proc.returncode}: {log[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        require(rec.get("status") == "ok", f"plan {arch} {name} "
+                f"{'mp' if mp else 'sp'}: {rec}")
+        t = roofline.terms(rec, get_config(arch), SHAPES[name])
+        gib = rec["peak_bytes"] / 2 ** 30
+        links = ", ".join(f"{k} {v:.6f} s" for k, v in
+                          sorted(t["collective_s_by_axis"].items()))
+        print(f"plan: {arch} {name} on {rec['mesh']['n_devices']} GPUs "
+              f"{rec['mesh']['shape']}: {gib:.3f} GiB a device of "
+              f"{total / 2 ** 30:.3f} ("
+              f"{'fits' if rec['peak_bytes'] <= total else 'does not fit'}"
+              f"); compute {t['compute_s']:.6f} s, memory "
+              f"{t['memory_s']:.6f} s, collective {t['collective_s']:.6f} s "
+              f"({links or 'none'}): {t['dominant']}; roofline fraction "
+              f"{t['roofline_fraction']:.4f}; kernels {rec['kernels']}; "
+              f"traced in {rec['trace_s']} s")
+
+
 def build_all(root: str) -> None:
     """Every kernel's nvcc build, one process each, all started together."""
     from repro_torch.kernels import _build
@@ -4067,6 +4264,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_smoke_phase()
     print(f"phase: train smoke-width runs {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    plan_phase()
+    print(f"phase: plan (dry run at world 1 against the measured steps, "
+          f"the production meshes, the quickstart) "
+          f"{time.perf_counter() - t0:.3f} s")
     for name, rec in records.items():
         rec["launches"] = counts["serve llama3_2_3b"][name]
         rec["launches_by_path"] = {path: c[name] for path, c in counts.items()}

@@ -8,6 +8,7 @@ from repro_torch.configs.base import (
     ShapeSpec,
     get_config,
     register,
+    shape_applicable,
     smoke_config,
 )
 
@@ -21,5 +22,6 @@ __all__ = [
     "ShapeSpec",
     "get_config",
     "register",
+    "shape_applicable",
     "smoke_config",
 ]

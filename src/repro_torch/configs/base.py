@@ -167,6 +167,17 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Assignment skip rules (documented in DESIGN.md §4)."""
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid") or cfg.sliding_window > 0
+        )
+        if not sub_quadratic:
+            return False, "pure full-attention arch: long_500k skipped per assignment"
+    return True, ""
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------

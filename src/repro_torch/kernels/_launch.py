@@ -19,7 +19,7 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 
 #: the dtype code of the C entries
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,9 +53,11 @@ def check_operands(name: str, names: Sequence[str],
     """Raise ``ValueError`` unless every tensor (called ``names[i]`` in the
     messages) lies on the first one's CUDA device, has its dtype, one the
     kernel takes, and is contiguous.  Per tensor, in order: device, dtype,
-    contiguity.  Returns (dtype code, device index)."""
+    contiguity.  Returns (dtype code, device index).  Fake tensors that
+    stand for the card's (:func:`repro_torch.kernels.fake.modelled`) pass
+    as CUDA tensors."""
     first = tensors[0]
-    if not first.is_cuda:
+    if not (first.is_cuda or fake.modelled(first)):
         raise ValueError(f"{name} needs CUDA tensors, got {first.device}")
     dtype = first.dtype
     code = DTYPE_CODES.get(dtype)
@@ -63,7 +65,7 @@ def check_operands(name: str, names: Sequence[str],
         raise ValueError(f"{name} takes float32 or bfloat16, got {dtype}")
     index = first.get_device()
     for i, t in enumerate(tensors):
-        if not t.is_cuda or t.get_device() != index:
+        if not (t.is_cuda or fake.modelled(t)) or t.get_device() != index:
             raise ValueError(f"{name}: {names[i]} lies on {t.device}, not "
                              f"{first.device}")
         if t.dtype is not dtype:

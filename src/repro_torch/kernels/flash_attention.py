@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _launch, cost, fake, ref
 
 #: the largest head dim the kernel takes
 MAX_HEAD_DIM = 256
@@ -105,6 +105,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse = torch.empty((H, S), dtype=torch.float32, device=q.device)
         out32 = out if q.dtype == torch.float32 else torch.empty(
             q.shape, dtype=torch.float32, device=q.device)
+    if fake.modelled(q):
+        fake.record("flash_attention", cost.flash_attention(
+            H, k.shape[0], S, d, q.element_size(), causal=causal,
+            window=window, train=train))
+        return (out, lse, out32) if train else out
     ptr = lambda t: 0 if t is None or t is out else t.data_ptr()  # noqa
     _launch.launch("flash_attention", _ARGS, dev, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(lse),
@@ -145,6 +150,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((H, S), dtype=torch.float32, device=q.device)
+    if fake.modelled(q):
+        code = bwd_route(q.dtype, d, fake.aligned(q, k, v, dout))
+        fake.record("flash_attention_bwd", cost.flash_attention_bwd(
+            H, k.shape[0], S, d, q.element_size(), causal=causal,
+            window=window), ("wgmma", "mma.sync", "SIMT")[code])
+        return dq, dk, dv
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0
     _launch.launch("flash_attention_bwd", _BWD_ARGS, dev, *ptrs[:3],
@@ -191,8 +202,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_group: int = 1) -> torch.Tensor:
     """Masked softmax attention over (H, S, d): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (through
-    :class:`FlashAttentionFn` when a gradient is wanted)."""
-    if q.is_cpu:
+    :class:`FlashAttentionFn` when a gradient is wanted; fake tensors that
+    stand for the card's take the kernel's fake rule,
+    :mod:`repro_torch.kernels.fake`)."""
+    if q.is_cpu and not fake.modelled(q):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    kv_group=kv_group)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

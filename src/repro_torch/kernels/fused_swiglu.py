@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _launch, cost, fake, ref
 
 #: x, w1, w3, out, M, D, F, dtype code, route code (then the device and the
 #: stream)
@@ -81,6 +81,12 @@ def fused_swiglu_cuda(x: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"fused_swiglu: a dimension of {(M, D, F)} "
                          "exceeds int32")
     out = torch.empty((M, F), dtype=x.dtype, device=x.device)
+    if fake.modelled(x):
+        code = route(M, D, F, x.dtype, fake.aligned(x, w1, w3, out))
+        fake.record("fused_swiglu",
+                    cost.fused_swiglu(M, D, F, x.element_size()),
+                    ROUTE_NAMES[code])
+        return out
     ptrs = (x.data_ptr(), w1.data_ptr(), w3.data_ptr(), out.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0
     _launch.launch("fused_swiglu", _ARGS, dev, *ptrs, M, D, F, code,
@@ -111,6 +117,10 @@ def swiglu_gate_bwd_cuda(a: torch.Tensor, b: torch.Tensor,
                          f"{tuple(a.shape)}, {tuple(b.shape)}, "
                          f"{tuple(dh.shape)}")
     da, db = torch.empty_like(a), torch.empty_like(b)
+    if fake.modelled(a):
+        fake.record("swiglu_gate_bwd",
+                    cost.swiglu_gate_bwd(a.numel(), a.element_size()))
+        return da, db
     _launch.launch("swiglu_gate_bwd", _GATE_ARGS, dev, a.data_ptr(),
                    b.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
                    a.numel(), code, library="fused_swiglu")
@@ -150,8 +160,9 @@ def fused_swiglu(x: torch.Tensor, w1: torch.Tensor,
                  w3: torch.Tensor) -> torch.Tensor:
     """``silu(x @ w1) * (x @ w3)``: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors (through :class:`SwiGLUFn` when a gradient
-    is wanted)."""
-    if x.is_cpu:
+    is wanted; fake tensors that stand for the card's take the kernel's
+    fake rule, :mod:`repro_torch.kernels.fake`)."""
+    if x.is_cpu and not fake.modelled(x):
         return ref.fused_swiglu(x, w1, w3)
     if torch.is_grad_enabled() and (x.requires_grad or w1.requires_grad
                                     or w3.requires_grad):

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _launch, cost, fake, ref
 
 #: x, scale, out, M, D, eps, dtype code (then the device and the stream)
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
@@ -41,6 +41,9 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(x.shape)} and {tuple(scale.shape)}")
     out = torch.empty_like(x)
     M, D = x.shape
+    if fake.modelled(x):
+        fake.record("rmsnorm", cost.rmsnorm(M, D, x.element_size()))
+        return out
     _launch.launch("rmsnorm", _ARGS, dev, x.data_ptr(), scale.data_ptr(),
                    out.data_ptr(), M, D, eps, code)
     rmsnorm_cuda.launches += 1
@@ -101,6 +104,9 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     blocks = min(-(-M // BWD_WARPS), BWD_MAX_BLOCKS)
     partial = torch.empty((blocks * BWD_WARPS, D), dtype=torch.float32,
                           device=x.device)
+    if fake.modelled(x):
+        fake.record("rmsnorm_bwd", cost.rmsnorm_bwd(M, D, x.element_size()))
+        return dx, dscale
     _launch.launch("rmsnorm_bwd", _BWD_ARGS, dev, x.data_ptr(),
                    scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                    dscale.data_ptr(), partial.data_ptr(), M, D, blocks, eps,
@@ -134,8 +140,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of the rows of (M, D) ``x``: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (through :class:`RMSNormFn`
-    when a gradient is wanted)."""
-    if x.is_cpu:
+    when a gradient is wanted; fake tensors that stand for the card's take
+    the kernel's fake rule, :mod:`repro_torch.kernels.fake`)."""
+    if x.is_cpu and not fake.modelled(x):
         return ref.rmsnorm(x, scale, eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return RMSNormFn.apply(x, scale, eps)

@@ -23,8 +23,9 @@ to one card (the JAX launcher reads them only with ``--smoke``).  With
 ``--smoke`` the shape is ``--seq`` x ``--batch``, 64 x 4 unless given.  Prints the final step, the losses and the stragglers, then a
 ``time:`` line: the median step seconds over the steps after the first
 (each ends in a device synchronisation), tokens a second, and on a card
-the model FLOPs a step over the step time as a share of
-:data:`PEAK_BF16_FLOPS` and the peak device memory.
+the model FLOPs a step over the step time as a share of the dense bf16
+rate (:data:`repro_torch.launch.roofline.BF16_OPS_PER_S`) and the peak
+device memory.
 """
 from __future__ import annotations
 
@@ -40,11 +41,8 @@ import torch
 from repro_torch.configs import SHAPES, RunConfig, get_config, smoke_config
 from repro_torch.configs.base import ShapeSpec, default_checkpoint_dir
 from repro_torch.device import resolve_device
+from repro_torch.launch.roofline import BF16_OPS_PER_S
 from repro_torch.train.loop import CUBLAS_WORKSPACE, train
-
-#: an H100 SXM's dense bf16 tensor-core rate (NVIDIA's data sheet, at its
-#: 700 W power limit)
-PEAK_BF16_FLOPS = 989e12
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -182,11 +180,11 @@ def run(argv: Optional[List[str]] = None) -> Dict:
                       model_flops=flops)
         if device.type == "cuda":
             peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-            mfu = flops["total"] / step_s / PEAK_BF16_FLOPS
+            mfu = flops["total"] / step_s / BF16_OPS_PER_S
             line += (f"; model FLOPs {flops['total']:.4g} a step "
                      f"({flops['products']:.4g} products + "
                      f"{flops['attention']:.4g} attention), "
-                     f"{100 * mfu:.2f}% of the {PEAK_BF16_FLOPS / 1e12:.0f} "
+                     f"{100 * mfu:.2f}% of the {BF16_OPS_PER_S / 1e12:.0f} "
                      f"TFLOP/s dense bf16 peak (H100 SXM data sheet); peak "
                      f"device memory {peak:.3f} GiB")
             report.update(mfu=mfu, peak_gib=peak)

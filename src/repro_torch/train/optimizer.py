@@ -18,6 +18,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.models.layers import Spec, spec_map
 from repro_torch.train.tree import leaves, slices, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -46,6 +47,16 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
                        / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
     cos = 0.5 * (1.0 + torch.cos(math.pi * frac))
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
+
+
+def opt_state_spec(param_specs, cfg: AdamWConfig) -> Dict:
+    """The optimizer state's spec tree (no allocation): ``m`` and ``v`` in
+    ``state_dtype`` with each parameter's shape and axes, and a scalar
+    int32 ``step`` (``repro/train/optimizer.py:40-47``)."""
+    dt = _DTYPES[cfg.state_dtype]
+    mv = spec_map(lambda s: Spec(s.shape, s.axes, dt, init="zeros"),
+                  param_specs)
+    return {"m": mv, "v": mv, "step": Spec((), (), torch.int32, init="zeros")}
 
 
 def init_opt_state(params: Dict, cfg: AdamWConfig) -> Dict:

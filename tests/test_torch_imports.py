@@ -30,9 +30,18 @@ CARD_SCRIPTS = ("flash_bwd_rounding.py", "ssd_parity_conditioning.py",
                 "xent_peak.py")
 
 
+#: the port's examples (the JAX package's own stay beside them)
+EXAMPLES = ("torch_quickstart.py", "torch_plaid_walkthrough.py",
+            "torch_serve_batched.py", "torch_train_100m.py")
+#: the one module that may import PyTorch's test utilities (the fake
+#: process group of the production mesh)
+TESTING_INTERNAL = os.path.join(PKG, "launch", "mesh.py")
+
+
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     out += [os.path.join(ROOT, "scripts", f) for f in CARD_SCRIPTS]
+    out += [os.path.join(ROOT, "examples", f) for f in EXAMPLES]
     for dirpath, _dirs, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -54,6 +63,9 @@ def test_every_module_imports_without_jax_or_repro():
         f"spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{os.path.join(ROOT, 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for i, path in enumerate({[os.path.join(ROOT, 'examples', f) for f in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'example{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print('loaded:', len(sys.modules), 'forbidden:', bad)\n"
@@ -114,7 +126,11 @@ def test_module_list_covers_the_package():
                  "repro_torch.compiler.pipeline",
                  "repro_torch.core.runner", "repro_torch.serve_farm.protocol",
                  "repro_torch.serve_farm.client",
-                 "repro_torch.serve_farm.daemon"):
+                 "repro_torch.serve_farm.daemon",
+                 "repro_torch.compiler.__main__",
+                 "repro_torch.parallel.sharding", "repro_torch.launch.mesh",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                 "repro_torch.kernels.cost", "repro_torch.kernels.fake"):
         assert want in mods
 
 
@@ -132,3 +148,33 @@ def test_no_jax_or_repro_import_statement(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize(
+    "path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_torch_testing_internal_only_in_the_mesh_module(path):
+    """``torch.testing._internal`` (the fake process group) is imported by
+    ``repro_torch/launch/mesh.py`` alone."""
+    found = [(line, name) for line, name in _imports(path)
+             if name.startswith("torch.testing._internal")]
+    if path == TESTING_INTERNAL:
+        assert found, "the production mesh's fake group"
+    else:
+        assert not found, f"{path} imports {found}"
+
+
+def test_examples_exist_beside_the_jax_ones():
+    for name in EXAMPLES:
+        assert os.path.exists(os.path.join(ROOT, "examples", name))
+        assert os.path.exists(os.path.join(
+            ROOT, "examples", name.replace("torch_", "")))
