@@ -27,7 +27,8 @@ def _forbidden(module: str) -> bool:
 #: the scripts that run the port on the card, where no JAX is installed
 CARD_SCRIPTS = ("flash_bwd_rounding.py", "ssd_parity_conditioning.py",
                 "ssm_parity_conditioning.py", "train_parity_conditioning.py",
-                "xent_peak.py")
+                "xent_peak.py", "torch_bench_place.py",
+                "torch_bench_route.py")
 
 
 #: the port's examples (the JAX package's own stay beside them)
@@ -178,3 +179,49 @@ def test_examples_exist_beside_the_jax_ones():
         assert os.path.exists(os.path.join(ROOT, "examples", name))
         assert os.path.exists(os.path.join(
             ROOT, "examples", name.replace("torch_", "")))
+
+
+def _intra_imports(path, modules):
+    """Module-level imports of other ``repro_torch.mapping`` modules
+    (imports inside functions are lazy and cannot cycle at import time)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names if a.name in modules}
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module in modules):
+            out.add(node.module)
+    return out
+
+
+def test_mapping_package_is_an_import_dag():
+    """The layering of ``repro_torch.mapping`` (mrrg -> mapping ->
+    passes.base -> passes.{route,extract} -> passes.{place,negotiate,
+    finalize} -> mappers) has no module-level import cycle; the package
+    ``__init__`` facades re-export everything and are left out."""
+    files = {}
+    for dirpath, _dirs, names in os.walk(os.path.join(PKG, "mapping")):
+        for n in names:
+            if n.endswith(".py") and n != "__init__.py":
+                path = os.path.join(dirpath, n)
+                rel = os.path.relpath(path, SRC)[:-3]
+                files[rel.replace(os.sep, ".")] = path
+    graph = {m: _intra_imports(p, set(files)) for m, p in files.items()}
+    assert len(graph) == 11
+    assert any(graph.values())  # the walk sees the package's own imports
+    done, cycles = set(), []
+
+    def visit(m, stack):
+        for d in sorted(graph[m]):
+            if d in stack:
+                cycles.append(stack[stack.index(d):] + [d])
+            elif d not in done:
+                visit(d, stack + [d])
+        done.add(m)
+
+    for m in sorted(graph):
+        if m not in done:
+            visit(m, [m])
+    assert not cycles, [" -> ".join(c) for c in cycles]

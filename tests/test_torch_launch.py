@@ -4,8 +4,9 @@
 the message and in the order the wrappers have always used (device, then
 dtype, then contiguity, tensor by tensor); each C entry's signature in
 ``csrc/<name>.cu`` matches the argument types its wrapper binds, device and
-stream included; a library's build hash covers the shared headers; every
-kernel module imports without ``nvcc``; and ``sim_loop_cuda`` refuses what
+stream included; a library's build hash covers the shared headers, and
+every header a source includes ships with the package; every kernel module
+imports without ``nvcc``; and ``sim_loop_cuda`` refuses what
 its kernel does not take before any launch.
 Tensors that claim to lie on a card are stand-ins: this host has none.
 """
@@ -26,6 +27,7 @@ KERNELS = ["sim_alu", "sim_loop", "rmsnorm", "fused_swiglu",
            "flash_attention", "motif_pcu"]
 C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
            "long long": ctypes.c_longlong, "float": ctypes.c_float}
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class _OnCard:
@@ -200,6 +202,31 @@ def test_every_kernel_source_is_a_kernel():
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                      if f.endswith(".cu"))
     assert sources == sorted(KERNELS)
+
+
+def test_every_include_ships_with_the_package():
+    """Each ``#include "..."`` of a kernel source resolves to a file that a
+    ``repro_torch`` package-data glob of ``pyproject.toml`` matches, so an
+    installed package can build every kernel."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "repro_torch"]
+    pkg = os.path.dirname(os.path.dirname(_build.CSRC))
+    includes = 0
+    for name in sorted(os.listdir(_build.CSRC)):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            for header in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                                     f.read(), re.M):
+                path = os.path.normpath(os.path.join(_build.CSRC, header))
+                assert os.path.exists(path), (name, header)
+                rel = os.path.relpath(path, pkg).replace(os.sep, "/")
+                assert any(fnmatch.fnmatch(rel, g) for g in globs), (
+                    name, rel, globs)
+                includes += 1
+    assert includes >= 10
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):
