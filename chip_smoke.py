@@ -91,9 +91,11 @@ Phases, in order; any failure exits non-zero before the last line:
 5. LM kernel phase: ``rmsnorm``, ``fused_swiglu`` and ``flash_attention``
    against their plain versions on the card, in float32 and bfloat16 on
    the shapes of ``tests/test_kernels.py`` (under its ``TOL``), flash also
-   at head dims 160 and 256; the bf16 tensor-core flash kernel on every
-   head dim in (32, 64, 80, 128, 160, 192, 256), S in (1, 17, 64, 65, 500),
-   kv_group 1 and 3, causal, window 64 and full (under ``TOL``);
+   at head dims 160 and 256; the bf16 tensor-core flash kernels on every
+   head dim in (32, 64, 80, 128, 160, 192, 256) (``wgmma`` at 64 and 128,
+   ``mma.sync`` otherwise), S in (1, 17, 64, 65, 500), kv_group 1 and 3,
+   causal, window 64 and full, and at d 64 and 128 with q 2 bytes past a
+   16-byte boundary (``mma.sync``) (under ``TOL``);
    ``fused_swiglu`` on each of its three routes (stream, tensor cores,
    SIMT) at 168 ragged shapes, M in (1, 4, 16, 17, 100, 129, 300), D in
    (72, 256, 1000), F in (130, 136, 320, 520), both dtypes (under
@@ -125,7 +127,8 @@ Phases, in order; any failure exits non-zero before the last line:
    zamba2 2848 / 192 / 6, whisper 425 / 132 / 4, qwen3 5152 / 1280 / 40,
    qwen2_vl 544 / 256 / 8, danube 1568 / 768 / 24); for granite the
    routes dropped in the prefill per layer; a ``torch.profiler`` trace of
-   the prefill (run again) and of one decode step, and the peak device
+   the prefill (run again; it must name the flash forward's kernel,
+   ``flash_kernel_name``) and of one decode step, and the peak device
    memory; for llama, in float32 at full width and depth, 4
    teacher-forced decode steps against a full forward (``DECODE_TOL``);
    then for each model the card against the CPU at full width in float32
@@ -155,12 +158,16 @@ Phases, in order; any failure exits non-zero before the last line:
    plain versions on the card, on ``tests/test_kernels.py``'s shapes in
    both dtypes under ``TOL`` (flash at d 32-256, kv_group 1 and 3, every
    mask), flash's backward at d 160 and 256 with a window under
-   ``PATH_TOL``; at the train path's bf16 shapes ((16384, 3072),
-   (16384, 8192), (96, 4096, 128) kv_group 3: ``rmsnorm_bwd`` a warp a
-   row, flash's backward on ``wgmma`` + TMA) under ``PATH_TOL``, twice
-   bitwise (no atomics), each kernel by name in a trace, timed beside its
-   plain version, its bound (flash's also beside its design's floor) and
-   its yardstick (the backward of ``F.rms_norm`` and of SDPA, in turns,
+   ``PATH_TOL``; flash's training form at (96, 4096, 128) kv_group 3 on
+   ``wgmma`` under ``PATH_TOL``, twice bitwise, by name, timed beside its
+   bound, its design's floor (3 products) and SDPA's forward; at the
+   train path's bf16 shapes ((16384, 3072) and the wider rows (16384,
+   4096) and (16384, 8192), (16384, 8192) for the gate, (96, 4096, 128)
+   kv_group 3: ``rmsnorm_bwd`` a row over 1, 2 and 4 warps, flash's
+   backward on ``wgmma`` + TMA) under ``PATH_TOL``, twice bitwise (no
+   atomics), each kernel by name in a trace, timed beside its plain
+   version, its bound (flash's also beside its design's floor) and its
+   yardstick (the backward of ``F.rms_norm`` and of SDPA, in turns,
    device times from traces that name their kernels);
 11. train path: ``python -m repro_torch.launch.train --arch A --batch 4
    --seq 4096 --steps 4`` on ``cuda`` at full width (the fourth main
@@ -1979,16 +1986,19 @@ LM_SHAPES = {"llama3_2_3b": (3072, 8192, 96, 32, 128),
 def lm_kernel_cases():
     """(name, label, kernel call, plain call, library call or None, bytes,
     operations, operations rate, cuBLAS yardsticks as (label, call) pairs,
-    fused_swiglu's route or None) at the serve path's shapes of each model
-    of ``LM_SHAPES``, bfloat16: M = B*T = 2000 rows in prefill and 4 in
-    decode, S = 500; llama3_2_3b first.  rmsnorm's rows have RMS from 0.1
+    fused_swiglu's or flash's route, or None) at the serve path's shapes of
+    each model of ``LM_SHAPES``, bfloat16: M = B*T = 2000 rows in prefill
+    and 4 in decode, S = 500; llama3_2_3b first.  rmsnorm's rows have RMS from 0.1
     to 10, so a missing or misplaced normalization shows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import cost, ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import ROUTE_NAMES as \
+        FLASH_ROUTES
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     fwd_route)
     from repro_torch.kernels.fused_swiglu import (ROUTE_NAMES,
                                                   fused_swiglu_cuda, route)
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -2028,7 +2038,8 @@ def lm_kernel_cases():
             lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True,
                 enable_gqa=True)[0],
-            *cost.flash_attention(H, Hkv, S, d, 2), (), None))
+            *cost.flash_attention(H, Hkv, S, d, 2), (),
+            FLASH_ROUTES[fwd_route(bf, d)]))
     return cases
 
 
@@ -2301,44 +2312,59 @@ def _turns_txt(values) -> str:
 
 
 def flash_tc_checks() -> None:
-    """The bf16 tensor-core flash kernel against its plain version on every
-    head dim it pads (32, 64, 80 -> 128, 128, 160, 192 -> 256, 256), on
-    ragged and one-row sequences, with and without grouped kv heads and in
-    every mask mode, under ``TOL``; one launch per call."""
+    """The bf16 tensor-core flash kernels against their plain version on
+    every head dim (32, 64, 80 -> 128, 128, 160, 192 -> 256, 256: ``wgmma``
+    at 64 and 128, ``mma.sync`` at the padded width otherwise), on ragged
+    and one-row sequences, with and without grouped kv heads and in every
+    mask mode, under ``TOL``; and at d 64 and 128 with q one element into
+    its storage, which ``fwd_route`` sends to ``mma.sync``; one launch per
+    call."""
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (MMA_SYNC, ROUTE_NAMES,
+                                                     flash_attention_cuda,
+                                                     fwd_route)
 
     bf = torch.bfloat16
     n, worst, path_worst = 0, 0.0, 0.0
-    for d in FLASH_TC_DIMS:
-        for S in (1, 17, 64, 65, 500):
-            for g in (1, 3):
-                H = 2 * g
-                q = _randn((H, S, d), bf, 40 + d + S)
-                k, v = (_randn((H // g, S, d), bf, 41 + i + d + S)
-                        for i in (1, 2))
-                for kw in (dict(causal=True), dict(causal=True, window=64),
-                           dict(causal=False)):
-                    before = flash_attention_cuda.launches
-                    got = flash_attention_cuda(q, k, v, kv_group=g, **kw)
-                    require(flash_attention_cuda.launches == before + 1,
-                            "flash_attention_cuda did not count its launch")
-                    want = ref.flash_attention(q, k, v, kv_group=g, **kw)
-                    label = f"flash_attention bf16 ({H},{S},{d}) kv_group " \
-                            f"{g} {kw}"
-                    worst = max(worst, _close(label, got, want,
-                                              TOL["bfloat16"])[1])
-                    diff = (got.float() - want.float()).abs()
-                    path_worst = max(path_worst, (diff / (
-                        PATH_TOL["atol"] + PATH_TOL["rtol"]
-                        * want.float().abs())).max().item())
-                    n += 1
+    routes = {}
+    cases = [(d, S, False) for d in FLASH_TC_DIMS for S in (1, 17, 64, 65,
+                                                             500)]
+    cases += [(d, S, True) for d in (64, 128) for S in (17, 500)]
+    for d, S, offset in cases:
+        for g in (1, 3):
+            H = 2 * g
+            q = (_offset_view((H, S * d), 40 + d + S).view(H, S, d) if offset
+                 else _randn((H, S, d), bf, 40 + d + S))
+            k, v = (_randn((H // g, S, d), bf, 41 + i + d + S)
+                    for i in (1, 2))
+            route = fwd_route(bf, d, q.data_ptr() % 16 == 0)
+            require(not offset or route == MMA_SYNC,
+                    f"an offset view at d {d} takes route {route}")
+            for kw in (dict(causal=True), dict(causal=True, window=64),
+                       dict(causal=False)):
+                before = flash_attention_cuda.launches
+                got = flash_attention_cuda(q, k, v, kv_group=g, **kw)
+                require(flash_attention_cuda.launches == before + 1,
+                        "flash_attention_cuda did not count its launch")
+                want = ref.flash_attention(q, k, v, kv_group=g, **kw)
+                label = f"flash_attention bf16 ({H},{S},{d}) kv_group " \
+                        f"{g} {kw}{' offset q' if offset else ''}"
+                worst = max(worst, _close(label, got, want,
+                                          TOL["bfloat16"])[1])
+                diff = (got.float() - want.float()).abs()
+                path_worst = max(path_worst, (diff / (
+                    PATH_TOL["atol"] + PATH_TOL["rtol"]
+                    * want.float().abs())).max().item())
+                routes[ROUTE_NAMES[route]] = routes.get(
+                    ROUTE_NAMES[route], 0) + 1
+                n += 1
     print(f"kernel flash_attention bf16 tensor cores: {n} cases (d "
           f"{', '.join(map(str, FLASH_TC_DIMS))}; S 1, 17, 64, 65, 500; "
-          f"kv_group 1, 3; causal, window "
-          f"64, full) equal to plain within rtol {TOL['bfloat16']['rtol']} "
+          f"kv_group 1, 3; causal, window 64, full; and q one element "
+          f"into its storage at d 64 and 128, S 17 and 500; routes "
+          f"{routes}) equal to plain within rtol {TOL['bfloat16']['rtol']} "
           f"atol {TOL['bfloat16']['atol']} ({worst:.3f} of it at most; "
           f"{path_worst:.3f} of PATH_TOL, not held)")
 
@@ -2528,6 +2554,17 @@ def serve_phase(arch: str, decode_check: bool):
         "prefill_launches": {k: v for k, v in read_counts().items() if v}}
     report_trace(prof, f"{arch}: the prefill (batch {batch} x {prompt_len})",
                  info["prefill_s"] * 1e3, traced_ms)
+    if MEASURED[f"serve {arch}"]["prefill_launches"].get("flash_attention"):
+        # the prefill's attention runs on its route's kernel, by name
+        from torch.autograd import DeviceType
+
+        want_flash = flash_kernel_name(cfg.resolved_head_dim, False)
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        require(any(want_flash in n for n in names),
+                f"the traced {arch} prefill lacks {want_flash}: "
+                f"{sorted(n[:60] for n in names if 'flash' in n)}")
+        print(f"serve: {arch} prefill trace names {want_flash}")
     if calls:  # the same prefill as the served one: its dispatch
         from repro_torch.models.moe import moe_capacity
 
@@ -3079,6 +3116,8 @@ BWD_SOURCE = {"rmsnorm_bwd": "rmsnorm", "swiglu_gate_bwd": "fused_swiglu",
               "flash_attention_bwd": "flash_attention"}
 #: each backward kernel's CUDA kernels, asserted by name in a trace
 BWD_KERNEL_NAMES = {
+    # at the train case's (16384, 3072); the wide cases name their own
+    # (rmsnorm_bwd_kernel_name)
     "rmsnorm_bwd": ("rmsnorm_bwd_warp_kernel", "rmsnorm_dscale_kernel"),
     "swiglu_gate_bwd": ("swiglu_gate_bwd_kernel",),
     "flash_attention_bwd": ("flash_bwd_delta_kernel",
@@ -3094,11 +3133,18 @@ LIB_KERNEL_NAMES = {"rmsnorm_bwd": ("layer_norm", "GammaBeta"),
 #: its remainder): 10 products where the function needs 5, so its design
 #: cannot go below twice the function's bound
 FLASH_BWD_DESIGN_PRODUCTS = 10
+#: flash's training forward does P V twice (P in bf16 and its bf16
+#: remainder): 3 products where the function needs 2
+FLASH_FWD_TRAIN_DESIGN_PRODUCTS = 3
+#: the widths rmsnorm_bwd is timed at past one warp's registers (falcon's
+#: and zamba2's d_inner 4096, qwen2_vl's 8192), 16384 rows each
+RMSNORM_BWD_WIDE = (4096, 8192)
 #: the kinds a traced train step's device time is summed by (a kernel
 #: takes the first kind one of whose keys is in its name)
 TRACE_GROUPS = (
     ("flash_attention_bwd (delta, dk/dv, dq on wgmma)", ("flash_bwd_",)),
-    ("flash_attention forward (training form)", ("flash_attention_tc",)),
+    ("flash_attention forward (training form)", ("flash_fwd_wgmma",
+                                                  "flash_attention_tc")),
     ("fused_swiglu forward", ("fused_swiglu_tc",)),
     ("swiglu_gate_bwd", ("swiglu_gate_bwd",)),
     ("rmsnorm forward and backward", ("rmsnorm",)),
@@ -3188,30 +3234,54 @@ def train_launches(cfg, steps: int):
     return {k: v * steps for k, v in per.items() if v}
 
 
+def rmsnorm_bwd_kernel_name(D: int) -> str:
+    """The CUDA kernel ``rmsnorm_bwd`` runs on aligned bf16 rows of width
+    ``D`` (the C entry's rule): a warp a row up to 3072, a row over 2 or 4
+    warps up to 6144 and 12288, the loop kernel past them or on rows not a
+    multiple of 8."""
+    if D % 8:
+        return "rmsnorm_bwd_loop_kernel<__nv_bfloat16, false>"
+    if D <= 3072:
+        return "rmsnorm_bwd_warp_kernel<__nv_bfloat16>"
+    if D <= 12288:
+        return f"rmsnorm_bwd_split_kernel<__nv_bfloat16, " \
+               f"{2 if D <= 6144 else 4}>"
+    return "rmsnorm_bwd_loop_kernel<__nv_bfloat16, true>"
+
+
+def flash_kernel_name(d: int, train: bool) -> str:
+    """The CUDA kernel the bf16 flash forward runs at head dim ``d`` on
+    aligned operands (``flash_attention.fwd_route``): ``wgmma`` at d 64
+    and 128, else ``mma.sync`` at the padded width."""
+    form = "true" if train else "false"
+    if d in (64, 128):
+        return f"flash_fwd_wgmma_kernel<{d}, {form}>"
+    dp = next(p for p in (32, 64, 128, 160, 256) if d <= p)
+    return f"flash_attention_tc_kernel<{dp}, {form}>"
+
+
 def train_kernel_names(cfg):
     """The CUDA kernels a train step of ``cfg`` in bf16 at the train shape
     launches, held by name in a traced step: rmsnorm's forward, its
-    backward a warp a row (rows up to 3072) or looping (wider rows:
-    falcon's 4096, zamba2's gated norm over 4096, qwen2_vl's 8192) and its
-    dscale sum; the gate on tensor cores and its backward; flash's
-    training form and its backward on ``wgmma`` at the head dim."""
+    backward at each width (a warp a row up to 3072; falcon's 4096,
+    zamba2's gated norm over 4096 and qwen2_vl's 8192 a row over 2 or 4
+    warps) and its dscale sum; the gate on tensor cores and its backward;
+    flash's training form (on ``wgmma`` at d 64 and 128) and its backward
+    on ``wgmma`` at the head dim."""
     widths = {cfg.d_model}
     if cfg.family == "hybrid":
         widths.add(cfg.d_inner)
     if cfg.qk_norm:
         widths.add(cfg.resolved_head_dim)
     names = ["rmsnorm_kernel<__nv_bfloat16>"]
-    if min(widths) <= 3072:
-        names.append("rmsnorm_bwd_warp_kernel")
-    if max(widths) > 3072:
-        names.append("rmsnorm_bwd_wide_kernel")
+    names += sorted({rmsnorm_bwd_kernel_name(w) for w in widths})
     names.append("rmsnorm_dscale_kernel")
     launches = train_launches(cfg, 1)
     if "fused_swiglu" in launches:
         names += ["fused_swiglu_tc_kernel", "swiglu_gate_bwd_kernel"]
     if "flash_attention" in launches:
         dp = cfg.resolved_head_dim
-        names += [f"flash_attention_tc_kernel<{dp}, true>",
+        names += [flash_kernel_name(dp, True),
                   "flash_bwd_delta_kernel",
                   f"flash_bwd_dkdv_wgmma_kernel<{dp}>",
                   f"flash_bwd_dq_wgmma_kernel<{dp}>"]
@@ -3277,12 +3347,13 @@ def _gate_plain(a, b):
 
 def bwd_kernel_cases():
     """(name, label, kernel call -> gradients, plain call -> gradients,
-    library call or None, bytes, operations, operations rate) at the train
-    path's shapes in bf16: rmsnorm (16384, 3072) with rows at RMS 0.1 to
-    10, the gate's (16384, 8192), flash (96, 4096, 128) causal kv_group 3.
-    The library call is each yardstick's backward alone: autograd of
-    ``F.rms_norm`` and of SDPA (their forwards run once, outside the
-    timing)."""
+    library call or None, bytes, operations, operations rate, the CUDA
+    kernels its trace must name) at the train path's shapes in bf16:
+    rmsnorm (16384, 3072) with rows at RMS 0.1 to 10, and at the wider
+    rows of ``RMSNORM_BWD_WIDE``, the gate's (16384, 8192), flash (96,
+    4096, 128) causal kv_group 3.  The library call is each yardstick's
+    backward alone: autograd of ``F.rms_norm`` and of SDPA (their forwards
+    run once, outside the timing)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3304,13 +3375,26 @@ def bwd_kernel_cases():
         "rmsnorm_bwd", f"({M},{D})", lambda: rmsnorm_bwd_cuda(x, s, dy),
         lambda: _grads(ref.rmsnorm, (x, s), dy),
         lambda: torch.autograd.grad(y_lib, (xs, ss), dy, retain_graph=True),
-        *cost.rmsnorm_bwd(M, D, 2))]
+        *cost.rmsnorm_bwd(M, D, 2), BWD_KERNEL_NAMES["rmsnorm_bwd"])]
+    for W in RMSNORM_BWD_WIDE:
+        xw = _randn((M, W), bf, 60, np.geomspace(0.1, 10.0, M)[:, None])
+        sw, dyw = _randn((W,), bf, 61), _randn((M, W), bf, 62)
+        xl, sl = (t.clone().requires_grad_(True) for t in (xw, sw))
+        yl = F.rms_norm(xl, (W,), sl, 1e-6)
+        cases.append((
+            "rmsnorm_bwd", f"({M},{W})",
+            lambda xw=xw, sw=sw, dyw=dyw: rmsnorm_bwd_cuda(xw, sw, dyw),
+            lambda xw=xw, sw=sw, dyw=dyw: _grads(ref.rmsnorm, (xw, sw), dyw),
+            lambda xl=xl, sl=sl, yl=yl, dyw=dyw: torch.autograd.grad(
+                yl, (xl, sl), dyw, retain_graph=True),
+            *cost.rmsnorm_bwd(M, W, 2),
+            (rmsnorm_bwd_kernel_name(W), "rmsnorm_dscale_kernel")))
     a, b, dh = (_randn((M, Ff), bf, i) for i in (63, 64, 65))
     cases.append((
         "swiglu_gate_bwd", f"({M},{Ff})",
         lambda: swiglu_gate_bwd_cuda(a, b, dh),
         lambda: _grads(_gate_plain, (a, b), dh), None,
-        *cost.swiglu_gate_bwd(M * Ff, 2)))
+        *cost.swiglu_gate_bwd(M * Ff, 2), BWD_KERNEL_NAMES["swiglu_gate_bwd"]))
     g = H // Hkv
     q = _randn((H, T, d), bf, 66)
     k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
@@ -3326,7 +3410,8 @@ def bwd_kernel_cases():
         lambda: _flash_plain_grads(q, k, v, dout, g, dict(causal=True)),
         lambda: torch.autograd.grad(y_sdpa, (ql, kl, vl), dout,
                                     retain_graph=True),
-        *cost.flash_attention_bwd(H, Hkv, T, d, 2)))
+        *cost.flash_attention_bwd(H, Hkv, T, d, 2),
+        BWD_KERNEL_NAMES["flash_attention_bwd"]))
     return cases
 
 
@@ -3427,17 +3512,105 @@ def bwd_small_checks() -> None:
           f"({worst:.3f} of it at most)")
 
 
+def flash_train_forward() -> dict:
+    """flash's training form at the train path's (96, 4096, 128) causal
+    kv_group 3 in bf16 (a llama3_2_3b step runs it 56 times): against the
+    plain version (12 heads at a time) under ``PATH_TOL``, its output the
+    cast of its float32 one, the same bits twice, by name in a trace;
+    device time in turns beside SDPA's forward, its bound (2 products over
+    the live pairs, or the bytes) and its design's floor (P V twice, with
+    P's remainder: 3 products).  Returns its ``at`` record for the
+    ``flash_attention`` kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels.flash_attention import (ROUTE_NAMES,
+                                                     flash_attention_cuda,
+                                                     fwd_route)
+
+    bf = torch.bfloat16
+    _, T = TRAIN_SHAPE
+    H, Hkv, d = 96, 32, 128
+    g, step = H // Hkv, PLAIN_FLASH_HEADS
+    q = _randn((H, T, d), bf, 66)
+    k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
+    label = f"({H},{T},{d}) causal kv_group {g} training form"
+    kern = lambda: flash_attention_cuda(q, k, v, kv_group=g,  # noqa: E731
+                                        train=True)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0]
+
+    def plain():
+        return torch.cat([ref.flash_attention(
+            q[h0:h0 + step], k[h0 // g:(h0 + step) // g],
+            v[h0 // g:(h0 + step) // g], kv_group=g)
+            for h0 in range(0, H, step)])
+
+    out, lse, out32 = kern()
+    again = kern()
+    torch.cuda.synchronize()
+    require(all(torch.equal(u, w) for u, w in zip((out, lse, out32), again)),
+            f"flash_attention's training form is not deterministic at "
+            f"{label}")
+    require(torch.equal(out, out32.to(bf)),
+            "flash's training output is not its float32 one cast")
+    err, share = _close(f"flash_attention bf16 {label}", out, plain(),
+                        PATH_TOL)
+    del out, lse, out32, again
+    wanted = (flash_kernel_name(d, True),)
+    names = _traced_names(kern, wanted)
+    seen = [w for w in wanted if any(w in n for n in names)]
+    reps = max(3, min(200, int(20.0 / max(cuda_ms(kern, 1), 1e-3))))
+    k_turns, k_devs, l_turns, l_devs = [], [], [], []
+    for _ in range(2):
+        k_turns.append(cuda_ms(kern, reps))
+        k_devs.append(device_ms(kern, reps, wanted))
+        l_turns.append(cuda_ms(lib, reps))
+        l_devs.append(device_ms(lib, reps))
+    k_ms, k_dev, l_ms = _mean(k_turns), _mean(k_devs), _mean(l_turns)
+    p_ms = cuda_ms(plain, 1)
+    n_bytes, ops, rate = cost.flash_attention(H, Hkv, T, d, 2, train=True)
+    bound, by = _bound(n_bytes, ops, rate)
+    floor, _ = _bound(n_bytes, ops * FLASH_FWD_TRAIN_DESIGN_PRODUCTS / 2,
+                      rate)
+    share_txt = "" if k_dev is None else (
+        f", {100 * bound / k_dev:.2f}% of the bound and "
+        f"{100 * floor / k_dev:.2f}% of the design floor in device time")
+    route = ROUTE_NAMES[fwd_route(bf, d)]
+    print(f"train kernel flash_attention {label} bf16 route {route}: "
+          f"{k_ms:.6f} ms (turns {_turns_txt(k_turns)}; "
+          f"{_device_txt(k_dev)}, turns {_turns_txt(k_devs)}), plain "
+          f"{p_ms:.6f} ms, bound {bound:.6f} ms ({by}), design floor "
+          f"{floor:.6f} ms ({FLASH_FWD_TRAIN_DESIGN_PRODUCTS} products with "
+          f"the remainder){share_txt}, library (SDPA's forward) "
+          f"{l_ms:.6f} ms (turns {_turns_txt(l_turns)}; device "
+          f"{_turns_txt(l_devs)}; runs "
+          f"{', '.join(sorted(n[:60] for n in _traced_names(lib, ())))}); "
+          f"deterministic (twice bitwise); max abs err {err:.6g}, "
+          f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
+          f"{PATH_TOL['atol']}); kernels seen in its trace: "
+          f"{', '.join(seen) or 'none (trace empty)'}")
+    return {"shape": label, "route": route, "ms": k_ms, "device_ms": k_dev,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": l_ms, "library_device_ms": _mean(l_devs),
+            "max_abs_err": err}
+
+
 def bwd_kernel_phase():
     """The backward kernels against their plain gradients on the card,
     deterministic (twice, bitwise), by name in a trace; at the train
     shapes timed beside their plain versions, bounds and yardsticks (in
-    turns: kernel, library, kernel, library).  Returns each kernel's JSON
-    record minus ``launches``."""
+    turns: kernel, library, kernel, library); and flash's training forward
+    (:func:`flash_train_forward`).  Returns each backward kernel's JSON
+    record minus ``launches`` (a wider shape of a kernel under its
+    ``at``), and the training forward's ``at`` record."""
     import torch
 
     bwd_small_checks()
+    flash_train = flash_train_forward()
     records = {}
-    for name, label, kern, plain, lib, n_bytes, ops, rate in \
+    for name, label, kern, plain, lib, n_bytes, ops, rate, wanted in \
             bwd_kernel_cases():
         got = kern()
         again = kern()
@@ -3452,15 +3625,14 @@ def bwd_kernel_phase():
         del got, again, want
         # the names are held in the train step's trace (train_path_phase);
         # a short window here can come back empty
-        names = _traced_names(kern, BWD_KERNEL_NAMES[name])
-        seen = [w for w in BWD_KERNEL_NAMES[name]
-                if any(w in n for n in names)]
+        names = _traced_names(kern, wanted)
+        seen = [w for w in wanted if any(w in n for n in names)]
         # about 20 ms of calls a turn, 3 at least
         reps = max(3, min(200, int(20.0 / max(cuda_ms(kern, 1), 1e-3))))
         k_turns, k_devs, l_turns, l_devs = [], [], [], []
         for _ in range(2):
             k_turns.append(cuda_ms(kern, reps))
-            k_devs.append(device_ms(kern, reps, BWD_KERNEL_NAMES[name]))
+            k_devs.append(device_ms(kern, reps, wanted))
             if lib is not None:
                 l_turns.append(cuda_ms(lib, reps))
                 l_devs.append(device_ms(lib, reps, LIB_KERNEL_NAMES[name]))
@@ -3491,14 +3663,25 @@ def bwd_kernel_phase():
               f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
               f"{PATH_TOL['atol']}); kernels seen in its trace: "
               f"{', '.join(seen) or 'none (trace empty)'}")
+        at = {"shape": label, "ms": k_ms, "device_ms": k_dev,
+              "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+              "library_ms": l_ms, "library_device_ms":
+              _mean(l_devs) if lib is not None else None,
+              "max_abs_err": err, "kernels": seen}
+        if name in records:  # a wider shape of the same kernel
+            records[name]["max_abs_err"] = max(
+                records[name]["max_abs_err"], err)
+            records[name]["at"].append(at)
+            continue
         records[name] = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{BWD_SOURCE[name]}.cu",
             "replaces": BWD_REPLACES[name], "max_abs_err": err, "ms": k_ms,
             "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": l_ms, "library_device_ms":
-            _mean(l_devs) if lib is not None else None, "shape": label}
-    return records
+            _mean(l_devs) if lib is not None else None, "shape": label,
+            "at": [at]}
+    return records, flash_train
 
 
 def _history_state(params, seed: int):
@@ -3638,15 +3821,19 @@ STEP_KERNEL_KEYS = {"rmsnorm": ("rmsnorm_kernel",),
                     "rmsnorm_bwd": ("rmsnorm_bwd_", "rmsnorm_dscale"),
                     "fused_swiglu": ("fused_swiglu_tc",),
                     "swiglu_gate_bwd": ("swiglu_gate_bwd",),
-                    "flash_attention": ("flash_attention_tc",),
+                    "flash_attention": ("flash_fwd_wgmma",
+                                        "flash_attention_tc"),
                     "flash_attention_bwd": ("flash_bwd_",)}
 
 
 def kernel_step_times(arch, cfg, prof) -> None:
     """Each port kernel's device time a launch in a traced train step of
-    ``cfg`` (its CUDA kernels' time over its launches a step), and
-    ``flash_attention_bwd``'s bound at the step's shape (5 products)."""
+    ``cfg`` (its CUDA kernels' time over its launches a step), and flash's
+    bounds at the step's shape: the training forward's (2 products) and
+    the backward's (5 products)."""
     from torch.autograd import DeviceType
+
+    from repro_torch.kernels import cost
 
     B, T = TRAIN_SHAPE
     events = [e for e in prof.key_averages()
@@ -3656,12 +3843,13 @@ def kernel_step_times(arch, cfg, prof) -> None:
                  if any(k in e.key for k in STEP_KERNEL_KEYS[name])) / 1e3
         line = (f"train: {arch} {name}: {n} launches a step, {ms / n:.6f} ms "
                 f"of device time a launch in the traced step")
-        if name == "flash_attention_bwd":
-            from repro_torch.kernels import cost
-
+        if name in ("flash_attention", "flash_attention_bwd"):
             H, Hkv, d = B * cfg.n_heads, B * cfg.n_kv_heads, \
                 cfg.resolved_head_dim
-            bound, by = _bound(*cost.flash_attention_bwd(H, Hkv, T, d, 2))
+            bound, by = _bound(*(
+                cost.flash_attention(H, Hkv, T, d, 2, train=True)
+                if name == "flash_attention" else
+                cost.flash_attention_bwd(H, Hkv, T, d, 2)))
             line += (f"; bound {bound:.6f} ms ({by}) at ({H}, {T}, {d}) "
                      f"causal kv_group {cfg.n_heads // cfg.n_kv_heads}")
         print(line)
@@ -4253,7 +4441,8 @@ def main() -> int:
     motif["launches"] = counts["ops"]["motif_pcu"]
 
     t0 = time.perf_counter()
-    bwd = bwd_kernel_phase()
+    bwd, flash_train = bwd_kernel_phase()
+    records["flash_attention"]["at"].append(flash_train)
     print(f"phase: train kernels {time.perf_counter() - t0:.3f} s")
     for arch in TRAIN_RUNS:
         t0 = time.perf_counter()

@@ -6,10 +6,10 @@
 // grouped-query attention needs no repeated k/v; kv_group = 1 is the TPU
 // kernel's function.  Scores are (q . k) / sqrt(d) in float32; masked ones
 // (k > q when causal, q - k >= window when a window is set) are -1e30; the
-// softmax runs online over key tiles (64 keys in float32, 32 in bfloat16)
-// carrying (m, l, acc), a tile wholly outside the causal band or the window
-// is skipped with the TPU kernel's own test, and the output is
-// acc / max(l, 1e-30), cast to the input type.
+// softmax runs online over key tiles (64 keys in float32 and on wgmma, 32
+// on mma.sync) carrying (m, l, acc), a tile wholly outside the causal band
+// or the window is skipped with the TPU kernel's own test, and the output
+// is acc / max(l, 1e-30), cast to the input type.
 // The result does not depend on the tile sizes.  The plain version is
 // repro_torch.kernels.ref.flash_attention.
 //
@@ -17,51 +17,87 @@
 // kv_group 3, the inputs and output are 32.8 MB (9.8 us over 3.35 TB/s)
 // against 6.2 GFLOP of live (q, k) pairs (6.3 us at the 989 TFLOP/s bf16
 // tensor-core peak); at stablelm_12b's (128, 500, 160) with kv_group 4,
-// 51.2 MB (15.3 us) against 10.3 GFLOP (10.4 us).  Head dims run up to 256.
+// 51.2 MB (15.3 us) against 10.3 GFLOP (10.4 us).  Operations at training
+// lengths: at (96, 4096, 128) the two products are 412 GFLOP (0.417 ms);
+// the training form's P V runs twice (P and its remainder), so its design
+// cannot go below 3 products, 0.625 ms.  Head dims run up to 256.
 //
-// Two paths, chosen by dtype:
+// Three routes, picked by the caller from the dtype, the head dim and the
+// operands' 16-byte alignment (repro_torch/kernels/flash_attention.py::
+// fwd_route; a route the call cannot take is refused with
+// cudaErrorInvalidValue, never replaced by another):
 //
-// * bfloat16: tensor cores.  One block of 4 warps per (head, 64-row q
-//   tile); each warp owns 16 query rows.  The head dim is padded in shared
-//   memory to DP in {32, 64, 128, 160, 256} with zero columns (scores and
-//   outputs unchanged; columns >= d are never stored), and every row is
-//   padded by 16 bytes so ldmatrix reads are free of bank conflicts.  The
-//   q tile is copied once with 16-byte cp.async; k and v run in 32-key
-//   tiles through two stages of cp.async, so tile j + 1 loads while tile j
-//   computes.
-//   S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products
-//   accumulating in float32 (q and k fragments from ldmatrix, v from
-//   ldmatrix.trans); the mask and the online softmax stay in registers (a
-//   thread holds 2 of its warp's 16 rows, reduced over the 4-thread quad
-//   with shuffles), and P turns into bf16 A fragments straight from the
-//   score registers.  P is rounded to bf16 before P V (l sums the float32
-//   p).  The q fragments are read again from shared memory for each k tile
-//   rather than held, so the kernel fits 128 registers and 4 blocks (16
-//   warps, 52 KB of shared memory each at DP = 128) share an SM: at these
-//   short sequences the kernel is bound by latency, and more warps in
-//   flight beat fewer, wider ones.  Above DP = 128 the output fragments
-//   alone are DP / 2 floats a thread (128 at DP = 256), so the kernel asks
-//   for 2 blocks per SM and up to 255 registers (99 KB of shared memory a
-//   block at DP = 256).  Rows past S load as zeros and their scores as
-//   -inf.  The q tiles with the most live k tiles are issued
-//   first (the causal tail).  The output tile is staged in the q tile's
-//   shared memory and stored with 16-byte writes.
-// * float32: the SIMT kernel, no tensor cores (they would round float32
-//   operands to TF32, about 3 decimal digits).  One block of 256 threads
-//   per (head, 64-row q tile); q (transposed), k (transposed), v and the
-//   probabilities live in dynamic shared memory as float32 (about 113 KB
-//   at d = 128, 210 KB at d = 256); each thread owns 4 query rows x 4 key
-//   columns of a score tile and 4 rows x DJ columns of the output (DJ = 8
-//   up to d = 128, 16 up to d = 256: the kernel is instantiated for both,
-//   so a short head keeps its registers), with columns interleaved
-//   by 16 so shared-memory reads do not collide; a row's 16 threads sit in
-//   one half-warp, so its max and sum reduce with shuffles.
+// 0. wgmma + TMA: bfloat16 at d 64 and 128, q, k, v and out on 16-byte
+//    boundaries (flash_fwd_wgmma_kernel<DP, TRAIN>, "forward on wgmma +
+//    TMA" below).  What it does about each difficulty:
+//    * Blocks of 128 queries in two warpgroups of 64, 256 threads; thread
+//      0 issues the TMA loads (no producer warp: the backward's first
+//      build with one was sized for 384 threads, spilled and lost).
+//    * Ragged S and head boundaries: q, k, v are read through 3-D tensor
+//      maps (d, S, heads) in 64 x 64 boxes under the 128-byte swizzle, so
+//      a tile at a head's tail reads zeros, not the next head's rows; the
+//      kv head is h / kv_group in the map's coordinate; keys past S take
+//      -inf, the rest of the mask is the mma.sync kernel's (NEG), and
+//      tiles wholly inside the band and the window skip it.
+//    * K and V in 64-key tiles through 4 stages (the training form at d
+//      128: 128-key tiles through 3, which its longer products pay for;
+//      shorter sequences and d 64 lose with them), each completing on an
+//      mbarrier and refilled once both warpgroups have released it.
+//    * S = Q K^T as an SS wgmma (K-major); the accumulator's registers
+//      8 kk .. 8 kk + 7 are the A fragment of k-step kk, so P goes into
+//      bf16 fragments of the RS wgmma O += P V (V MN-major through the
+//      descriptor's transpose bit) without shared memory.
+//    * The softmax counts in base 2 (exp2f of the scores scaled by
+//      log2(e), the scale folded into one FMA on unmasked tiles): expf's
+//      longer sequence kept the warps from the tensor cores.
+//    * Overlap: tile j's S product is issued before tile j - 1's P V, and
+//      tile j's softmax runs while P V is on the tensor cores; the output
+//      is rescaled once P V is done.
+//    * The output is staged in the warpgroup's q tile under the box's
+//      swizzle and stored by TMA, which clips rows past S.
+//    * No atomics: the same bits on every run.
+// 1. mma.sync: the other bfloat16 head dims and misaligned bfloat16 views
+//    (flash_attention_tc_kernel<DP, TRAIN>).  One block of 4 warps per
+//    (head, 64-row q tile); each warp owns 16 query rows.  The head dim is
+//    padded in shared memory to DP in {32, 64, 128, 160, 256} with zero
+//    columns (scores and outputs unchanged; columns >= d are never
+//    stored), and every row is padded by 16 bytes so ldmatrix reads are
+//    free of bank conflicts.  The q tile is copied once with 16-byte
+//    cp.async; k and v run in 32-key tiles through two stages of
+//    cp.async, so tile j + 1 loads while tile j computes.  S = Q K^T and
+//    O += P V are mma.sync.m16n8k16 bf16 products accumulating in float32
+//    (q and k fragments from ldmatrix, v from ldmatrix.trans); the mask
+//    and the online softmax stay in registers (a thread holds 2 of its
+//    warp's 16 rows, reduced over the 4-thread quad with shuffles), and P
+//    turns into bf16 A fragments straight from the score registers.  P is
+//    rounded to bf16 before P V (l sums the float32 p).  The q fragments
+//    are read again from shared memory for each k tile rather than held,
+//    so the kernel fits 128 registers and 4 blocks (16 warps, 52 KB of
+//    shared memory each at DP = 128) share an SM.  Above DP = 128 the
+//    output fragments alone are DP / 2 floats a thread (128 at DP = 256),
+//    so the kernel asks for 2 blocks per SM and up to 255 registers (99
+//    KB of shared memory a block at DP = 256).  Rows past S load as zeros
+//    and their scores as -inf.  The q tiles with the most live k tiles
+//    are issued first (the causal tail).  The output tile is staged in
+//    the q tile's shared memory and stored with 16-byte writes.
+// 2. SIMT: float32 (flash_attention_kernel<float, DJ>), no tensor cores
+//   (they would round float32 operands to TF32, about 3 decimal digits).
+//   One block of 256 threads per (head, 64-row q tile); q (transposed),
+//   k (transposed), v and the probabilities live in dynamic shared memory
+//   as float32 (about 113 KB at d = 128, 210 KB at d = 256); each thread
+//   owns 4 query rows x 4 key columns of a score tile and 4 rows x DJ
+//   columns of the output (DJ = 8 up to d = 128, 16 up to d = 256: the
+//   kernel is instantiated for both, so a short head keeps its
+//   registers), with columns interleaved by 16 so shared-memory reads do
+//   not collide; a row's 16 threads sit in one half-warp, so its max and
+//   sum reduce with shuffles.
 //
-// Both paths raise the block's dynamic shared-memory limit above the 48 KB
-// default before the launch.  dtype code: 0 = float32, 1 = bfloat16 (q, k,
-// v and out share it).  Where the caller passes an `lse` buffer (float32,
-// H x S; training), both paths also write each row's log-sum-exp of its
-// scaled, masked scores, m + log(max(l, 1e-30)); serving passes null.
+// Every route raises the block's dynamic shared-memory limit above the 48
+// KB default before the launch.  dtype code: 0 = float32, 1 = bfloat16
+// (q, k, v and out share it).  Where the caller passes an `lse` buffer
+// (float32, H x S; training), every route also writes each row's
+// log-sum-exp of its scaled, masked scores, m + log(max(l, 1e-30));
+// serving passes null.
 //
 // Backward (flash_attention_bwd_launch), which the TPU kernel never had
 // (the JAX models differentiate an inline blockwise attention with XLA,
@@ -1409,10 +1445,6 @@ __device__ __forceinline__ void meeting_tiles(int n, int step, int r0,
   }
 }
 
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 // d (64 x 64 float32 a warpgroup) {=, +=} A (64 x 16) B (16 x 64), both
 // K-major in shared memory; `acc` 0 overwrites d
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -1590,9 +1622,10 @@ __device__ __forceinline__ void split_a(const float (&s)[32],
   }
 }
 
-__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) fence_regs(f[kk]);
+  for (int kk = 0; kk < K; ++kk) fence_regs(f[kk]);
 }
 
 // acc (64 x 64) = A (64 rows x DP, K-major at a) B^T (64 rows x DP,
@@ -1998,6 +2031,476 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- forward on wgmma + TMA (bf16, head dims 64 and 128) ----
+//
+// One block per (query head, 128 queries), causal tails first, 256 threads
+// in two warpgroups of 64 queries; thread 0 issues every TMA load (no
+// producer warp, as in the backward).  The block's q rows are loaded once;
+// tiles of K and V (fwd_keys: 64 keys, 128 in the training form at DP
+// 128) stream through fwd_stages stages,
+// each completing on an mbarrier and refilled once both warpgroups have
+// released it.  A warpgroup walks the key tiles that meet its rows:
+// S = Q K^T is an SS wgmma (both K-major); the online softmax runs on the
+// accumulator in registers (a thread holds 2 rows x a quarter of the
+// tile's keys, reduced over its quad); P turns into the bf16 A fragments
+// of the RS wgmma O += P V (V MN-major through the transpose bit), TRAIN
+// adding the product of P's bf16 remainder.  Tile j's S product is issued
+// before tile j - 1's P V, and tile j's softmax runs while P V is on the
+// tensor cores; the output takes its rescale once P V is done.  The
+// output is staged in the warpgroup's q tile under the TMA box's swizzle
+// and stored by TMA, which clips rows past S.
+
+// K and V tiles in flight at most (fewer where a block's 227 KB would not
+// hold them); 2 and 3 lost to 4 on the card (PERF.md)
+constexpr int kFwdStages = 4;
+// blocks an SM: at DP 128 the O accumulator (64 floats a thread), S (32)
+// and P's fragments need more than half of the 255 registers, so one; DP
+// 64 is built for two (128 registers a thread), which beat one
+constexpr int fwd_min_blocks(int dp) { return dp <= 64 ? 2 : 1; }
+// the softmax's exponentials run in base 2 (exp2f of the scores scaled by
+// log2(e)); lse is converted back to natural units
+constexpr float kFwdLog2e = 1.44269504088896341f;
+
+// keys a K / V tile: 128 for the training form at DP 128 (whose products
+// then run m64n128 and its barrier waits halve), 64 otherwise
+template <int DP, bool TRAIN>
+__host__ __device__ constexpr int fwd_keys() {
+  return TRAIN && DP == 128 ? 128 : 64;
+}
+// a key tile's 64-column slab (its keys' rows of 128 bytes) and the whole
+// tile, DP / 64 slabs
+template <int DP, bool TRAIN>
+__host__ __device__ constexpr uint32_t fwd_ktile() {
+  return DP / 64 * fwd_keys<DP, TRAIN>() * 128;
+}
+// kFwdStages, or as many as the block's shared memory holds (3 for
+// 128-key tiles at DP 128)
+template <int DP, bool TRAIN>
+__host__ __device__ constexpr int fwd_stages() {
+  return (int)((232448 - 2048 - 2 * wg_tile<DP>()) /
+               (2 * fwd_ktile<DP, TRAIN>())) < kFwdStages
+             ? (int)((232448 - 2048 - 2 * wg_tile<DP>()) /
+                     (2 * fwd_ktile<DP, TRAIN>()))
+             : kFwdStages;
+}
+
+// the block's 2 q tiles, the stages' K and V tiles, the mbarriers and the
+// slack that puts the tiles on a 1024-byte boundary
+template <int DP, bool TRAIN>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return 2 * wg_tile<DP>() +
+         fwd_stages<DP, TRAIN>() * 2 * fwd_ktile<DP, TRAIN>() +
+         (2 * fwd_stages<DP, TRAIN>() + 1) * 8 + 1024;
+}
+
+// d (64 x 128 float32 a warpgroup) {=, +=} A (64 x 16) B (16 x 128), both
+// K-major in shared memory; `acc` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// s (64 queries x BK keys) = Q (64 rows x DP at q, 64-column boxes
+// kWgBox apart) K^T (BK rows x DP at k, 64-column slabs BK x 128 bytes
+// apart), both K-major: 16 columns a step, +32 bytes inside a swizzled
+// 128-byte row
+template <int DP, int BK>
+__device__ __forceinline__ void fwd_scores(float (&s)[BK / 2], uint32_t q,
+                                           uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t in = 32 * (kk % 4);
+    const uint64_t da = wgmma_desc(q + (kk / 4) * kWgBox + in, 16, 1024);
+    const uint64_t db = wgmma_desc(k + (kk / 4) * (BK * 128) + in, 16, 1024);
+    if constexpr (BK == 64)
+      wgmma_ss_n64(s, da, db, kk);
+    else
+      wgmma_ss_n128(s, da, db, kk);
+  }
+}
+
+// whether every (query, key) pair of [qa, qa + 64) x [ka, ka + BK) is live
+// (uniform over a warpgroup): such a tile needs no mask
+template <int BK>
+__device__ __forceinline__ bool fwd_tile_live(int qa, int ka, int S,
+                                              int causal, int window) {
+  return qa + 64 <= S && ka + BK <= S && !(causal && ka + BK - 1 > qa) &&
+         !(window && qa + 63 - ka >= window);
+}
+
+// The online softmax of a warpgroup's 64 x BK score tile, in place, in
+// base 2 (exp2f): this thread's rows qr0 and qr0 + 8, keys k0 + 8 i +
+// 2 tq + c at s[4 i + 2 r + c].  Scores are scaled by sl2 = scale *
+// log2(e) and (MASK: the tile is not wholly live) masked as the mma.sync
+// kernel masks them (NEG, or -inf past S); p = 2^(x - m_new), which is
+// exp of the scores in natural units; m (base 2) and l move on, and
+// alpha[r] is what the row's output is multiplied by.  A wholly live tile
+// scales inside the exponent's FMA (the max of the raw scores, scaled, is
+// the max of the scaled ones).
+template <int BK, bool MASK>
+__device__ __forceinline__ void fwd_softmax(float (&s)[BK / 2], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2],
+                                            int qr0, int k0, int S,
+                                            int causal, int window,
+                                            float sl2) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr0 + 8 * r;
+    float mx = NEG;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * i + 2 * r + c;
+        if (MASK) {
+          float x = s[e] * sl2;
+          const int kp = k0 + 8 * i + 2 * tq + c;
+          if ((causal && qp < kp) || (window && qp - kp >= window)) x = NEG;
+          if (kp >= S) x = -INFINITY;  // past the sequence: no weight
+          s[e] = x;
+        }
+        mx = fmaxf(mx, s[e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], MASK ? mx : mx * sl2);
+    float rs = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * i + 2 * r + c;
+        const float p = exp2f(MASK ? s[e] - m_new : fmaf(s[e], sl2, -m_new));
+        s[e] = p;
+        rs += p;
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    alpha[r] = exp2f(m[r] - m_new);
+    l[r] = alpha[r] * l[r] + rs;
+    m[r] = m_new;
+  }
+}
+
+// p (the 64 x BK accumulator) as the A fragments of its BK / 16 k16 steps
+// in bf16 and, TRAIN, their bf16 remainders
+template <int BK, bool TRAIN>
+__device__ __forceinline__ void pack_p(const float (&p)[BK / 2],
+                                       uint32_t (&hi)[BK / 16][4],
+                                       uint32_t (&lo)[BK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 4; ++j) {
+    hi[j / 4][j % 4] = pack_bf16(p[2 * j], p[2 * j + 1]);
+    if constexpr (TRAIN)
+      lo[j / 4][j % 4] = pack_rem(p[2 * j], p[2 * j + 1], hi[j / 4][j % 4]);
+  }
+}
+
+// o (64 x DP) += P V: P the fragments (TRAIN: and their remainders), V the
+// BK x DP tile at b, MN-major: 16 keys (2048 bytes) a step, 64-column
+// slabs BK x 128 bytes apart
+template <int DP, int BK, bool TRAIN>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
+                                         const uint32_t (&hi)[BK / 16][4],
+                                         const uint32_t (&lo)[BK / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = wgmma_desc(b + 2048 * kk, BK * 128, 1024);
+    wgmma_rs<DP>(o, hi[kk], db);
+    if constexpr (TRAIN) wgmma_rs<DP>(o, lo[kk], db);
+  }
+}
+
+template <int DP, bool TRAIN>
+__global__ void __launch_bounds__(kWgThreads, fwd_min_blocks(DP))
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_o,
+                       float* __restrict__ lse, float* __restrict__ out32,
+                       int S, int causal, int window, int kv_group,
+                       float scale) {
+  constexpr int ST = fwd_stages<DP, TRAIN>(), BK = fwd_keys<DP, TRAIN>();
+  constexpr uint32_t TILE = wg_tile<DP>(), KT = fwd_ktile<DP, TRAIN>();
+  constexpr uint32_t SLAB = BK * 128;  // a 64-column slab of a key tile
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t sq = base;                 // [wg] the block's q tiles
+  const uint32_t stages = base + 2 * TILE;  // [stage] K tile, V tile
+  const uint32_t full = stages + ST * 2 * KT;
+  const uint32_t empty = full + ST * 8;
+  const uint32_t fixed = empty + ST * 8;
+  const int h = blockIdx.x, kvh = h / kv_group;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kWgRows;
+  int klo, khi;
+  meeting_tiles((S + BK - 1) / BK, BK, q0, kWgRows, false, causal, window,
+                &klo, &khi);
+  const int tiles = khi - klo;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);   // the issuer's expect_tx + the bytes
+      mbar_init(empty + 8 * s, 2);  // one arrival per warpgroup
+    }
+    mbar_init(fixed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile j's K and V into its stage: 64 x 64 boxes, BK / 64 a slab
+  auto issue = [&](int j) {
+    const int s = j % ST, k0 = (klo + j) * BK;
+    const uint32_t bar = full + 8 * s, tile = stages + s * 2 * KT;
+    mbar_expect_tx(bar, 2 * KT);
+    for (int b = 0; b < DP / 64; ++b)
+      for (int r = 0; r < BK / 64; ++r) {
+        const uint32_t at = tile + b * SLAB + r * kWgBox;
+        tma_load_3d(at, &map_k, bar, 64 * b, k0 + 64 * r, kvh);
+        tma_load_3d(at + KT, &map_v, bar, 64 * b, k0 + 64 * r, kvh);
+      }
+  };
+  const bool issuer = threadIdx.x == 0;
+  if (issuer) {
+    mbar_expect_tx(fixed, 2 * TILE);
+    for (int t = 0; t < 2; ++t)
+      for (int b = 0; b < DP / 64; ++b)
+        tma_load_3d(sq + t * TILE + b * kWgBox, &map_q, fixed, 64 * b,
+                    q0 + 64 * t, h);
+    for (int j = 0; j < tiles && j < ST; ++j) issue(j);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int qw0 = q0 + 64 * wg;  // this warpgroup's 64 queries
+  const int qr0 = qw0 + (t / 32) * 16 + lane / 4;  // this thread's rows
+  const uint32_t qa = sq + wg * TILE;
+  // [a, b): the block's tiles that meet this warpgroup's queries
+  int a = 0, b = 0;
+  for (int it = 0; it < tiles; ++it)
+    if (tiles_meet(qw0, 64, (klo + it) * BK, BK, causal, window)) {
+      if (b == 0) a = it;
+      b = it + 1;
+    }
+  // this warpgroup is done with tiles [released, upto): its thread 0
+  // arrives once a tile, after the tile has landed (so that no arrival runs
+  // ahead of a skipped tile's load); the issuer then refills the stage once
+  // the other warpgroup is done too.  Only the arriving thread waits here:
+  // a warp that lagged behind it could otherwise wait on a stage that has
+  // been refilled since, whose barrier then shows the parity of two tiles
+  // on, and wait for a load that needs its own release first.
+  int released = 0;
+  auto release = [&](int upto) {
+    for (; released < upto; ++released) {
+      const int j = released, s = j % ST;
+      if (t == 0) {
+        mbar_wait(full + 8 * s, (uint32_t)(j / ST) & 1u);
+        mbar_arrive(empty + 8 * s);
+      }
+      if (issuer && j + ST < tiles) {
+        mbar_wait(empty + 8 * s, (uint32_t)(j / ST) & 1u);
+        issue(j + ST);
+      }
+    }
+  };
+
+  float o[DP / 2], s[BK / 2], m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+  const float sl2 = scale * kFwdLog2e;
+  auto softmax = [&](int it) {
+    const int k0 = (klo + it) * BK;
+    if (fwd_tile_live<BK>(qw0, k0, S, causal, window))
+      fwd_softmax<BK, false>(s, m, l, alpha, qr0, k0, S, causal, window,
+                             sl2);
+    else
+      fwd_softmax<BK, true>(s, m, l, alpha, qr0, k0, S, causal, window,
+                            sl2);
+  };
+  auto stage_of = [&](int it) { return stages + (it % ST) * 2 * KT; };
+  auto landed = [&](int it) {
+    mbar_wait(full + 8 * (it % ST), (uint32_t)(it / ST) & 1u);
+  };
+  mbar_wait(fixed, 0);
+  release(a);
+  if (a < b) {
+    landed(a);
+    wgmma_fence();
+    fwd_scores<DP, BK>(s, qa, stage_of(a));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(a);
+    pack_p<BK, TRAIN>(s, ph, pl);
+    for (int it = a + 1; it < b; ++it) {
+      landed(it);
+      // S of tile it, then P V of tile it - 1
+      fence_regs(o);
+      wgmma_fence();
+      fwd_scores<DP, BK>(s, qa, stage_of(it));
+      wgmma_commit();
+      wgmma_pv<DP, BK, TRAIN>(o, ph, pl, stage_of(it - 1) + KT);
+      wgmma_commit();
+      wgmma_wait<1>();  // S is done (groups complete in order)
+      fence_regs(s);
+      softmax(it);
+      wgmma_wait<0>();  // P V is done: rescale, new fragments
+      fence_regs(o);
+      fence_frags(ph);
+      if constexpr (TRAIN) fence_frags(pl);
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+      pack_p<BK, TRAIN>(s, ph, pl);
+      release(it);  // tile it - 1
+    }
+    fence_regs(o);
+    wgmma_fence();
+    wgmma_pv<DP, BK, TRAIN>(o, ph, pl, stage_of(b - 1) + KT);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_frags(ph);
+    if constexpr (TRAIN) fence_frags(pl);
+    release(b);
+  }
+  release(tiles);
+
+  // every product reading the warpgroup's q tile is done: the output goes
+  // there, 128-byte swizzled as the TMA box (16-byte chunk c of row r at
+  // chunk c ^ (r % 8)), then out by TMA
+  named_barrier(1 + wg, 128);
+  const int tq = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr0 + 8 * r, row = qp - qw0;
+    const float den = fmaxf(l[r], 1e-30f);
+    float val[DP / 4];
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      val[2 * i] = o[4 * i + 2 * r] / den;
+      val[2 * i + 1] = o[4 * i + 2 * r + 1] / den;
+    }
+    if constexpr (TRAIN) {
+      if (qp < S) {
+        // m is in base 2
+        if (tq == 0)
+          lse[(long long)h * S + qp] = m[r] / kFwdLog2e + logf(den);
+        float* orow = out32 + ((long long)h * S + qp) * DP + 2 * tq;
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i)
+          *reinterpret_cast<float2*>(orow + 8 * i) =
+              make_float2(val[2 * i], val[2 * i + 1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i)
+      st_shared_u32(qa + (i / 8) * kWgBox + row * 128 +
+                        (((i % 8) ^ (row % 8)) * 16) + 4 * tq,
+                    pack_bf16(val[2 * i], val[2 * i + 1]));
+  }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  if (t == 0) {
+    for (int bx = 0; bx < DP / 64; ++bx)
+      tma_store_3d(&map_o, qa + bx * kWgBox, 64 * bx, qw0, h);
+    tma_store_drain();
+  }
+}
+
+template <int DP, bool TRAIN>
+int launch_fwd_wgmma_as(const void* q, const void* k, const void* v,
+                        void* out, void* lse, void* out32, int H, int S,
+                        int causal, int window, int kv_group, float scale,
+                        cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mo;
+  if (!head_map<DP>(&mq, q, H, S) || !head_map<DP>(&mk, k, H / kv_group, S) ||
+      !head_map<DP>(&mv, v, H / kv_group, S) || !head_map<DP>(&mo, out, H, S))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t bytes = fwd_smem_bytes<DP, TRAIN>();
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)flash_fwd_wgmma_kernel<DP, TRAIN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, (S + kWgRows - 1) / kWgRows);
+  flash_fwd_wgmma_kernel<DP, TRAIN><<<grid, kWgThreads, bytes, s>>>(
+      mq, mk, mv, mo, (float*)lse, (float*)out32, S, causal, window,
+      kv_group, scale);
+  return (int)cudaGetLastError();
+}
+
+// serving (lse null) or training (lse and out32 given)
+template <int DP>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                     void* lse, void* out32, int H, int S, int causal,
+                     int window, int kv_group, float scale, cudaStream_t s) {
+  return lse == nullptr
+             ? launch_fwd_wgmma_as<DP, false>(q, k, v, out, lse, out32, H, S,
+                                              causal, window, kv_group, scale,
+                                              s)
+             : launch_fwd_wgmma_as<DP, true>(q, k, v, out, lse, out32, H, S,
+                                             causal, window, kv_group, scale,
+                                             s);
+}
+
+// Whether forward route `route` takes this call (see the note at the top):
+// 0 wgmma + TMA (its tensor maps need q, k, v and out on 16-byte
+// boundaries, and out32's rows are written 8 bytes at a time), 1 mma.sync,
+// 2 SIMT
+bool fwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
+                    const void* v, const void* out, const void* out32) {
+  switch (route) {
+    case 0:
+      return dtype == 1 && (d == 64 || d == 128) &&
+             (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
+               (uintptr_t)out32) & 15) == 0;
+    case 1:
+      return dtype == 1;
+    case 2:
+      return dtype == 0;
+    default:
+      return false;
+  }
+}
+
 // Whether backward route `route` takes this call (see the note at the top):
 // 0 wgmma + TMA, 1 mma.sync, 2 SIMT
 bool bwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
@@ -2019,28 +2522,39 @@ bool bwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
 
 }  // namespace
 
-// Launches on `stream` with `device` current; returns cudaGetLastError() (0
-// on success), or cudaErrorInvalidValue for a dtype code other than 0 or 1,
-// d outside [1, 256], a kv_group that does not divide H, or a grid the card
-// cannot take.  float32 runs the SIMT kernel (8 or 16 output columns a
-// thread), bfloat16 the tensor-core kernel with the head dim padded to 32,
-// 64, 128, 160 or 256.  `lse` (float32, H x S) is written when not null;
-// in bfloat16 it comes with `out32` (float32, H x S x d, the output before
-// its cast; null in float32) and the training instantiation (see
-// flash_attention_tc_kernel).
+// Launches on `stream` with `device` current, on route `route` (0 wgmma +
+// TMA, 1 mma.sync, 2 SIMT; the caller's rule is repro_torch.kernels.
+// flash_attention.fwd_route); returns cudaGetLastError() (0 on success),
+// or cudaErrorInvalidValue for a dtype code other than 0 or 1, d outside
+// [1, 256], a kv_group that does not divide H, a grid the card cannot take
+// or a route this call cannot take (fwd_route_fits; never replaced by
+// another).  float32 runs the SIMT kernel (8 or 16 output columns a
+// thread); bfloat16 the wgmma kernel at d 64 and 128, or the mma.sync one
+// with the head dim padded to 32, 64, 128, 160 or 256.  `lse` (float32, H
+// x S) is written when not null; in bfloat16 it comes with `out32`
+// (float32, H x S x d, the output before its cast; null in float32) and
+// the training instantiation (see flash_attention_tc_kernel).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       void* out32, int H, int S, int d,
                                       int causal, int window, int kv_group,
-                                      float scale, int dtype, int device,
-                                      void* stream) {
+                                      float scale, int dtype, int route,
+                                      int device, void* stream) {
   if (H <= 0 || S <= 0) return 0;
   if (d < 1 || d > DMAX || kv_group < 1 || H % kv_group != 0 ||
       (S + BQ - 1) / BQ > 65535 || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && (lse == nullptr) != (out32 == nullptr)))
+      (dtype == 1 && (lse == nullptr) != (out32 == nullptr)) ||
+      !fwd_route_fits(route, dtype, d, q, k, v, out, out32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return on_device(device, [&] {
+    if (route == 0)
+      return d == 64 ? launch_fwd_wgmma<64>(q, k, v, out, lse, out32, H, S,
+                                            causal, window, kv_group, scale,
+                                            s)
+                     : launch_fwd_wgmma<128>(q, k, v, out, lse, out32, H, S,
+                                             causal, window, kv_group, scale,
+                                             s);
     if (dtype == 0)
       return d <= 128 ? launch_simt<float, 8>(q, k, v, out, lse, H, S, d,
                                               causal, window, kv_group, scale,

@@ -1,14 +1,16 @@
 // Hopper's TMA, mbarrier and wgmma plumbing, shared by fused_swiglu.cu
 // (the tensor-core route of the gate) and flash_attention.cu (the bf16
-// backward on wgmma).  The library's build hash covers this header
-// (repro_torch/kernels/_build.py).
+// forward and backward on wgmma); rmsnorm.cu takes its named barrier.  The
+// library's build hash covers this header (repro_torch/kernels/_build.py).
 //
+// * a named barrier over some of a block's warps;
 // * mbarriers: init, expect_tx, arrive, and a parity wait that traps (a
 //   launch failure) after kMbarMaxSpins polls instead of hanging the card
 //   when a pipeline deadlocks;
 // * TMA tile loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an
-//   mbarrier, and tensor maps of row-major bf16 encoded per call through
-//   cuTensorMapEncodeTiled, which is looked up at run time
+//   mbarrier, 3-D TMA stores from shared memory (with the proxy fence
+//   that must precede them), and tensor maps of row-major bf16 encoded per
+//   call through cuTensorMapEncodeTiled, which is looked up at run time
 //   (cudaGetDriverEntryPoint): the libraries are not linked against
 //   libcuda;
 // * the wgmma shared-memory descriptor under the 128-byte swizzle, the
@@ -79,6 +81,41 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// the box of a 3-D `map` at (c0, c1, c2) from shared memory at src; boxes
+// past the map's bounds are clipped.  Commit and wait (tma_store_drain)
+// before the shared memory is reused or the block exits.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"((uint64_t)map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// commit this thread's TMA stores and wait until they have read their
+// shared memory
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// this thread's ordinary writes to shared memory, made visible to the TMA
+// (the async proxy): before the barrier that precedes a TMA store
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// bar.sync on barrier `id` (1..15; 0 is __syncthreads') for `threads`
+// threads, a multiple of 32
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading

@@ -7,10 +7,12 @@ and/or windowed, ``acc / max(l, 1e-30)``.  The port adds ``kv_group``: k and
 v hold ``H // kv_group`` heads and query head h reads kv head
 ``h // kv_group``, so grouped-query attention needs no repeated k/v
 (``kv_group=1`` is the TPU kernel's function).  The source is
-``csrc/flash_attention.cu`` (design and bound are documented there): a
-bfloat16 kernel on tensor cores (``mma.sync``, the head dim padded to 32,
-64, 128, 160 or 256 on chip) and a float32 kernel without them, chosen by
-dtype.  Head dims run up to 256.
+``csrc/flash_attention.cu`` (design and bound are documented there), on
+one of three routes that :func:`fwd_route` picks from the dtype, the head
+dim and the operands' alignment: bfloat16 at d 64 and 128 on ``wgmma`` +
+TMA, the other bfloat16 head dims (padded to 32, 64, 128, 160 or 256 on
+chip) and misaligned bfloat16 views on ``mma.sync``, float32 on a SIMT
+kernel without tensor cores.  Head dims run up to 256.
 
 :func:`flash_attention` is the wrapper the attention layer calls: a CPU
 tensor takes the plain version (:func:`repro_torch.kernels.ref.
@@ -40,8 +42,9 @@ from repro_torch.kernels import _launch, cost, fake, ref
 #: the largest head dim the kernel takes
 MAX_HEAD_DIM = 256
 #: q, k, v, out, lse, out32, H, S, d, causal, window, kv_group, scale,
-#: dtype code (then the device and the stream)
+#: dtype code, route code (then the device and the stream)
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                      ctypes.c_int,
                                                       ctypes.c_int]
 _NAMES = ("q", "k", "v")
 #: q, k, v, out32, dout, lse, dq, dk, dv, delta, H, S, d, causal, window,
@@ -50,8 +53,24 @@ _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                            ctypes.c_int,
                                                            ctypes.c_int]
 
-#: the backward's route codes (the C entry's)
+#: the route codes of both C entries, and their names in the dry run's
+#: tally
 WGMMA, MMA_SYNC, SIMT = 0, 1, 2
+ROUTE_NAMES = ("wgmma", "mma.sync", "SIMT")
+
+
+def fwd_route(dtype: torch.dtype, d: int, aligned: bool = True) -> int:
+    """The forward's route for head dim ``d`` in ``dtype``: ``WGMMA``
+    (``wgmma`` + TMA) for bfloat16 at d 64 or 128 when ``aligned``,
+    ``MMA_SYNC`` (``mma.sync``, the head dim padded on chip) for the other
+    bfloat16 head dims up to 256 and for bfloat16 operands TMA cannot
+    take, ``SIMT`` for float32 (whose products on tensor cores would round
+    to TF32).  ``aligned``: whether q, k and v all start on 16-byte
+    boundaries, as TMA needs (out, lse and out32, which the wrapper
+    allocates, always do)."""
+    if dtype == torch.bfloat16:
+        return WGMMA if d in (64, 128) and aligned else MMA_SYNC
+    return SIMT
 
 
 def bwd_route(dtype: torch.dtype, d: int, aligned: bool = True) -> int:
@@ -95,8 +114,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``train``, the kernel's training form (see the module note) and
     ``(out, lse, out32)``: each row's log-sum-exp of its scaled, masked
     scores, float32 (H, S), and the output in float32 (``out`` itself in
-    float32).  Raises ``ValueError`` on any other input and
-    ``RuntimeError`` when the launch is refused."""
+    float32).  The kernel runs on :func:`fwd_route`'s route.  Raises
+    ``ValueError`` on any other input and ``RuntimeError`` when the launch
+    is refused."""
     code, dev = _launch.check_operands("flash_attention", _NAMES, q, k, v)
     H, S, d = _check_shapes("flash_attention", q, k, v, kv_group)
     out = torch.empty_like(q)
@@ -108,13 +128,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if fake.modelled(q):
         fake.record("flash_attention", cost.flash_attention(
             H, k.shape[0], S, d, q.element_size(), causal=causal,
-            window=window, train=train))
+            window=window, train=train),
+            ROUTE_NAMES[fwd_route(q.dtype, d, fake.aligned(q, k, v))])
         return (out, lse, out32) if train else out
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
     ptr = lambda t: 0 if t is None or t is out else t.data_ptr()  # noqa
-    _launch.launch("flash_attention", _ARGS, dev, q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(lse),
-                   ptr(out32), H, S, d, int(causal), int(window), kv_group,
-                   1.0 / math.sqrt(d), code)
+    _launch.launch("flash_attention", _ARGS, dev, *ptrs, out.data_ptr(),
+                   ptr(lse), ptr(out32), H, S, d, int(causal), int(window),
+                   kv_group, 1.0 / math.sqrt(d), code,
+                   fwd_route(q.dtype, d, aligned))
     flash_attention_cuda.launches += 1
     return (out, lse, out32) if train else out
 
@@ -154,7 +177,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         code = bwd_route(q.dtype, d, fake.aligned(q, k, v, dout))
         fake.record("flash_attention_bwd", cost.flash_attention_bwd(
             H, k.shape[0], S, d, q.element_size(), causal=causal,
-            window=window), ("wgmma", "mma.sync", "SIMT")[code])
+            window=window), ROUTE_NAMES[code])
         return dq, dk, dv
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0

@@ -59,13 +59,14 @@ rmsnorm_cuda.launches = 0
 _BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_float,
                                      ctypes.c_int]
-#: rows a block of the backward has in flight, one warp each
+#: warps a block of the backward, at least one row each
 BWD_WARPS = 8
 #: the most blocks of the backward: one per SM of an H100, since the
-#: register kernel's 241 registers a thread (ptxas, on the card) leave room
-#: for one block an SM (each walks every (blocks x 8)-th row, so the dscale
-#: partials, and their sum, depend on the row count alone;
-#: ``scripts/kernel_probes.py`` times 132, 264 and 528)
+#: register kernels' 241 to 255 registers a thread in bf16 (ptxas, on the
+#: card: 241 a row over one warp, 251 over 2, 255 over 4) leave room for
+#: one block an SM (each walks every (blocks x rows in flight)-th row, so
+#: the dscale partials, and their sum, depend on the row count alone;
+#: ``scripts/bwd_design_probes.py`` times 132, 264 and 528)
 BWD_MAX_BLOCKS = 132
 #: the widest row the backward takes
 BWD_MAX_D = 32768
@@ -75,18 +76,20 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                      eps: float = 1e-6):
     """Launch the backward kernel: ``x`` and ``dy`` (M, D), ``scale`` (D,),
     one dtype, contiguous, on one CUDA device.  Returns (dx, dscale) in
-    that dtype: dscale sums per-block partials (a float32 (blocks x 8, D)
-    scratch) in block order, so it is the same bits on every run.  Raises
-    ``ValueError`` on any other input and ``RuntimeError`` when the launch
-    is refused.
+    that dtype: dscale sums per-block partials (a float32 (blocks, D)
+    scratch, one row a block) in block order, so it is the same bits on
+    every run.  Raises ``ValueError`` on any other input and
+    ``RuntimeError`` when the launch is refused.
 
-    The C entry, not this wrapper, picks the kernel: a row that fits a
-    warp's registers (D a multiple of the 16-byte vector, at most 3072
-    bf16 or 1536 float32, x, dy and dx on 16-byte boundaries) takes
-    ``rmsnorm_bwd_warp_kernel``, any other ``rmsnorm_bwd_wide_kernel``.
-    Both compute the same function within rounding and take any shape
-    this wrapper passes, so the choice is one of speed alone and rests on
-    the register kernel's vector width, which only the C side defines."""
+    The C entry, not this wrapper, picks the kernel: a row that fits the
+    registers of 1, 2 or 4 warps (D a multiple of the 16-byte vector, at
+    most 3072, 6144 or 12288 bf16, half that in float32; x, dy and dx on
+    16-byte boundaries) takes ``rmsnorm_bwd_warp_kernel`` (one warp) or
+    ``rmsnorm_bwd_split_kernel`` (2 or 4), any other
+    ``rmsnorm_bwd_loop_kernel``.  All compute the same function within
+    rounding and take any shape this wrapper passes, so the choice is one
+    of speed alone and rests on the register kernels' vector width, which
+    only the C side defines."""
     code, dev = _launch.check_operands("rmsnorm_bwd", ("x", "scale", "dy"),
                                        x, scale, dy)
     if x.dim() != 2 or scale.shape != (x.shape[1],) or dy.shape != x.shape:
@@ -102,7 +105,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
     blocks = min(-(-M // BWD_WARPS), BWD_MAX_BLOCKS)
-    partial = torch.empty((blocks * BWD_WARPS, D), dtype=torch.float32,
+    partial = torch.empty((blocks, D), dtype=torch.float32,
                           device=x.device)
     if fake.modelled(x):
         fake.record("rmsnorm_bwd", cost.rmsnorm_bwd(M, D, x.element_size()))

@@ -4,14 +4,17 @@ state in shared memory or, for a bucket too large for it, in global
 memory) against the CPU run and the eager loop on the card, bit for bit; the
 language-model kernels (``rmsnorm``, ``fused_swiglu`` on each of its three
 routes, misaligned bf16 included; ``flash_attention`` in float32 and in
-bfloat16 on tensor cores, head dims up to 256) against their plain
-versions, on the caller's stream, and smoke-width
+bfloat16 on tensor cores, head dims up to 256: ``wgmma`` + TMA at d 64
+and 128 in both forms, ``mma.sync`` for the other head dims and
+misaligned views, a route the call cannot take refused) against their
+plain versions, on the caller's stream, and smoke-width
 serving on ``cuda`` against the CPU run (one layer each of the MoE and
 Mamba-1 families too, and the MoE dispatch route for route); the PCU
 kernel ``motif_pcu``
 against its plain version, bit for bit in float32, and the ``ops``
 dispatchers through the kernels; the training kernels (``rmsnorm_bwd``
-on its register path and past it, ``swiglu_gate_bwd``,
+a row over 1, 2 or 4 warps and the loop kernel past them, by name,
+``swiglu_gate_bwd``,
 ``flash_attention_bwd`` on each of its routes: ``wgmma`` + TMA in bf16 at
 head dims 64 and 128, ``mma.sync`` for the other bf16 head dims up to 128
 and misaligned views, SIMT past it and in float32, a route the call
@@ -1138,6 +1141,178 @@ def test_flash_backward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
         monkeypatch.setattr(fa, "bwd_route", lambda *a, r=route: r)
         with pytest.raises(RuntimeError, match="launch failed"):
             flash_attention_bwd_cuda(q, q, q, out32, q, lse)
+
+
+# ---------------------------------------------------------------------------
+# flash's forward on wgmma + TMA; rmsnorm_bwd on rows past one warp
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["serve", "train"])
+@pytest.mark.parametrize("kw", FLASH_KW, ids=FLASH_KW_IDS)
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("S", [1, 63, 128, 500, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_wgmma_matches_plain(cuda, d, S, g, kw, train):
+    """The bf16 forward on wgmma + TMA (d 64 and 128, aligned operands) in
+    both forms, S ragged against its 64- or 128-key and 128-query tiles,
+    grouped
+    kv heads, every mask mode: the output within ``TOL`` of plain; the
+    training form's row log-sum-exp and float32 output within float32's
+    ``TOL`` of the plain ones in float32, the output its cast."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.fwd_route(torch.bfloat16, d) == fa.WGMMA
+    H = 2 * g
+    q = _randn((H, S, d), torch.bfloat16, cuda, 90 + S)
+    k, v = (_randn((H // g, S, d), torch.bfloat16, cuda, 91 + S + i)
+            for i in (1, 2))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, kv_group=g, train=train, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    out = got[0] if train else got
+    assert out.dtype == torch.bfloat16 and out.shape == (H, S, d)
+    _assert_close(out, ref.flash_attention(q, k, v, kv_group=g, **kw),
+                  torch.bfloat16)
+    if train:
+        _, lse, out32 = got
+        torch.testing.assert_close(lse, _plain_lse(q, k, kv_group=g, **kw),
+                                   **TOL[torch.float32])
+        plain32 = ref.flash_attention(q.float(), k.float(), v.float(),
+                                      kv_group=g, **kw)
+        torch.testing.assert_close(out32, plain32, **TOL[torch.float32])
+        assert torch.equal(out, out32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("d,offset,train,kernel", [
+    (128, False, False, "flash_fwd_wgmma_kernel<128, false>"),
+    (128, False, True, "flash_fwd_wgmma_kernel<128, true>"),
+    (64, False, False, "flash_fwd_wgmma_kernel<64, false>"),
+    (64, False, True, "flash_fwd_wgmma_kernel<64, true>"),
+    (128, True, False, "flash_attention_tc_kernel<128, false>"),
+    (64, True, True, "flash_attention_tc_kernel<64, true>"),
+])
+def test_flash_forward_route_by_alignment_named_and_deterministic(
+        cuda, d, offset, train, kernel):
+    """The forward's route on the card, by kernel name: bf16 at d 64 and
+    128 on wgmma + TMA, a q one element into its storage (no tensor map
+    on it) on mma.sync; twice on the same inputs, the same bits (no
+    atomics); the output within ``TOL`` of plain."""
+    H, S, g = 6, 700, 3
+    q = (_flat_offset(H * S * d, torch.bfloat16, cuda, 95).view(H, S, d)
+         if offset else _randn((H, S, d), torch.bfloat16, cuda, 95))
+    k, v = (_randn((H // g, S, d), torch.bfloat16, cuda, i) for i in (96, 97))
+    call = lambda: flash_attention_cuda(  # noqa: E731
+        q, k, v, kv_group=g, train=train, causal=True)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    for u, w in zip(*((first, second) if train else ((first,), (second,)))):
+        assert torch.equal(u, w)
+    seen = set()
+    for _ in range(3):
+        seen |= _kernel_names(call)
+        if any(kernel in n for n in seen):
+            break
+    assert any(kernel in n for n in seen), seen
+    _assert_close(first[0] if train else first,
+                  ref.flash_attention(q, k, v, kv_group=g), torch.bfloat16)
+
+
+def test_flash_forward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
+    """A forward route the call cannot take is refused by the C entry
+    (cudaErrorInvalidValue), never replaced by another: wgmma at head dim
+    80 or 160, in float32 or on a q off a 16-byte boundary, mma.sync in
+    float32, SIMT for bf16; in both forms."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype, d, offset, route in [(torch.bfloat16, 80, False, fa.WGMMA),
+                                    (torch.bfloat16, 160, False, fa.WGMMA),
+                                    (torch.float32, 128, False, fa.WGMMA),
+                                    (torch.bfloat16, 128, True, fa.WGMMA),
+                                    (torch.float32, 64, False, fa.MMA_SYNC),
+                                    (torch.bfloat16, 128, False, fa.SIMT)]:
+        q = (_flat_offset(2 * 64 * d, dtype, cuda, 98).view(2, 64, d)
+             if offset else _randn((2, 64, d), dtype, cuda, 98))
+        monkeypatch.setattr(fa, "fwd_route", lambda *a, r=route: r)
+        for train in (False, True):
+            before = flash_attention_cuda.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                flash_attention_cuda(q, q, q, train=train)
+            assert flash_attention_cuda.launches == before
+
+
+#: rmsnorm_bwd's widths past one warp's registers and around the routes'
+#: edges: 3080 (past 3072, a multiple of 8), 4100 (not a multiple of 8),
+#: 5120, 8192, 12288 (the 4-warp edge in bf16), 16384 (the loop kernel)
+WIDE_ROWS = [3080, 4096, 4100, 5120, 8192, 12288, 16384]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("D", WIDE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_wide_rows_match_plain(cuda, dtype, D, offset):
+    """rmsnorm_bwd on rows past one warp's registers, on each route (a row
+    over 2 or 4 warps, the loop kernel past them, on ragged and
+    misaligned rows: x one element into its storage), 300 rows with RMS
+    from 0.1 to 10: dx and dscale within ``TOL`` of plain, and the same
+    bits twice."""
+    M = 300
+    rms = torch.from_numpy(np.geomspace(0.1, 10.0, M)[:, None].astype(
+        np.float32)).to(cuda)
+    x = _randn((M, D), dtype, cuda, 100 + D) * rms.to(dtype)
+    if offset:
+        base = torch.empty(M * D + 1, dtype=dtype, device=cuda)
+        base[1:].copy_(x.reshape(-1))
+        x = base[1:].view(M, D)
+        assert x.data_ptr() % 16
+    s = _randn((D,), dtype, cuda, 101)
+    dy = _randn((M, D), dtype, cuda, 102)
+    before = rmsnorm_bwd_cuda.launches
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+    again = rmsnorm_bwd_cuda(x, s, dy)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd_cuda.launches == before + 2
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+    want_dx, want_ds = _plain_grads(ref.rmsnorm, (x, s), dy)
+    _assert_close(dx, want_dx, dtype)
+    _assert_close(ds, want_ds, dtype)
+
+
+@pytest.mark.parametrize("dtype,D,offset,kernel", [
+    (torch.bfloat16, 3072, False, "rmsnorm_bwd_warp_kernel"),
+    (torch.bfloat16, 4096, False, "rmsnorm_bwd_split_kernel<__nv_bfloat16, 2>"),
+    (torch.bfloat16, 8192, False, "rmsnorm_bwd_split_kernel<__nv_bfloat16, 4>"),
+    (torch.bfloat16, 12288, False,
+     "rmsnorm_bwd_split_kernel<__nv_bfloat16, 4>"),
+    (torch.bfloat16, 16384, False,
+     "rmsnorm_bwd_loop_kernel<__nv_bfloat16, true>"),
+    (torch.bfloat16, 4096, True,
+     "rmsnorm_bwd_loop_kernel<__nv_bfloat16, false>"),
+    (torch.bfloat16, 4100, False,
+     "rmsnorm_bwd_loop_kernel<__nv_bfloat16, false>"),
+    (torch.float32, 3072, False, "rmsnorm_bwd_split_kernel<float, 2>"),
+    (torch.float32, 6144, False, "rmsnorm_bwd_split_kernel<float, 4>"),
+    (torch.float32, 8192, False, "rmsnorm_bwd_loop_kernel<float, true>"),
+])
+def test_rmsnorm_backward_route_by_width(cuda, dtype, D, offset, kernel):
+    """The C entry's choice by row width and alignment, asserted by kernel
+    name: a row over 1, 2 or 4 warps up to 3072, 6144 and 12288 bf16 (half
+    that in float32), the loop kernel past it and on ragged or misaligned
+    rows (16-byte loads only where aligned)."""
+    M = 64
+    x = (_flat_offset(M * D, dtype, cuda, 103).view(M, D) if offset
+         else _randn((M, D), dtype, cuda, 103))
+    s, dy = _randn((D,), dtype, cuda, 104), _randn((M, D), dtype, cuda, 105)
+    call = lambda: rmsnorm_bwd_cuda(x, s, dy)  # noqa: E731
+    seen = set()
+    for _ in range(3):
+        seen |= _kernel_names(call)
+        if any(kernel in n for n in seen):
+            break
+    assert any(kernel in n for n in seen), seen
+    for got, want in zip(call(), _plain_grads(ref.rmsnorm, (x, s), dy)):
+        _assert_close(got, want, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -439,6 +439,30 @@ def test_fake_routes_read_alignment_from_the_storage_offset():
                         "flash_attention_bwd": {"wgmma": 1, "mma.sync": 1}}
 
 
+def test_fake_forward_records_its_route():
+    """The flash forward's fake rule records :func:`fwd_route`'s route:
+    bf16 at d 64 on ``wgmma``, the same q 2 bytes past a 16-byte boundary
+    on ``mma.sync``, bf16 at d 160 on ``mma.sync``, float32 on ``SIMT``;
+    in both forms, and no launch counted."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    before = _counts()
+    with FakeTensorMode(), fake.tally("cuda") as t:
+        q = torch.empty(2 * 64 * 64 + 1, dtype=torch.bfloat16)
+        for train in (False, True):
+            for view in (q[:-1], q[1:]):
+                v = view.view(2, 64, 64)
+                flash_attention_cuda(v, v, v, train=train)
+            w = torch.empty(2, 64, 160, dtype=torch.bfloat16)
+            flash_attention_cuda(w, w, w, train=train)
+            f = torch.empty(2, 64, 64)
+            flash_attention_cuda(f, f, f, train=train)
+    assert t.calls == {"flash_attention": 8}
+    assert t.routes == {"flash_attention": {"wgmma": 2, "mma.sync": 4,
+                                            "SIMT": 2}}
+    assert _counts() == before
+
+
 # ---------------------------------------------------------------------------
 # The command line at production size
 # ---------------------------------------------------------------------------

@@ -25,10 +25,11 @@ def _forbidden(module: str) -> bool:
 
 
 #: the scripts that run the port on the card, where no JAX is installed
-CARD_SCRIPTS = ("flash_bwd_rounding.py", "ssd_parity_conditioning.py",
+CARD_SCRIPTS = ("flash_bwd_rounding.py", "fwd_design_probes.py",
+                "ssd_parity_conditioning.py",
                 "ssm_parity_conditioning.py", "train_parity_conditioning.py",
-                "xent_peak.py", "torch_bench_place.py",
-                "torch_bench_route.py")
+                "xent_peak.py", "torch_ab_walls.py",
+                "torch_bench_place.py", "torch_bench_route.py")
 
 
 #: the port's examples (the JAX package's own stay beside them)

@@ -144,6 +144,17 @@ def test_flash_forward_entry_takes_the_training_outputs():
                                           "out32"]
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
+def test_flash_entries_take_a_route_code(name):
+    """Both flash entries end ``(..., int dtype, int route, int device,
+    void* stream)``: the wrapper passes its route rule's code
+    (``fwd_route`` / ``bwd_route``) after the dtype code."""
+    params = _c_signature(name, "flash_attention")
+    assert [n for _, n in params[-4:]] == ["dtype", "route", "device",
+                                           "stream"]
+    assert [t for t, _ in params[-4:-2]] == [ctypes.c_int, ctypes.c_int]
+
+
 @pytest.mark.parametrize("call", ["rmsnorm_bwd", "swiglu_gate_bwd",
                                   "flash_attention_bwd"])
 def test_backward_wrappers_refuse_cpu_tensors(call):

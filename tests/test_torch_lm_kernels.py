@@ -9,8 +9,8 @@ the Pallas kernels refuse (their blocks must divide the shape), are held
 against the oracles only.  The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here their entries must
 refuse CPU tensors, and ``fused_swiglu``'s route rule (shape, dtype and
-16-byte alignment) and the flash backward's (dtype, head dim and 16-byte
-alignment) are held as the wrappers apply them.
+16-byte alignment) and the flash forward's and backward's (dtype, head dim
+and 16-byte alignment) are held as the wrappers apply them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -349,6 +349,114 @@ def test_flash_bwd_wrapper_routes_offset_views_to_mma_sync(monkeypatch,
     fa.flash_attention_bwd_cuda.launches = before
     (args,) = calls
     assert all(t.data_ptr() % 16 == 0 for t in grads)
+    assert args[-1] == (fa.WGMMA if offset is None else fa.MMA_SYNC)
+
+
+#: (dtype, head dim, 16-byte aligned q, k and v, the forward's route)
+FWD_ROUTES = [
+    # bf16 at d 64 and 128 with operands TMA can take: wgmma + TMA
+    ("bfloat16", 128, True, fa.WGMMA),
+    ("bfloat16", 64, True, fa.WGMMA),
+    # the other bf16 head dims up to 256, and misaligned bf16: mma.sync
+    ("bfloat16", 128, False, fa.MMA_SYNC),
+    ("bfloat16", 64, False, fa.MMA_SYNC),
+    ("bfloat16", 32, True, fa.MMA_SYNC),
+    ("bfloat16", 80, True, fa.MMA_SYNC),
+    ("bfloat16", 120, True, fa.MMA_SYNC),
+    ("bfloat16", 160, True, fa.MMA_SYNC),
+    ("bfloat16", 256, True, fa.MMA_SYNC),
+    ("bfloat16", 256, False, fa.MMA_SYNC),
+    ("bfloat16", 1, True, fa.MMA_SYNC),
+    # float32 (TF32 products would miss its tolerance)
+    ("float32", 64, True, fa.SIMT),
+    ("float32", 128, True, fa.SIMT),
+    ("float32", 128, False, fa.SIMT),
+    ("float32", 256, True, fa.SIMT),
+]
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", FWD_ROUTES,
+                         ids=[f"{t}-d{d}-{'aligned' if a else 'offset'}"
+                              for t, d, a, _ in FWD_ROUTES])
+def test_flash_fwd_route_by_dtype_head_dim_and_alignment(dtype, d, aligned,
+                                                         want):
+    assert fa.fwd_route(TORCH_DT[dtype], d, aligned) == want
+    if aligned:
+        assert fa.fwd_route(TORCH_DT[dtype], d) == want
+
+
+def _fwd_operands(H, S, d, g, dtype, offset=None):
+    """q, k, v on the CPU (``offset``: that one a contiguous view one
+    element into its storage)."""
+    shapes = {"q": (H, S, d), "k": (H // g, S, d), "v": (H // g, S, d)}
+    ts = {}
+    for name, shape in shapes.items():
+        n = int(np.prod(shape))
+        if name == offset:
+            ts[name] = torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+            assert ts[name].is_contiguous() and ts[name].data_ptr() % 16
+        else:
+            ts[name] = torch.zeros(shape, dtype=dtype)
+    return ts["q"], ts["k"], ts["v"]
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["serve", "train"])
+@pytest.mark.parametrize("dtype,d,aligned,want",
+                         [r for r in FWD_ROUTES if r[2]],
+                         ids=[f"{t}-d{d}" for t, d, a, _ in FWD_ROUTES if a])
+def test_flash_fwd_wrapper_passes_its_route(monkeypatch, dtype, d, aligned,
+                                            want, train):
+    """What the forward wrapper hands the C entry: six pointers (q, k, v,
+    out, lse, out32: null when serving, and out32 null in float32, where
+    the output is its own float32 form), H, S, d, the mask, the scale, the
+    dtype code and the route code, in ``_ARGS``' order; one launch
+    counted."""
+    H, S, g = 4, 40, 2
+    q, k, v = _fwd_operands(H, S, d, g, TORCH_DT[dtype])
+    calls = []
+    monkeypatch.setattr(fa._launch, "check_operands",
+                        lambda *a: (fa._launch.DTYPE_CODES[q.dtype], 0))
+    monkeypatch.setattr(fa._launch, "launch",
+                        lambda name, argtypes, index, *args, library="":
+                        calls.append((name, argtypes, index, args, library)))
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, kv_group=g, window=8, train=train)
+    assert fa.flash_attention_cuda.launches == before + 1
+    fa.flash_attention_cuda.launches = before
+    (name, argtypes, index, args, library), = calls
+    assert (name, argtypes, index, library) == ("flash_attention", fa._ARGS,
+                                                0, "")
+    assert len(args) == len(fa._ARGS)
+    out, lse, out32 = got if train else (got, None, None)
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    want_lse = lse.data_ptr() if train else 0
+    want_o32 = out32.data_ptr() if train and out32 is not out else 0
+    assert args[4:6] == (want_lse, want_o32)
+    assert args[6:12] == (H, S, d, 1, 8, g)
+    assert args[12] == pytest.approx(d ** -0.5)
+    assert args[13:] == (fa._launch.DTYPE_CODES[q.dtype], want)
+
+
+@pytest.mark.parametrize("offset", ["q", "k", "v", None])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_wrapper_routes_offset_views_to_mma_sync(monkeypatch,
+                                                           offset, d):
+    """A contiguous bf16 q, k or v one element into its storage (2 bytes
+    past a 16-byte boundary) cannot be described to TMA: the wrapper
+    passes the ``mma.sync`` route code; fresh tensors pass ``wgmma``.  The
+    output is the wrapper's own allocation, so it is aligned."""
+    q, k, v = _fwd_operands(3, 24, d, 3, torch.bfloat16, offset)
+    calls = []
+    monkeypatch.setattr(fa._launch, "check_operands", lambda *a: (1, 0))
+    monkeypatch.setattr(fa._launch, "launch",
+                        lambda name, argtypes, index, *args, library="":
+                        calls.append(args))
+    before = fa.flash_attention_cuda.launches
+    out = fa.flash_attention_cuda(q, k, v, kv_group=3)
+    fa.flash_attention_cuda.launches = before
+    (args,) = calls
+    assert out.data_ptr() % 16 == 0
     assert args[-1] == (fa.WGMMA if offset is None else fa.MMA_SYNC)
 
 
