@@ -1933,10 +1933,11 @@ def _close(name: str, got, want, tol):
     return diff.max().item(), share
 
 
-def device_ms(fn, iters: int, expect=()):
+def device_ms(fn, iters: int, expect=(), by_kernel=False):
     """Mean device time in ms of the CUDA kernels ``fn()`` launches, over
     ``iters`` calls (``torch.profiler``; the host's dispatch is left out,
-    unlike :func:`cuda_ms`), from the first of five traces that is whole:
+    unlike :func:`cuda_ms`; with ``by_kernel``, {kernel name: ms}), from
+    the first of five traces that is whole:
     each of its kernels launched a multiple of ``iters`` times, and each
     name of ``expect`` among them.  The profiler can drop the first
     kernels of a window, and those at its end: each trace waits 50 ms on
@@ -1965,7 +1966,9 @@ def device_ms(fn, iters: int, expect=()):
                   and "spin_kernel" not in e.key]
         if (events and all(e.count % iters == 0 for e in events)
                 and all(any(w in e.key for e in events) for w in expect)):
-            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+            per = {e.key: e.self_device_time_total / 1e3 / iters
+                   for e in events}
+            return per if by_kernel else sum(per.values())
     print(f"device_ms: no whole trace of {iters} calls in 5; the last held "
           f"{[(e.key[:48], e.count) for e in events] or 'no kernel'}")
     return None
@@ -3180,6 +3183,15 @@ GRAD_REL_TOL = 5e-3
 #: the kernels' query rows of the flash plain gradient at a time (a slice
 #: of kv heads; the (S, S) float32 scores of all 96 heads would be 6.4 GB)
 PLAIN_FLASH_HEADS = 12
+#: bf16 flash backward cases (H, S, d, kv_group, mask) on ``wgmma`` whose
+#: warpgroups skip leading tiles of a block's run: causal dk/dv, where the
+#: second warpgroup skips each head's leading query tile, and windowed dq,
+#: where leading key tiles miss a warpgroup's queries
+BWD_SKIP_CASES = [(6, 4096, d, 3, dict(causal=True)) for d in (64, 128)] + [
+    (6, S, d, 3, dict(causal=True, window=w)) for w in (64, 256)
+    for S in (1024, 4096) for d in (64, 128)]
+#: launches of each skip case back to back on one stream
+BWD_BACK_TO_BACK = 200
 
 
 def train_launches(cfg, steps: int):
@@ -3510,6 +3522,53 @@ def bwd_small_checks() -> None:
           f"4 and (16,1024,256) kv_group 2, causal window 256: equal to "
           f"plain within rtol {PATH_TOL['rtol']} atol {PATH_TOL['atol']} "
           f"({worst:.3f} of it at most)")
+    bwd_back_to_back()
+
+
+def bwd_back_to_back() -> None:
+    """Each of ``BWD_SKIP_CASES`` launched ``BWD_BACK_TO_BACK`` times in
+    a row on one stream, every result kept: no launch traps (a warp that
+    waited on a skipped tile's refilled stage would), every result the
+    first's bits, and the first within ``TOL`` of the plain gradient."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (WGMMA, bwd_route,
+                                                     flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    worst = 0.0
+    for H, S, d, g, kw in BWD_SKIP_CASES:
+        require(bwd_route(bf, d) == WGMMA, f"flash backward at d {d} is "
+                "not on wgmma")
+        label = f"({H},{S},{d}) kv_group {g} {kw}"
+        q = _randn((H, S, d), bf, 84)
+        k, v = (_randn((H // g, S, d), bf, i) for i in (85, 86))
+        dout = _randn((H, S, d), bf, 87)
+        _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g,
+                                             train=True, **kw)
+        runs = [flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
+                                         kv_group=g, **kw)
+                for _ in range(BWD_BACK_TO_BACK)]
+        torch.cuda.synchronize()
+        require(all(torch.equal(u, w) for run in runs[1:]
+                    for u, w in zip(run, runs[0])),
+                f"flash_attention_bwd {label}: {BWD_BACK_TO_BACK} launches "
+                f"in a row are not all the first's bits")
+        want = _flash_plain_grads(q, k, v, dout, g, kw)
+        for name, u, w in zip(("dq", "dk", "dv"), runs[0], want):
+            worst = max(worst, _close(f"flash_attention_bwd bf16 {label} "
+                                      f"{name}", u, w, TOL["bfloat16"])[1])
+        del runs, want
+    print(f"train kernel flash_attention_bwd bf16 on wgmma, "
+          f"{len(BWD_SKIP_CASES)} cases with skipped leading tiles (causal "
+          f"kv_group 3 at S 4096, window 64 and 256 at S 1024 and 4096; d 64 "
+          f"and 128), {BWD_BACK_TO_BACK} launches each back to back: no "
+          f"trap, every launch the first's bits, the first equal to plain "
+          f"within rtol {TOL['bfloat16']['rtol']} atol "
+          f"{TOL['bfloat16']['atol']} ({worst:.3f} of it at most); "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def flash_train_forward() -> dict:

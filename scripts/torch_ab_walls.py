@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """End-to-end walls of two checkouts of the port, in turns on one card.
 
-    python3 scripts/torch_ab_walls.py OTHER_ROOT
+    python3 scripts/torch_ab_walls.py OTHER_ROOT [--cell CELL ...]
 
 ``OTHER_ROOT`` is another checkout of this repository (for example the
 parent commit unpacked with ``git archive``); this script's own checkout
@@ -20,6 +20,7 @@ alike.  The cells are the main paths' own entry points at
   at 4 x 500 (32 new tokens), run twice in the process; the reading is
   the second run's prefill (the first pays for the card's warm-up).
 
+``--cell`` (repeatable) runs only the cells named (keys of ``CELLS``).
 Both checkouts' kernels are built first, all at once.  Prints every
 reading and, per cell, both checkouts' readings and means; writes
 nothing.  Exit 0 whatever the times; 1 if a build or a run fails; 2
@@ -104,6 +105,8 @@ def main(argv=None) -> int:
     ap.add_argument("other", nargs="?")
     ap.add_argument("--child", nargs=2, metavar=("ENTRY", "ARGS_JSON"))
     ap.add_argument("--child-build", action="store_true")
+    ap.add_argument("--cell", action="append", choices=sorted(CELLS),
+                    help="only this cell (repeatable; all by default)")
     a = ap.parse_args(argv)
     if a.child_build:
         return child_build()
@@ -140,6 +143,8 @@ def main(argv=None) -> int:
     print(f"ab: both checkouts built in {time.perf_counter() - t0:.3f} s")
     order = ["other", "this", "this", "other"] * ROUNDS
     for cell, (entry, args) in CELLS.items():
+        if a.cell and cell not in a.cell:
+            continue
         readings = {"other": [], "this": []}
         for tag in order:
             proc = in_checkout(roots[tag], ["--child", entry,

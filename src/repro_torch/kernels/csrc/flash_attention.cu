@@ -140,9 +140,18 @@
 //      mma.sync; why setmaxnreg did not lift the consumers' allocation
 //      there is not known.  At 256 threads ptxas takes up to 255 and
 //      spills nothing.  Thread 0 issues the loads, refilling a stage one
-//      tile after its use.  scripts/bwd_design_probes.py builds the
-//      kernels for a 384-thread bound (-DFLASH_BWD_WG_BOUND) and with a
-//      later refill (-DFLASH_BWD_WG_LEAD) and times them against this.
+//      tile after its use.
+//    * Skipped tiles: a warpgroup releases every tile of the block's run
+//      in order, computed or not, through its thread 0 alone, which waits
+//      for the tile to land and arrives on the stage's `empty` barrier
+//      (release_stage, shared with the forward); the threads that compute
+//      a tile wait for it just before its products (stage_landed).  A
+//      warpgroup skips the leading query tiles of each head's run in
+//      causal dk/dv and the leading key tiles in windowed dq.  Both loops
+//      walk every tile of the run and release it at the end (dk/dv
+//      skipping by `continue`): a dq loop over its computed tiles between
+//      release loops, and a dk/dv wait nested in its compute branch, were
+//      each slower on the card with the same registers.
 //    * Ragged S and head boundaries: q, k, v and dO are read through 3-D
 //      tensor maps (d, S, heads) in 64 x 64 boxes, so a tile at a head's
 //      ragged tail reads zeros, not the next head's rows; the live() mask
@@ -1395,21 +1404,6 @@ constexpr int kWgThreads = 256;  // two warpgroups; thread 0 also loads
 constexpr int kWgRows = 128;      // keys (dk/dv) or queries (dq) a block
 constexpr int kWgStep = 64;       // queries (dk/dv) or keys (dq) a stage
 constexpr int kWgStages = 4;
-// a stage is refilled kWgLead tile after its use, kWgStages - kWgLead
-// tiles ahead of the warpgroups; scripts/bwd_design_probes.py builds 2
-// and 3 with -DFLASH_BWD_WG_LEAD to time them against 1
-#ifndef FLASH_BWD_WG_LEAD
-#define FLASH_BWD_WG_LEAD 1
-#endif
-constexpr int kWgLead = FLASH_BWD_WG_LEAD;
-static_assert(kWgLead >= 1 && kWgLead < kWgStages, "lead in [1, stages)");
-// the block size ptxas sizes the kernels' registers for (65536 / bound a
-// thread, at most 255); the probes build 384, the block of a producer
-// warpgroup beside the two consumers, with -DFLASH_BWD_WG_BOUND=384
-#ifndef FLASH_BWD_WG_BOUND
-#define FLASH_BWD_WG_BOUND kWgThreads
-#endif
-static_assert(FLASH_BWD_WG_BOUND >= kWgThreads, "bound below the block");
 constexpr uint32_t kWgBox = 64 * 128;  // a TMA box: 64 rows x 128 bytes
 
 // a 64-row tile, DP wide: DP / 64 boxes
@@ -1423,6 +1417,40 @@ template <int DP>
 __host__ __device__ constexpr size_t wg_smem_bytes() {
   return 4 * wg_tile<DP>() + kWgStages * 2 * wg_tile<DP>() +
          2 * 2 * 2 * kWgStep * 4 + (2 * kWgStages + 1) * 8 + 1024;
+}
+
+// A warpgroup is done with tile j of a block's run, which streams through
+// a ring of ST stages: release it, computed or skipped.  Its thread 0
+// (`arrives`) waits for the tile to land, so that no arrival runs ahead of
+// a skipped tile's load, and then arrives on the stage's `empty` barrier;
+// the issuer refills the stage with tile j + ST once both warpgroups have
+// arrived.  Only the arriving thread waits on `full` here: a warp that lagged behind it could
+// otherwise wait on a stage that has been refilled since, whose barrier
+// then shows the parity of two tiles on, and wait for a load that needs
+// its own release first.  The threads that compute a tile wait for it with
+// stage_landed.  A warpgroup releases every tile of its block's run in
+// order.
+template <int ST, typename Issue>
+__device__ __forceinline__ void release_stage(int j, int tiles,
+                                              uint32_t full, uint32_t empty,
+                                              bool arrives, bool issuer,
+                                              const Issue& issue) {
+  const int s = j % ST;
+  const uint32_t parity = (uint32_t)(j / ST) & 1u;
+  if (arrives) {
+    mbar_wait(full + 8 * s, parity);
+    mbar_arrive(empty + 8 * s);
+  }
+  if (issuer && j + ST < tiles) {
+    mbar_wait(empty + 8 * s, parity);
+    issue(j + ST);
+  }
+}
+
+// tile `it` of a ring of ST stages has landed
+template <int ST>
+__device__ __forceinline__ void stage_landed(uint32_t full, int it) {
+  mbar_wait(full + 8 * (it % ST), (uint32_t)(it / ST) & 1u);
 }
 
 // [lo, hi): the tiles of `step` rows out of n that meet the block's rows
@@ -1683,7 +1711,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* g,
 // kv_group query heads that meets the block: tile j is query tile
 // qlo + j % per of query head kvh * kv_group + j / per
 template <int DP>
-__global__ void __launch_bounds__(FLASH_BWD_WG_BOUND, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v,
@@ -1731,12 +1759,6 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_load_3d(tile + TILE + b * kWgBox, &map_do, bar, 64 * b, q0, h);
     }
   };
-  // the stage of tile j is free once both warpgroups are done with tile
-  // j - kWgStages
-  auto wait_free = [&](int j) {
-    mbar_wait(empty + 8 * (j % kWgStages),
-              ((uint32_t)(j / kWgStages) & 1u) ^ 1u);
-  };
   const bool issuer = threadIdx.x == 0;
   if (issuer) {
     mbar_expect_tx(fixed, 4 * TILE);
@@ -1770,60 +1792,59 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   mbar_wait(fixed, 0);
   int done = 0;  // tiles this warpgroup computed: its stat buffer's parity
   for (int it = 0; it < tiles; ++it) {
-    const int j = it + kWgStages - kWgLead;
-    if (issuer && it >= kWgLead && j < tiles) {
-      wait_free(j);
-      issue(j);
-    }
     const int s = it % kWgStages, q0 = (qlo + it % per) * kWgStep;
     // the stats are loaded a tile ahead, so their latency hides
     const float mine = next;
     if (it + 1 < tiles) next = stat(it + 1);
-    mbar_wait(full + 8 * s, (uint32_t)(it / kWgStages) & 1u);
-    if (tiles_meet(q0, kWgStep, kw0, 64, causal, window)) {
-      const uint32_t qs = stages + s * 2 * TILE, gs = qs + TILE;
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
-      float st[32], dpt[32];
-      wgmma_fence();
-      wgmma_abt<DP>(st, ka, qs);
-      wgmma_abt<DP>(dpt, va, gs);
-      wgmma_commit();
-      // the tile's lse and delta rows through the warpgroup's own buffer,
-      // one of two by the parity of its computed tiles, so that one
-      // barrier a tile keeps a write from overtaking the last reads of
-      // that buffer
-      float* ls = stat_rows + (done++ & 1) * 2 * kWgStep;
-      ls[t] = mine;
-      named_barrier(1 + wg, 128);
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-      const int kp0 = kw0 + (t / 32) * 16 + gr;
-      if (tile_live(q0, kw0, S, causal, window))
-        p_ds_t<false>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
-                      scale);
-      else
-        p_ds_t<true>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
-                     scale);
-      uint32_t ph[4][4], pl[4][4], dh[4][4], dlo[4][4];
-      split_a(st, ph, pl);
-      split_a(dpt, dh, dlo);
-      // dV += P^T dO, dK += dS^T Q over the 64 queries
-      fence_regs(dva);
-      fence_regs(dka);
-      wgmma_fence();
-      wgmma_split_b<DP>(dva, ph, pl, gs);
-      wgmma_split_b<DP>(dka, dh, dlo, qs);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dva);
-      fence_regs(dka);
-      fence_frags(ph);
-      fence_frags(pl);
-      fence_frags(dh);
-      fence_frags(dlo);
+    // every tile is released, computed or skipped (a skipped tile's stage
+    // is waited on by thread 0 alone)
+    if (!tiles_meet(q0, kWgStep, kw0, 64, causal, window)) {
+      release_stage<kWgStages>(it, tiles, full, empty, t == 0, issuer, issue);
+      continue;
     }
-    if (t == 0) mbar_arrive(empty + 8 * s);
+    stage_landed<kWgStages>(full, it);
+    const uint32_t qs = stages + s * 2 * TILE, gs = qs + TILE;
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+    float st[32], dpt[32];
+    wgmma_fence();
+    wgmma_abt<DP>(st, ka, qs);
+    wgmma_abt<DP>(dpt, va, gs);
+    wgmma_commit();
+    // the tile's lse and delta rows through the warpgroup's own buffer,
+    // one of two by the parity of its computed tiles, so that one
+    // barrier a tile keeps a write from overtaking the last reads of
+    // that buffer
+    float* ls = stat_rows + (done++ & 1) * 2 * kWgStep;
+    ls[t] = mine;
+    named_barrier(1 + wg, 128);
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    const int kp0 = kw0 + (t / 32) * 16 + gr;
+    if (tile_live(q0, kw0, S, causal, window))
+      p_ds_t<false>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
+                    scale);
+    else
+      p_ds_t<true>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
+                   scale);
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dlo[4][4];
+    split_a(st, ph, pl);
+    split_a(dpt, dh, dlo);
+    // dV += P^T dO, dK += dS^T Q over the 64 queries
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+    wgmma_split_b<DP>(dva, ph, pl, gs);
+    wgmma_split_b<DP>(dka, dh, dlo, qs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_frags(ph);
+    fence_frags(pl);
+    fence_frags(dh);
+    fence_frags(dlo);
+    release_stage<kWgStages>(it, tiles, full, empty, t == 0, issuer, issue);
   }
   const long long kbase = (long long)kvh * S * DP;
   store_acc<DP>(dk + kbase, dka, kw0, S, scale);
@@ -1834,7 +1855,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 // consumer warpgroup wg owns queries 64 wg .. + 63 and walks every 64-key
 // tile that meets the block: tile j is key tile klo + j
 template <int DP>
-__global__ void __launch_bounds__(FLASH_BWD_WG_BOUND, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
@@ -1877,10 +1898,6 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_load_3d(tile + b * kWgBox, &map_k, bar, 64 * b, k0, kvh);
       tma_load_3d(tile + TILE + b * kWgBox, &map_v, bar, 64 * b, k0, kvh);
     }
-  };
-  auto wait_free = [&](int j) {
-    mbar_wait(empty + 8 * (j % kWgStages),
-              ((uint32_t)(j / kWgStages) & 1u) ^ 1u);
   };
   const bool issuer = threadIdx.x == 0;
   if (issuer) {
@@ -1929,16 +1946,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_commit();
   };
   mbar_wait(fixed, 0);
+  // every tile of the block's run, computed ([a, b)) or skipped, in order
   for (int it = 0; it < tiles; ++it) {
-    const int j = it + kWgStages - kWgLead;
-    if (issuer && it >= kWgLead && j < tiles) {
-      wait_free(j);
-      issue(j);
-    }
     const int s = it % kWgStages, k0 = (klo + it) * kWgStep;
-    mbar_wait(full + 8 * s, (uint32_t)(it / kWgStages) & 1u);
     if (it >= a && it < b) {
       if (it == a) {
+        stage_landed<kWgStages>(full, it);
         products(it);
         wgmma_wait<0>();
         fence_regs(sc);
@@ -1953,8 +1966,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         cd[e] = dp[e];
       }
       if (it + 1 < b) {
-        mbar_wait(full + 8 * ((it + 1) % kWgStages),
-                  (uint32_t)((it + 1) / kWgStages) & 1u);
+        stage_landed<kWgStages>(full, it + 1);
         products(it + 1);
       }
       if (tile_live(qw0, k0, S, causal, window))
@@ -1976,7 +1988,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_frags(hi);
       fence_frags(lo);
     }
-    if (t == 0) mbar_arrive(empty + 8 * s);
+    release_stage<kWgStages>(it, tiles, full, empty, t == 0, issuer, issue);
   }
   store_acc<DP>(dq + (long long)h * S * DP, dqa, qw0, S, scale);
 }
@@ -2314,26 +2326,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (b == 0) a = it;
       b = it + 1;
     }
-  // this warpgroup is done with tiles [released, upto): its thread 0
-  // arrives once a tile, after the tile has landed (so that no arrival runs
-  // ahead of a skipped tile's load); the issuer then refills the stage once
-  // the other warpgroup is done too.  Only the arriving thread waits here:
-  // a warp that lagged behind it could otherwise wait on a stage that has
-  // been refilled since, whose barrier then shows the parity of two tiles
-  // on, and wait for a load that needs its own release first.
+  // this warpgroup is done with tiles [released, upto)
   int released = 0;
   auto release = [&](int upto) {
-    for (; released < upto; ++released) {
-      const int j = released, s = j % ST;
-      if (t == 0) {
-        mbar_wait(full + 8 * s, (uint32_t)(j / ST) & 1u);
-        mbar_arrive(empty + 8 * s);
-      }
-      if (issuer && j + ST < tiles) {
-        mbar_wait(empty + 8 * s, (uint32_t)(j / ST) & 1u);
-        issue(j + ST);
-      }
-    }
+    for (; released < upto; ++released)
+      release_stage<ST>(released, tiles, full, empty, t == 0, issuer, issue);
   };
 
   float o[DP / 2], s[BK / 2], m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
@@ -2352,9 +2349,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                             sl2);
   };
   auto stage_of = [&](int it) { return stages + (it % ST) * 2 * KT; };
-  auto landed = [&](int it) {
-    mbar_wait(full + 8 * (it % ST), (uint32_t)(it / ST) & 1u);
-  };
+  auto landed = [&](int it) { stage_landed<ST>(full, it); };
   mbar_wait(fixed, 0);
   release(a);
   if (a < b) {

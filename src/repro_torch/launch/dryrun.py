@@ -23,12 +23,24 @@ no data, nothing allocated):
   kv_heads, mlp, vocab and expert over ``model`` where the rules shard
   them, i.e. the model of a config whose widths are the local ones
   (:func:`local_config`).  FSDP-sharded dims (``embed`` over ``data``) are
-  gathered for compute, so the traced parameters hold them whole.  Expert
-  parallelism keeps the router and the dispatch of the whole config and
-  computes the device's experts only (:class:`ExpertParallelLM`).  Where
-  the local view cannot express a plan (heads sharded while kv_heads are
-  replicated, which would change ``kv_group``; whisper's 6 heads on
-  ``model=8``), the cell is ``status: "error"`` with the reason.
+  gathered for compute, so the traced parameters hold them whole.  A
+  heads dim that the rules shard to a width of no whole number of heads
+  (whisper_tiny's 6 x 64 columns over ``model=8``: 48 a device) is
+  gathered for compute the same way: the placements, and so the
+  arguments, stay the rules' shards, and attention runs on whole heads on
+  every rank of the model group (they hold the same tokens), from the
+  weights (and in a decode step the cache) gathered over ``model`` a
+  layer at a time.  Expert parallelism keeps the router and the dispatch
+  of the whole config and computes the device's experts only
+  (:class:`ExpertParallelLM`).  Where the local view cannot express a
+  plan (heads sharded while kv_heads are replicated, which would change
+  ``kv_group``), the cell is ``status: "error"`` with the reason.
+* **The depth.**  A cell is traced at full depth, except where
+  :func:`depth_points` finds that too slow (the eager Mamba-1 scan is
+  traced a position at a time: falcon_mamba_7b's ``prefill_32k``); it is
+  then traced at two depths and every field combined linearly to the
+  full one (:func:`combine_records`), and ``traced_depths`` names the
+  depths.
 * **The program.**  ``--device cuda`` (the default; no card is needed,
   nothing runs) models the card's program: the kernels' fake rule
   (:mod:`repro_torch.kernels.fake`) stands in for each launch and counts
@@ -48,7 +60,8 @@ Fields of a record (the JAX package's where they mean the same):
 * ``argument_size_in_bytes``: the local shards of params, optimizer state
   and batch (decode: params, cache and tokens), exactly.
 * ``output_size_in_bytes``: the local shards of what the step returns
-  (train: params, optimizer state and metrics).
+  (train: params, optimizer state and metrics; prefill and decode: the
+  cache as its shard).
 * ``temp_size_in_bytes``: the peak of live storage the step allocates,
   less what the plan shards that the trace holds whole: in the forward
   and backward the gradient tree counts as its shard, and FSDP's gathers
@@ -56,9 +69,10 @@ Fields of a record (the JAX package's where they mean the same):
   gathered just before the layer and freed after it: two layers' worth,
   the one computing and the one prefetched, plus in training one layer's
   unreduced gradient; the unstacked FSDP leaves gathered for the whole
-  step); AdamW's peak is its own, on the shards.  With no FSDP at world
-  size 1 it is the trace's peak exactly.  ``peak_bytes`` is arguments
-  plus temp.
+  step; whole heads' gathered weights alike, and in a decode step the
+  layer's gathered cache); AdamW's peak is its own, on the shards.  With
+  no FSDP at world size 1 it is the trace's peak exactly.
+  ``peak_bytes`` is arguments plus temp.
 * ``flops_per_device``: ``FlopCounterMode``'s count of the traced aten ops
   plus the kernels' own operations (:mod:`repro_torch.kernels.cost`).
 * ``bytes_per_device``: every traced op's tensor inputs read once and
@@ -75,6 +89,11 @@ Fields of a record (the JAX package's where they mean the same):
   - FSDP: each leaf sharded over ``data`` is all-gathered once a use
     (training: in the forward and again in the backward) and its gradient
     reduce-scattered; a leaf stacked over layers counts once a layer;
+  - whole heads: each leaf gathered over ``model`` for compute is
+    all-gathered once a use (training: twice), and a decode step's cache
+    once a layer; its gradient is whole and the same on every rank of the
+    model group (they hold the same tokens), so each keeps its own shard
+    and nothing is reduce-scattered;
   - gradients: an all-reduce of each leaf's local gradient over the batch
     axes that do not shard it (``pod`` for an FSDP leaf);
   - tensor parallelism: a product whose contracted dim is sharded over
@@ -188,6 +207,24 @@ def _model_only(pspec):
     return tuple(keep(p) for p in pspec)
 
 
+def _whole_heads(s, pspec, sizes, head_dim: int):
+    """``pspec`` with a heads dim of ``s`` whose ``model`` shard is not a
+    whole number of ``head_dim``-wide heads left whole: gathered for
+    compute."""
+    m = sizes.get("model", 1)
+    return tuple(
+        None if name in ("heads", "kv_heads") and "model" in
+        shard_lib._axes(part) and (dim // m) % head_dim else part
+        for dim, name, part in zip(s.shape, s.axes, pspec))
+
+
+def _model_gathered(s, pspec, compute_shape) -> bool:
+    """Whether the plan shards ``s`` over ``model`` where its compute view
+    holds it whole (:func:`_whole_heads`)."""
+    return any("model" in shard_lib._axes(part) and c == d
+               for part, c, d in zip(pspec, compute_shape, s.shape))
+
+
 def _find(view, *suffix):
     """The shape of the first leaf whose path ends with ``suffix``."""
     for path, shape in view.items():
@@ -204,16 +241,9 @@ def local_config(cfg: ModelConfig, view: Dict[Tuple[str, ...], tuple],
     where no config has these widths (``extent``: the ``model`` axis's)."""
     hd = cfg.resolved_head_dim
     kw = dict(head_dim=hd, vocab_size=view[("emb",)][0])
-    path, wq = _find(view, "wq")
-    if wq is not None:
+    _, wq = _find(view, "wq")
+    if wq is not None:  # whole heads (_whole_heads)
         _, wk = _find(view, "wk")
-        for name, cols, n in (("heads", wq[-1], cfg.n_heads),
-                              ("kv_heads", wk[-1], cfg.n_kv_heads)):
-            if cols % hd:
-                raise PlanError(
-                    f"{n} {name} do not split over model={extent}: "
-                    f"{'/'.join(path[:-1])} shards {n * hd} columns to "
-                    f"{cols}, not a whole number of {hd}-wide heads")
         kw.update(n_heads=wq[-1] // hd, n_kv_heads=wk[-1] // hd)
         group = cfg.n_heads // cfg.n_kv_heads
         if kw["n_heads"] != group * kw["n_kv_heads"]:
@@ -320,14 +350,21 @@ class Cell:
     experts: Optional[int]
     #: group name -> {path: (global Spec, pspec, local shape, traced shape)}
     groups: Dict[str, Dict[Tuple[str, ...], tuple]]
+    #: the bytes a prefill's or decode step's cache holds past its shard
+    #: where its heads are gathered for compute
+    cache_gathered: int = 0
 
 
-def _placed(spec_tree, rules, sizes, compute=False):
+def _placed(spec_tree, rules, sizes, head_dim: int = 0, params=False):
+    """{path: (Spec, pspec, local shape, traced shape)}: the traced shape
+    is the local one, with ``head_dim`` its heads dims whole
+    (:func:`_whole_heads`), and for ``params`` its FSDP dims gathered."""
     out = {}
     for path, s in _leaves(spec_tree):
         ps = shard_lib._pspec_for(s.axes, rules, s.shape, sizes)
+        compute = _whole_heads(s, ps, sizes, head_dim) if head_dim else ps
         traced = shard_lib.local_shape(
-            s.shape, _model_only(ps) if compute else ps, sizes)
+            s.shape, _model_only(compute) if params else compute, sizes)
         out[path] = (s, ps, shard_lib.local_shape(s.shape, ps, sizes),
                      traced)
     return out
@@ -348,7 +385,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, *, mesh,
     multi_pod = multi_pod and "pod" in sizes
     rules = shard_lib.logical_rules(cfg, multi_pod=multi_pod)
     pspec = zoo.param_spec(cfg)
-    groups = {"params": _placed(pspec, rules, sizes, compute=True),
+    hd = cfg.resolved_head_dim
+    groups = {"params": _placed(pspec, rules, sizes, hd, params=True),
               "batch": _placed(zoo.input_spec(cfg, shape), rules, sizes)}
     view = {p: v[3] for p, v in groups["params"].items()}
     local, experts = local_config(cfg, view, sizes.get("model", 1))
@@ -356,10 +394,13 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, *, mesh,
         ocfg = opt_lib.AdamWConfig(state_dtype=cfg.opt_state_dtype)
         groups["opt"] = _placed(opt_lib.opt_state_spec(pspec, ocfg), rules,
                                 sizes)
-    elif shape.kind == "decode":
-        groups["cache"] = _placed(
-            zoo.cache_spec(cfg, shape.global_batch, shape.seq_len), rules,
-            sizes)
+    cache_gathered = 0
+    if shape.kind != "train":  # the cache the step returns (decode: takes)
+        cache = _placed(zoo.cache_spec(cfg, shape.global_batch,
+                                       shape.seq_len), rules, sizes, hd)
+        cache_gathered = _group_bytes(cache, 3) - _group_bytes(cache, 2)
+        if shape.kind == "decode":
+            groups["cache"] = cache
     meta = {
         "arch": arch,
         "shape": shape_name,
@@ -371,7 +412,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, *, mesh,
         "seq_len": shape.seq_len,
         "global_batch": shape.global_batch,
     }
-    return Cell(cfg, shape, multi_pod, sizes, local, experts, groups), meta
+    return Cell(cfg, shape, multi_pod, sizes, local, experts, groups,
+                cache_gathered), meta
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +489,11 @@ def plan_collectives(cell: Cell) -> Dict:
                 if kind == "decode":
                     continue  # the encoder and cross k/v run in the prefill
                 rows = Bl * cfg.enc_seq
+            if _model_gathered(s, ps, cshape):  # whole heads, gathered
+                n_stack = s.shape[0] if s.axes[:1] == ("layers",) else 1
+                c.add("all-gather", ("model",), n_use * (1 + train),
+                      _nbytes(cshape, s.dtype) / n_stack)
+                continue
             if cell.experts is not None and parent == "moe" and \
                     name in ("w1", "w2", "w3"):
                 continue  # expert parallel: the all-to-alls below
@@ -484,6 +531,10 @@ def plan_collectives(cell: Cell) -> Dict:
             c.add("all-to-all", ("model",),
                   cfg.n_layers * 2 * (fwd + train), nbytes)
     cache = cell.groups.get("cache", {})
+    for s, ps, _, cshape in cache.values():
+        if _model_gathered(s, ps, cshape):  # a layer's, each decode step
+            c.add("all-gather", ("model",), s.shape[0],
+                  _nbytes(cshape, s.dtype) / s.shape[0])
     kc = cache.get(("k",))
     seq = [shard_lib._axes(p) for p, a in zip(kc[1], kc[0].axes)
            if a == "cache_seq"] if kc is not None else []
@@ -575,7 +626,8 @@ def _group_bytes(group, which: int = 2) -> int:
 
 
 def _gather_bytes(cell: Cell) -> int:
-    """FSDP's gather buffers at the step's peak (the module note)."""
+    """The gather buffers at the step's peak, FSDP's and whole heads' (the
+    module note)."""
     per_layer: Dict[str, float] = {}
     whole = 0
     for path, (s, _, lshape, cshape) in cell.groups["params"].items():
@@ -585,8 +637,12 @@ def _gather_bytes(cell: Cell) -> int:
                 extra / s.shape[0]
         else:
             whole += extra
+    # a decode step's layer reads its cache, gathered where heads are
+    cache = sum((_nbytes(v[3], v[0].dtype) - _nbytes(v[2], v[0].dtype))
+                / v[0].shape[0] for v in cell.groups.get("cache", {}).values()
+                if v[0].axes[:1] == ("layers",))
     layers = 2 + (cell.shape.kind == "train")
-    return int(whole + layers * max(per_layer.values(), default=0))
+    return int(whole + layers * (max(per_layer.values(), default=0) + cache))
 
 
 def _release_grads(model) -> None:
@@ -664,6 +720,7 @@ def trace_cell(cell: Cell, device: str = "cuda") -> Dict:
         output += _group_bytes(p) + _group_bytes(cell.groups["opt"])
     else:
         temp = peak_new + gather
+        output -= cell.cache_gathered  # the cache comes back as its shard
     rec.update(
         argument_size_in_bytes=int(args_local),
         output_size_in_bytes=int(output),
@@ -683,6 +740,59 @@ def trace_cell(cell: Cell, device: str = "cuda") -> Dict:
 # ---------------------------------------------------------------------------
 # Cell execution
 # ---------------------------------------------------------------------------
+
+#: the most Mamba-1 scan steps (sequence positions x layers) a cell is
+#: traced at full depth with: the eager scan is traced a position at a
+#: time (train_4k's 4096 x 64 take 20 to 30 minutes on a CPU), so a cell
+#: past it is traced at two depths and combined
+FULL_DEPTH_SCAN_STEPS = 2 ** 19
+
+
+def depth_points(cfg: ModelConfig, shape: ShapeSpec):
+    """The (tag, overrides, coefficient) points a cell is traced at where
+    its full-depth trace would be too slow: a Mamba-1 model (``ssm``)
+    whose prefill or train step scans more than
+    :data:`FULL_DEPTH_SCAN_STEPS` positions x layers, at 2 and 3 layers,
+    total(L) = (3 - L) C(2) + (L - 2) C(3).  These are
+    ``roofline.points_for``'s 1 and 2 layers a layer deeper: a prefill's
+    temp peak is linear in depth from 2 layers on, but the 1-layer peak
+    lies one (tokens, d_model) activation below that line (falcon at 256
+    and 1024 tokens, 1 to 5 layers), which 1 and 2 layers would add to
+    every further layer.  None: traced at full depth."""
+    if cfg.family == "ssm" and shape.kind != "decode" and \
+            shape.seq_len * cfg.n_layers > FULL_DEPTH_SCAN_STEPS:
+        L = cfg.n_layers
+        return [("B", {"unroll_layers": True, "n_layers": 2}, 3 - L),
+                ("C", {"unroll_layers": True, "n_layers": 3}, L - 2)]
+    return None
+
+
+def combine_records(points) -> Dict:
+    """The point records ``[(record, coefficient)]`` combined field by
+    field to full depth, as ``roofline.combine`` combines FLOPs: each
+    number linearly, each dict (kernel calls, routes, collectives) key by
+    key, a key a point lacks as 0; ``trace_s`` the points' sum; any other
+    field the first point's."""
+    out = {}
+    for key in dict.fromkeys(k for rec, _ in points for k in rec):
+        vals = [(rec.get(key), coef) for rec, coef in points]
+        first = next((v for v, _ in vals if v is not None), None)
+        if key == "trace_s":
+            out[key] = round(sum(v for v, _ in vals), 2)
+        elif isinstance(first, dict):
+            out[key] = combine_records([(v or {}, c) for v, c in vals])
+        elif isinstance(first, (int, float)) and not isinstance(first, bool):
+            out[key] = sum(c * (v or 0) for v, c in vals)
+        else:
+            out[key] = first
+    return out
+
+
+def _measure(cell: Cell, device: str) -> Dict:
+    """The trace's fields and the plan's collectives of one cell."""
+    rec = trace_cell(cell, device)
+    rec["collectives"] = plan_collectives(cell)
+    return rec
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
@@ -711,8 +821,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "n_heads", "n_kv_heads", "d_ff", "vocab_size", "moe_dense_ff",
         "d_inner")}
     rec["local_experts"] = cell.experts
-    rec.update(trace_cell(cell, device))
-    rec["collectives"] = plan_collectives(cell)
+    points = depth_points(cell.cfg, cell.shape)
+    if points is None:
+        rec.update(_measure(cell, device))
+    else:  # traced at the points' depths, combined to the full one
+        recs, depths = [], []
+        for _, ov, coef in points:
+            point, _ = build_cell(arch, shape_name, multi_pod, mesh=mesh,
+                                  cfg_overrides=dict(cfg_overrides or {},
+                                                     **ov), shape=shape)
+            recs.append((_measure(point, device), coef))
+            depths.append(point.cfg.n_layers)
+        rec.update(combine_records(recs))
+        rec["traced_depths"] = depths
     rec["not_reported"] = list(NOT_REPORTED)
     rec["total_s"] = round(time.time() - t0, 2)
     rec["status"] = "ok"

@@ -16,7 +16,8 @@ dispatchers through the kernels; the training kernels (``rmsnorm_bwd``
 a row over 1, 2 or 4 warps and the loop kernel past them, by name,
 ``swiglu_gate_bwd``,
 ``flash_attention_bwd`` on each of its routes: ``wgmma`` + TMA in bf16 at
-head dims 64 and 128, ``mma.sync`` for the other bf16 head dims up to 128
+head dims 64 and 128 (also 200 launches in a row where its warpgroups
+skip leading tiles), ``mma.sync`` for the other bf16 head dims up to 128
 and misaligned views, SIMT past it and in float32, a route the call
 cannot take refused; and flash's training forward with its row
 log-sum-exp and float32 output) against autograd of the plain versions,
@@ -1141,6 +1142,44 @@ def test_flash_backward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
         monkeypatch.setattr(fa, "bwd_route", lambda *a, r=route: r)
         with pytest.raises(RuntimeError, match="launch failed"):
             flash_attention_bwd_cuda(q, q, q, out32, q, lse)
+
+
+#: bf16 flash backward cases (H, S, d, kv_group, mask) on wgmma whose
+#: warpgroups skip leading tiles of a block's run: causal dk/dv (the second
+#: warpgroup skips each head's leading query tile) and windowed dq (leading
+#: key tiles miss a warpgroup's queries)
+SKIP_CASES = [(6, 4096, d, 3, dict(causal=True)) for d in (64, 128)] + [
+    (6, S, d, 3, dict(causal=True, window=w)) for w in (64, 256)
+    for S in (1024, 4096) for d in (64, 128)]
+
+
+@pytest.mark.parametrize(
+    "H,S,d,g,kw", SKIP_CASES,
+    ids=[f"S{S}-d{d}-" + (f"window{kw['window']}" if "window" in kw
+                          else "causal") for _, S, d, _, kw in SKIP_CASES])
+def test_flash_backward_skipped_tiles_back_to_back(cuda, H, S, d, g, kw):
+    """200 launches in a row on one stream, every result kept: none traps
+    (a warp waiting on a skipped tile's stage after its refill would), each
+    has the first's bits, and the first is within ``TOL`` of plain."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.bwd_route(torch.bfloat16, d) == fa.WGMMA
+    bf = torch.bfloat16
+    q = _randn((H, S, d), bf, cuda, 110)
+    k, v = (_randn((H // g, S, d), bf, cuda, i) for i in (111, 112))
+    dout = _randn((H, S, d), bf, cuda, 113)
+    _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g, train=True,
+                                         **kw)
+    runs = [flash_attention_bwd_cuda(q, k, v, out32, dout, lse, kv_group=g,
+                                     **kw) for _ in range(200)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for u, w in zip(run, runs[0]):
+            assert torch.equal(u, w)
+    want = _plain_grads(lambda a, b, c: ref.flash_attention(
+        a, b, c, kv_group=g, **kw), (q, k, v), dout)
+    for got, w in zip(runs[0], want):
+        _assert_close(got, w, bf)
 
 
 # ---------------------------------------------------------------------------

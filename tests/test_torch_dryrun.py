@@ -199,19 +199,144 @@ def test_cpu_device_models_the_plain_versions(kind):
 
 
 def test_local_view_refusals_are_errors_with_reasons():
-    """A plan the local view cannot express is an error record."""
+    """A plan the local view cannot express is an error record; whisper's
+    6 heads on ``model=8`` (48 columns a device) are no longer one: they
+    are gathered whole for compute."""
     from repro_torch.launch.mesh import production_mesh
 
     with production_mesh(multi_pod=False) as mesh:
         rec = dryrun.run_cell("whisper_tiny", "train_4k", False, mesh=mesh)
-        assert rec["status"] == "error"
-        assert "6 heads do not split over model=8" in rec["reason"]
+        assert rec["status"] == "ok"
+        assert rec["local_config"]["n_heads"] == 6
         # heads sharded (24 x 12 columns), kv_heads replicated (12 do not
         # split 8 ways): kv_group would change from 24 to 3
         rec = dryrun.run_cell("llama3_2_3b", "decode_32k", False, mesh=mesh,
                               cfg_overrides={"head_dim": 12,
                                              "n_kv_heads": 1})
         assert rec["status"] == "error" and "kv_group" in rec["reason"]
+
+
+def _local_bytes(spec_tree, mesh, cfg, multi_pod):
+    """The bytes of the local shards the sharding rules' placements give
+    one device on ``mesh``."""
+    from repro_torch.parallel import sharding
+
+    total = 0
+    places = dict(dryrun._leaves(sharding.shardings_for(
+        spec_tree, mesh, cfg, multi_pod=multi_pod)))
+    for path, s in dryrun._leaves(spec_tree):
+        shape = list(s.shape)
+        for i, p in enumerate(places[path]):
+            if p.is_shard():
+                shape[p.dim] //= mesh.size(i)
+        total += int(np.prod(shape)) * torch.empty(
+            (), dtype=s.dtype).element_size()
+    return total
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["sp", "mp"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_whisper_plans_on_the_production_mesh(shape, multi_pod):
+    """whisper_tiny's 6 x 64 head columns shard to 48 a device on
+    ``model=8``: the cell plans, attention on whole heads gathered over
+    ``model``.  Its arguments are the placements' local shards, byte for
+    byte; the gathers are all-gathers over ``model``; its FLOPs a device
+    are at least the model's over the devices."""
+    from repro_torch.launch.mesh import production_mesh
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg, spec = get_config("whisper_tiny"), SHAPES[shape]
+    with production_mesh(multi_pod=multi_pod) as mesh:
+        rec = dryrun.run_cell("whisper_tiny", shape, multi_pod, mesh=mesh)
+        assert rec["status"] == "ok", rec
+        trees = [zoo.param_spec(cfg), zoo.input_spec(cfg, spec)]
+        if spec.kind == "train":
+            trees.append(opt_lib.opt_state_spec(trees[0], opt_lib.AdamWConfig(
+                state_dtype=cfg.opt_state_dtype)))
+        elif spec.kind == "decode":
+            trees.append(zoo.cache_spec(cfg, spec.global_batch,
+                                        spec.seq_len))
+        want = sum(_local_bytes(t, mesh, cfg, multi_pod) for t in trees)
+    assert rec["argument_size_in_bytes"] == want
+    assert rec["local_config"]["n_heads"] == rec["local_config"][
+        "n_kv_heads"] == 6
+    assert rec["kernels"] and rec["kernel_routes"]
+    gather = rec["collectives"]["all-gather"]
+    assert gather["count"] > 0 and gather["by_axis"]["model"] > 0
+    assert rec["collectives"]["reduce-scatter"]["count"] == 0
+    assert rec["flops_per_device"] >= roofline.model_flops(
+        cfg, spec) / rec["mesh"]["n_devices"]
+    assert rec["temp_size_in_bytes"] > 0
+
+
+def _without_times(rec):
+    return {k: v for k, v in rec.items()
+            if k not in ("trace_s", "total_s", "traced_depths")}
+
+
+@pytest.mark.parametrize("kind,batch", [("prefill", 32), ("train", 256)])
+def test_point_traced_cell_equals_the_full_trace(kind, batch, monkeypatch):
+    """falcon_mamba_7b at 4 layers and 256 tokens on the production mesh,
+    traced at the depth rule's points and combined, equals its full-depth
+    trace in every field (arguments, outputs, temp, FLOPs, bytes, kernel
+    calls and routes, collectives)."""
+    from repro_torch.launch.mesh import production_mesh
+
+    shape = ShapeSpec(f"small_{kind}", 256, batch, kind)
+    ov = {"n_layers": 4}
+    with production_mesh(multi_pod=False) as mesh:
+        full = dryrun.run_cell("falcon_mamba_7b", shape.name, False,
+                               shape=shape, mesh=mesh, cfg_overrides=ov)
+        monkeypatch.setattr(dryrun, "FULL_DEPTH_SCAN_STEPS", 0)
+        pts = dryrun.run_cell("falcon_mamba_7b", shape.name, False,
+                              shape=shape, mesh=mesh, cfg_overrides=ov)
+    assert full["status"] == pts["status"] == "ok"
+    assert "traced_depths" not in full and pts["traced_depths"] == [2, 3]
+    assert _without_times(pts) == _without_times(full)
+
+
+def test_depth_rule_picks_points_without_tracing(monkeypatch):
+    """falcon_mamba_7b's ``prefill_32k`` (32768 positions x 64 layers of
+    the eager scan) is traced at 2 and 3 layers, combined with the
+    coefficients (3 - L) and (L - 2); its ``train_4k`` and decode cells and
+    the other families' cells at full depth.  The trace is a stand-in that
+    counts the depths."""
+    from repro_torch.launch.mesh import production_mesh
+
+    depths = []
+
+    def stand_in(cell, device="cuda"):
+        depths.append(cell.cfg.n_layers)
+        return {"flops_per_device": float(cell.cfg.n_layers),
+                "kernels": {"rmsnorm": 1}, "trace_s": 1.0}
+
+    monkeypatch.setattr(dryrun, "trace_cell", stand_in)
+    with production_mesh(multi_pod=False) as mesh:
+        for shape, want in [("prefill_32k", [2, 3]), ("train_4k", [64]),
+                            ("decode_32k", [64])]:
+            depths.clear()
+            rec = dryrun.run_cell("falcon_mamba_7b", shape, False,
+                                  mesh=mesh)
+            assert depths == want, shape
+            assert rec.get("traced_depths", depths) == want
+            # a linear count comes back as the full depth's
+            assert rec["flops_per_device"] == 64.0
+            assert rec["kernels"] == {"rmsnorm": 1}
+            assert rec["trace_s"] == float(len(want))
+    for arch, shape in [("zamba2_1_2b", "prefill_32k"),
+                        ("llama3_2_3b", "train_4k"),
+                        ("falcon_mamba_7b", "decode_32k")]:
+        assert dryrun.depth_points(get_config(arch), SHAPES[shape]) is None
+
+
+def test_combine_records_field_by_field():
+    recs = [({"a": 3, "b": 2.5, "d": {"x": 1, "y": {"z": 4}}, "s": "p",
+              "trace_s": 1.5}, -1),
+            ({"a": 5, "b": 4.5, "d": {"x": 2, "w": 7, "y": {"z": 6}},
+              "s": "q", "trace_s": 2.0}, 2)]
+    assert dryrun.combine_records(recs) == {
+        "a": 7, "b": 6.5, "d": {"x": 3, "y": {"z": 8}, "w": 14}, "s": "p",
+        "trace_s": 3.5}
 
 
 def test_collectives_follow_the_plan_on_the_production_mesh():
