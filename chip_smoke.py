@@ -92,17 +92,18 @@ Phases, in order; any failure exits non-zero before the last line:
    against their plain versions on the card, in float32 and bfloat16 on
    the shapes of ``tests/test_kernels.py`` (under its ``TOL``), flash also
    at head dims 160 and 256; the bf16 tensor-core flash kernels on every
-   head dim in (32, 64, 80, 128, 160, 192, 256) (``wgmma`` at 64 and 128,
-   ``mma.sync`` otherwise), S in (1, 17, 64, 65, 500), kv_group 1 and 3,
-   causal, window 64 and full, and at d 64 and 128 with q 2 bytes past a
-   16-byte boundary (``mma.sync``) (under ``TOL``);
+   head dim in (32, 64, 80, 120, 128, 160, 192, 256) (``wgmma`` up to
+   160, ``mma.sync`` past it), S in (1, 17, 64, 65, 500), kv_group 1 and
+   3, causal, window 64 and full, and at d 64, 128 and 160 with q 2 bytes
+   past a 16-byte boundary (``mma.sync``) (under ``TOL``);
    ``fused_swiglu`` on each of its three routes (stream, tensor cores,
    SIMT) at 168 ragged shapes, M in (1, 4, 16, 17, 100, 129, 300), D in
    (72, 256, 1000), F in (130, 136, 320, 520), both dtypes (under
    ``TOL``), and on bf16 views 2 bytes past a 16-byte boundary at the
    prefill shape (SIMT, under ``TOL``, timed beside the aligned tensor-core
    call); and in bfloat16 at the serve
-   path's shapes of llama3_2_3b and stablelm_12b (under ``PATH_TOL``, with
+   path's shapes of llama3_2_3b and stablelm_12b, and flash at
+   h2o_danube_3_4b's (32, 4600, 120) window 4096 (under ``PATH_TOL``, with
    rmsnorm's rows drawn at RMS from 0.1 to 10), with kernel, plain, bound
    and library times there (kernel and library timed in turns: kernel,
    library, kernel, library), fused_swiglu's route and two cuBLAS
@@ -158,13 +159,17 @@ Phases, in order; any failure exits non-zero before the last line:
    plain versions on the card, on ``tests/test_kernels.py``'s shapes in
    both dtypes under ``TOL`` (flash at d 32-256, kv_group 1 and 3, every
    mask), flash's backward at d 160 and 256 with a window under
-   ``PATH_TOL``; flash's training form at (96, 4096, 128) kv_group 3 on
-   ``wgmma`` under ``PATH_TOL``, twice bitwise, by name, timed beside its
-   bound, its design's floor (3 products) and SDPA's forward; at the
-   train path's bf16 shapes ((16384, 3072) and the wider rows (16384,
-   4096) and (16384, 8192), (16384, 8192) for the gate, (96, 4096, 128)
-   kv_group 3: ``rmsnorm_bwd`` a row over 1, 2 and 4 warps, flash's
-   backward on ``wgmma`` + TMA) under ``PATH_TOL``, twice bitwise (no
+   ``PATH_TOL``, and 200 launches back to back at each of
+   ``BWD_SKIP_CASES`` (d 64, 128, 120, 160); flash's training form at
+   ``FLASH_TRAIN_SHAPES`` ((96, 4096, 128) kv_group 3, (128, 4096, 160)
+   and (128, 4096, 120) window 4096 kv_group 4) on ``wgmma`` under
+   ``PATH_TOL``, twice bitwise, by name, timed beside its bound, its
+   design's floor (3 products) and SDPA's forward; at the train path's
+   bf16 shapes ((16384, 3072) and the wider rows (16384, 4096) and
+   (16384, 8192), (16384, 8192) for the gate, flash at
+   ``FLASH_TRAIN_SHAPES``: ``rmsnorm_bwd`` a row over 1, 2 and 4 warps,
+   flash's backward on ``wgmma`` + TMA, its split dk/dv partition at d
+   160) under ``PATH_TOL``, twice bitwise (no
    atomics), each kernel by name in a trace, timed beside its plain
    version, its bound (flash's also beside its design's floor) and its
    yardstick (the backward of ``F.rms_norm`` and of SDPA, in turns,
@@ -172,7 +177,9 @@ Phases, in order; any failure exits non-zero before the last line:
 11. train path: ``python -m repro_torch.launch.train --arch A --batch 4
    --seq 4096 --steps 4`` on ``cuda`` at full width (the fourth main
    path, the launch counters read just around each run) for A =
-   llama3_2_3b (dense), granite_moe_1b_a400m (moe, ``remat="nothing"``),
+   llama3_2_3b (dense), stablelm_12b (dense, flash at head dim 160 on
+   ``wgmma``; ``--layers 4``), granite_moe_1b_a400m (moe,
+   ``remat="nothing"``),
    zamba2_1_2b (hybrid: the SSD's backward, the gated norm's
    rmsnorm_bwd, the shared block's summed gradient; ``--layers 13``),
    whisper_tiny
@@ -188,8 +195,9 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel of ``train_kernel_names`` by name and its device time by kind;
    then the card against the CPU in float32 at full width, batch 2 x 256
    (2 layers, the first of the full draw or the depth cut; zamba2 7,
-   whisper 4 + 4; qwen2_vl_72b 1 layer at batch 1 x 256; ``ssm_chunk``
-   64): loss and params after one AdamW step
+   whisper 4 + 4; qwen2_vl_72b and stablelm_12b 1 layer at batch 1 x
+   256; ``ssm_chunk`` 64), from one AdamW state with history drawn on the
+   card and copied to the CPU: loss and params after one AdamW step
    under ``PARITY_TOL``, each gradient leaf under ``GRAD_REL_TOL``, and
    for granite the card's dispatch of each layer equal to its recompute's
    in the backward, replayed on the CPU (``replayed_moe``); at smoke width
@@ -251,7 +259,7 @@ MOTIF_REPLACES = "src/repro/kernels/motif_pcu.py:38"
 KERNELS = ["sim_alu", "sim_loop", *LM_REPLACES, "motif_pcu"]
 #: the head dims the bf16 tensor-core flash kernel is held at: each padded
 #: width (32, 64, 128, 160, 256) and two that pad (80, 192)
-FLASH_TC_DIMS = (32, 64, 80, 128, 160, 192, 256)
+FLASH_TC_DIMS = (32, 64, 80, 120, 128, 160, 192, 256)
 #: the iteration counts the motif kernel is held at
 MOTIF_NS = (1, 256, 1000, 1024, 2048, 2 ** 24)
 #: timed calls of each ops-path row (after one checked and one warm call)
@@ -1984,6 +1992,9 @@ def _device_txt(k_dev) -> str:
 #: query heads over kv heads at batch 4, head dim
 LM_SHAPES = {"llama3_2_3b": (3072, 8192, 96, 32, 128),
              "stablelm_12b": (5120, 13824, 128, 32, 160)}
+#: h2o_danube_3_4b's flash in its served prefill (1 x 4600, past its 4096
+#: window): (H, S, d, kv_group, window)
+DANUBE_FLASH = (32, 4600, 120, 4, 4096)
 
 
 def lm_kernel_cases():
@@ -1991,8 +2002,10 @@ def lm_kernel_cases():
     operations, operations rate, cuBLAS yardsticks as (label, call) pairs,
     fused_swiglu's or flash's route, or None) at the serve path's shapes of
     each model of ``LM_SHAPES``, bfloat16: M = B*T = 2000 rows in prefill
-    and 4 in decode, S = 500; llama3_2_3b first.  rmsnorm's rows have RMS from 0.1
-    to 10, so a missing or misplaced normalization shows."""
+    and 4 in decode, S = 500; llama3_2_3b first; then flash at
+    ``DANUBE_FLASH`` (its library call SDPA with a mask, ``_sdpa``).
+    rmsnorm's rows have RMS from 0.1 to 10, so a missing or misplaced
+    normalization shows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2043,6 +2056,18 @@ def lm_kernel_cases():
                 enable_gqa=True)[0],
             *cost.flash_attention(H, Hkv, S, d, 2), (),
             FLASH_ROUTES[fwd_route(bf, d)]))
+    H, S, d, g, w = DANUBE_FLASH
+    q = _randn((H, S, d), bf, 6)
+    k, v = (_randn((H // g, S, d), bf, i) for i in (7, 8))
+    cases.append((
+        "flash_attention", f"({H},{S},{d}) causal window {w} kv_group {g}",
+        lambda: flash_attention_cuda(q, k, v, causal=True, window=w,
+                                     kv_group=g),
+        lambda: ref.flash_attention(q, k, v, causal=True, window=w,
+                                    kv_group=g),
+        lambda: _sdpa(q, k, v, g, w),
+        *cost.flash_attention(H, H // g, S, d, 2, window=w), (),
+        FLASH_ROUTES[fwd_route(bf, d)]))
     return cases
 
 
@@ -2266,8 +2291,6 @@ def flash_long_prefill() -> None:
     past the serve shape's 500 tokens."""
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -2282,11 +2305,7 @@ def flash_long_prefill() -> None:
     _close(f"flash_attention bf16 ({H},{S},{d}) causal kv_group {g}",
            kern(), ref.flash_attention(q, k, v, causal=True, kv_group=g),
            TOL["bfloat16"])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        lib()
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA})
+    names = sorted(_traced_names(lib, ()))
     k_devs, l_devs = [], []
     for _ in range(2):
         k_devs.append(device_ms(kern, 20))
@@ -2316,10 +2335,10 @@ def _turns_txt(values) -> str:
 
 def flash_tc_checks() -> None:
     """The bf16 tensor-core flash kernels against their plain version on
-    every head dim (32, 64, 80 -> 128, 128, 160, 192 -> 256, 256: ``wgmma``
-    at 64 and 128, ``mma.sync`` at the padded width otherwise), on ragged
-    and one-row sequences, with and without grouped kv heads and in every
-    mask mode, under ``TOL``; and at d 64 and 128 with q one element into
+    every head dim (``wgmma`` up to 160: 32 -> 64, 64, 80 -> 128, 120 ->
+    128, 128, 160; ``mma.sync`` past it: 192 -> 256, 256), on ragged and
+    one-row sequences, with and without grouped kv heads and in every mask
+    mode, under ``TOL``; and at d 64, 128 and 160 with q one element into
     its storage, which ``fwd_route`` sends to ``mma.sync``; one launch per
     call."""
     import torch
@@ -2334,7 +2353,7 @@ def flash_tc_checks() -> None:
     routes = {}
     cases = [(d, S, False) for d in FLASH_TC_DIMS for S in (1, 17, 64, 65,
                                                              500)]
-    cases += [(d, S, True) for d in (64, 128) for S in (17, 500)]
+    cases += [(d, S, True) for d in (64, 128, 160) for S in (17, 500)]
     for d, S, offset in cases:
         for g in (1, 3):
             H = 2 * g
@@ -2366,7 +2385,7 @@ def flash_tc_checks() -> None:
     print(f"kernel flash_attention bf16 tensor cores: {n} cases (d "
           f"{', '.join(map(str, FLASH_TC_DIMS))}; S 1, 17, 64, 65, 500; "
           f"kv_group 1, 3; causal, window 64, full; and q one element "
-          f"into its storage at d 64 and 128, S 17 and 500; routes "
+          f"into its storage at d 64, 128 and 160, S 17 and 500; routes "
           f"{routes}) equal to plain within rtol {TOL['bfloat16']['rtol']} "
           f"atol {TOL['bfloat16']['atol']} ({worst:.3f} of it at most; "
           f"{path_worst:.3f} of PATH_TOL, not held)")
@@ -3136,6 +3155,13 @@ LIB_KERNEL_NAMES = {"rmsnorm_bwd": ("layer_norm", "GammaBeta"),
 #: its remainder): 10 products where the function needs 5, so its design
 #: cannot go below twice the function's bound
 FLASH_BWD_DESIGN_PRODUCTS = 10
+
+
+def flash_bwd_products(d: int) -> int:
+    """The products of the ``wgmma`` backward's design at head dim ``d``:
+    ``FLASH_BWD_DESIGN_PRODUCTS``, and one more past d 128, where the
+    dk/dv kernel's two warpgroups each form S^T (the split partition)."""
+    return FLASH_BWD_DESIGN_PRODUCTS + (d > 128)
 #: flash's training forward does P V twice (P in bf16 and its bf16
 #: remainder): 3 products where the function needs 2
 FLASH_FWD_TRAIN_DESIGN_PRODUCTS = 3
@@ -3165,8 +3191,11 @@ TRAINED = "llama3_2_3b"
 #: 870 GB (2 layers and the embedding, 3.0 B, about 36 GB); and zamba2_1_2b
 #: at 13 of its 38 layers (two shared-block sites and a tail layer), which
 #: fits whole but is host-bound: falcon's cut from 8 layers and zamba2's
-#: pay for the plan phase's time
-TRAIN_RUNS = {"llama3_2_3b": None, "granite_moe_1b_a400m": None,
+#: pay for the plan phase's time; stablelm_12b's 40 layers need about 140
+#: GB (4 layers and the tied 100352 x 5120 embedding, 1.63 B parameters,
+#: about 19.6 GB), its flash forward and backward at head dim 160
+TRAIN_RUNS = {"llama3_2_3b": None, "stablelm_12b": 4,
+              "granite_moe_1b_a400m": None,
               "zamba2_1_2b": 13, "whisper_tiny": None,
               "falcon_mamba_7b": 4, "qwen2_vl_72b": 2}
 #: every run's traffic: batch x sequence (train_4k's sequence; the global
@@ -3180,16 +3209,25 @@ TRAIN_STEPS = 4
 #: run by up to 1.14e-3 and the card's by 9.6e-4, card vs CPU 1.29e-3
 #: (``scripts/train_parity_conditioning.py`` on the card); held at 5e-3
 GRAD_REL_TOL = 5e-3
+#: flash's train-path shapes in the train kernel phase, (H, Hkv, d,
+#: window) at ``TRAIN_SHAPE``, causal: llama3_2_3b's (the backward
+#: record's top level), stablelm_12b's at head dim 160 and
+#: h2o_danube_3_4b's at 120 with its 4096 window
+FLASH_TRAIN_SHAPES = ((96, 32, 128, 0), (128, 32, 160, 0),
+                      (128, 32, 120, 4096))
 #: the kernels' query rows of the flash plain gradient at a time (a slice
 #: of kv heads; the (S, S) float32 scores of all 96 heads would be 6.4 GB)
 PLAIN_FLASH_HEADS = 12
 #: bf16 flash backward cases (H, S, d, kv_group, mask) on ``wgmma`` whose
 #: warpgroups skip leading tiles of a block's run: causal dk/dv, where the
 #: second warpgroup skips each head's leading query tile, and windowed dq,
-#: where leading key tiles miss a warpgroup's queries
-BWD_SKIP_CASES = [(6, 4096, d, 3, dict(causal=True)) for d in (64, 128)] + [
+#: where leading key tiles miss a warpgroup's queries; at danube's d 120
+#: and stablelm's 160 too (at 160 dk/dv's warpgroups share their keys and
+#: skip nothing; dq skips as at the others)
+BWD_SKIP_CASES = [(6, 4096, d, 3, dict(causal=True))
+                  for d in (64, 128, 120, 160)] + [
     (6, S, d, 3, dict(causal=True, window=w)) for w in (64, 256)
-    for S in (1024, 4096) for d in (64, 128)]
+    for S in (1024, 4096) for d in (64, 128, 120, 160)]
 #: launches of each skip case back to back on one stream
 BWD_BACK_TO_BACK = 200
 
@@ -3261,15 +3299,33 @@ def rmsnorm_bwd_kernel_name(D: int) -> str:
     return "rmsnorm_bwd_loop_kernel<__nv_bfloat16, true>"
 
 
+def flash_wgmma_dp(d: int) -> int:
+    """The head dim the ``wgmma`` kernels are built at for ``d`` (d % 8 ==
+    0 up to 160): 64, 128 or 160, the next at or above d."""
+    return next(p for p in (64, 128, 160) if d <= p)
+
+
 def flash_kernel_name(d: int, train: bool) -> str:
     """The CUDA kernel the bf16 flash forward runs at head dim ``d`` on
-    aligned operands (``flash_attention.fwd_route``): ``wgmma`` at d 64
-    and 128, else ``mma.sync`` at the padded width."""
+    aligned operands (``flash_attention.fwd_route``): ``wgmma`` for d % 8
+    == 0 up to 160 (at ``flash_wgmma_dp``), else ``mma.sync`` at the
+    padded width."""
     form = "true" if train else "false"
-    if d in (64, 128):
-        return f"flash_fwd_wgmma_kernel<{d}, {form}>"
+    if d % 8 == 0 and d <= 160:
+        return f"flash_fwd_wgmma_kernel<{flash_wgmma_dp(d)}, {form}>"
     dp = next(p for p in (32, 64, 128, 160, 256) if d <= p)
     return f"flash_attention_tc_kernel<{dp}, {form}>"
+
+
+def flash_bwd_kernel_names(d: int):
+    """The CUDA kernels the bf16 flash backward runs at head dim ``d`` on
+    aligned operands on ``wgmma`` (``flash_attention.bwd_route``): delta,
+    dk/dv (the split partition past d 128) and dq."""
+    dp = flash_wgmma_dp(d)
+    split = "split_" if dp > 128 else ""
+    return ("flash_bwd_delta_kernel",
+            f"flash_bwd_dkdv_{split}wgmma_kernel<{dp}>",
+            f"flash_bwd_dq_wgmma_kernel<{dp}>")
 
 
 def train_kernel_names(cfg):
@@ -3278,8 +3334,8 @@ def train_kernel_names(cfg):
     backward at each width (a warp a row up to 3072; falcon's 4096,
     zamba2's gated norm over 4096 and qwen2_vl's 8192 a row over 2 or 4
     warps) and its dscale sum; the gate on tensor cores and its backward;
-    flash's training form (on ``wgmma`` at d 64 and 128) and its backward
-    on ``wgmma`` at the head dim."""
+    flash's training form and its backward on ``wgmma`` at the head dim
+    (stablelm_12b's 160: the split dk/dv kernel)."""
     widths = {cfg.d_model}
     if cfg.family == "hybrid":
         widths.add(cfg.d_inner)
@@ -3292,18 +3348,16 @@ def train_kernel_names(cfg):
     if "fused_swiglu" in launches:
         names += ["fused_swiglu_tc_kernel", "swiglu_gate_bwd_kernel"]
     if "flash_attention" in launches:
-        dp = cfg.resolved_head_dim
-        names += [flash_kernel_name(dp, True),
-                  "flash_bwd_delta_kernel",
-                  f"flash_bwd_dkdv_wgmma_kernel<{dp}>",
-                  f"flash_bwd_dq_wgmma_kernel<{dp}>"]
+        d = cfg.resolved_head_dim
+        names += [flash_kernel_name(d, True), *flash_bwd_kernel_names(d)]
     return tuple(names)
 
 
 def _traced_names(call, wanted) -> set:
     """The CUDA kernel names of up to five traces of three ``call()``s
     each, until every name in ``wanted`` is seen (a trace can drop a
-    window's first kernels, or all of a short window's)."""
+    window's first kernels and its last, or all of a short window's: each
+    opens and closes as ``device_ms``'s do, its spin kernels left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3312,11 +3366,16 @@ def _traced_names(call, wanted) -> set:
     for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(8):
+                torch.cuda._sleep(200_000)
             for _ in range(3):
                 call()
+            torch.cuda._sleep(2_000_000)
             torch.cuda.synchronize()
         seen |= {e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
+                 if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in e.key}
         if all(any(w in n for n in seen) for w in wanted):
             break
     return seen
@@ -3360,12 +3419,14 @@ def _gate_plain(a, b):
 def bwd_kernel_cases():
     """(name, label, kernel call -> gradients, plain call -> gradients,
     library call or None, bytes, operations, operations rate, the CUDA
-    kernels its trace must name) at the train path's shapes in bf16:
-    rmsnorm (16384, 3072) with rows at RMS 0.1 to 10, and at the wider
-    rows of ``RMSNORM_BWD_WIDE``, the gate's (16384, 8192), flash (96,
-    4096, 128) causal kv_group 3.  The library call is each yardstick's
-    backward alone: autograd of ``F.rms_norm`` and of SDPA (their forwards
-    run once, outside the timing)."""
+    kernels its trace must name, the library's kernels its timing traces
+    must name, the design's products or None) at the train path's shapes
+    in bf16: rmsnorm (16384, 3072) with rows at RMS 0.1 to 10, and at the
+    wider rows of ``RMSNORM_BWD_WIDE``, the gate's (16384, 8192), flash at
+    ``FLASH_TRAIN_SHAPES``.  The library call is each yardstick's backward
+    alone: autograd of ``F.rms_norm`` and of SDPA (``_sdpa``; their
+    forwards run once, outside the timing; SDPA's kernels are held by
+    name where it takes no mask)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3378,7 +3439,7 @@ def bwd_kernel_cases():
 
     bf = torch.bfloat16
     B, T = TRAIN_SHAPE
-    M, D, Ff, H, Hkv, d = B * T, 3072, 8192, 96, 32, 128
+    M, D, Ff = B * T, 3072, 8192
     x = _randn((M, D), bf, 60, np.geomspace(0.1, 10.0, M)[:, None])
     s, dy = _randn((D,), bf, 61), _randn((M, D), bf, 62)
     xs, ss = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
@@ -3387,7 +3448,8 @@ def bwd_kernel_cases():
         "rmsnorm_bwd", f"({M},{D})", lambda: rmsnorm_bwd_cuda(x, s, dy),
         lambda: _grads(ref.rmsnorm, (x, s), dy),
         lambda: torch.autograd.grad(y_lib, (xs, ss), dy, retain_graph=True),
-        *cost.rmsnorm_bwd(M, D, 2), BWD_KERNEL_NAMES["rmsnorm_bwd"])]
+        *cost.rmsnorm_bwd(M, D, 2), BWD_KERNEL_NAMES["rmsnorm_bwd"],
+        LIB_KERNEL_NAMES["rmsnorm_bwd"], None)]
     for W in RMSNORM_BWD_WIDE:
         xw = _randn((M, W), bf, 60, np.geomspace(0.1, 10.0, M)[:, None])
         sw, dyw = _randn((W,), bf, 61), _randn((M, W), bf, 62)
@@ -3400,30 +3462,38 @@ def bwd_kernel_cases():
             lambda xl=xl, sl=sl, yl=yl, dyw=dyw: torch.autograd.grad(
                 yl, (xl, sl), dyw, retain_graph=True),
             *cost.rmsnorm_bwd(M, W, 2),
-            (rmsnorm_bwd_kernel_name(W), "rmsnorm_dscale_kernel")))
+            (rmsnorm_bwd_kernel_name(W), "rmsnorm_dscale_kernel"),
+            LIB_KERNEL_NAMES["rmsnorm_bwd"], None))
     a, b, dh = (_randn((M, Ff), bf, i) for i in (63, 64, 65))
     cases.append((
         "swiglu_gate_bwd", f"({M},{Ff})",
         lambda: swiglu_gate_bwd_cuda(a, b, dh),
         lambda: _grads(_gate_plain, (a, b), dh), None,
-        *cost.swiglu_gate_bwd(M * Ff, 2), BWD_KERNEL_NAMES["swiglu_gate_bwd"]))
-    g = H // Hkv
-    q = _randn((H, T, d), bf, 66)
-    k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
-    dout = _randn((H, T, d), bf, 69)
-    _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g, train=True)
-    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
-    y_sdpa = F.scaled_dot_product_attention(
-        ql[None], kl[None], vl[None], is_causal=True, enable_gqa=True)[0]
-    cases.append((
-        "flash_attention_bwd", f"({H},{T},{d}) causal kv_group {g}",
-        lambda: flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
-                                         kv_group=g),
-        lambda: _flash_plain_grads(q, k, v, dout, g, dict(causal=True)),
-        lambda: torch.autograd.grad(y_sdpa, (ql, kl, vl), dout,
-                                    retain_graph=True),
-        *cost.flash_attention_bwd(H, Hkv, T, d, 2),
-        BWD_KERNEL_NAMES["flash_attention_bwd"]))
+        *cost.swiglu_gate_bwd(M * Ff, 2), BWD_KERNEL_NAMES["swiglu_gate_bwd"],
+        (), None))
+    for H, Hkv, d, w in FLASH_TRAIN_SHAPES:
+        g, kw = H // Hkv, dict(causal=True, window=w)
+        q = _randn((H, T, d), bf, 66)
+        k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
+        dout = _randn((H, T, d), bf, 69)
+        _, lse, out32 = flash_attention_cuda(q, k, v, kv_group=g, train=True,
+                                             **kw)
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        y_sdpa = _sdpa(ql, kl, vl, g, w)
+        cases.append((
+            "flash_attention_bwd",
+            f"({H},{T},{d}) causal{f' window {w}' if w else ''} kv_group {g}",
+            lambda q=q, k=k, v=v, out32=out32, dout=dout, lse=lse, g=g,
+            kw=kw: flash_attention_bwd_cuda(q, k, v, out32, dout, lse,
+                                            kv_group=g, **kw),
+            lambda q=q, k=k, v=v, dout=dout, g=g, kw=kw: _flash_plain_grads(
+                q, k, v, dout, g, kw),
+            lambda y=y_sdpa, ls=(ql, kl, vl), dout=dout: torch.autograd.grad(
+                y, ls, dout, retain_graph=True),
+            *cost.flash_attention_bwd(H, Hkv, T, d, 2, **kw),
+            flash_bwd_kernel_names(d),
+            () if w else LIB_KERNEL_NAMES["flash_attention_bwd"],
+            flash_bwd_products(d)))
     return cases
 
 
@@ -3563,25 +3633,46 @@ def bwd_back_to_back() -> None:
         del runs, want
     print(f"train kernel flash_attention_bwd bf16 on wgmma, "
           f"{len(BWD_SKIP_CASES)} cases with skipped leading tiles (causal "
-          f"kv_group 3 at S 4096, window 64 and 256 at S 1024 and 4096; d 64 "
-          f"and 128), {BWD_BACK_TO_BACK} launches each back to back: no "
+          f"kv_group 3 at S 4096, window 64 and 256 at S 1024 and 4096; d 64, "
+          f"128, 120 and 160), {BWD_BACK_TO_BACK} launches each back to "
+          f"back: no "
           f"trap, every launch the first's bits, the first equal to plain "
           f"within rtol {TOL['bfloat16']['rtol']} atol "
           f"{TOL['bfloat16']['atol']} ({worst:.3f} of it at most); "
           f"{time.perf_counter() - t0:.3f} s")
 
 
-def flash_train_forward() -> dict:
-    """flash's training form at the train path's (96, 4096, 128) causal
-    kv_group 3 in bf16 (a llama3_2_3b step runs it 56 times): against the
-    plain version (12 heads at a time) under ``PATH_TOL``, its output the
-    cast of its float32 one, the same bits twice, by name in a trace;
-    device time in turns beside SDPA's forward, its bound (2 products over
-    the live pairs, or the bytes) and its design's floor (P V twice, with
-    P's remainder: 3 products).  Returns its ``at`` record for the
-    ``flash_attention`` kernel."""
+def _sdpa(q, k, v, g: int, window: int = 0):
+    """SDPA's output for causal attention over (H, S, d), flash's
+    yardstick (the port never calls it): grouped kv heads through
+    ``enable_gqa``; with a window, which SDPA does not take, a boolean
+    mask and k and v repeated to the query heads (the kernels SDPA then
+    runs are named where it is timed)."""
     import torch
     import torch.nn.functional as F
+
+    if not window:
+        return F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0]
+    pos = torch.arange(q.shape[1], device=q.device)
+    diff = pos[:, None] - pos[None, :]
+    return F.scaled_dot_product_attention(
+        q[None], k.repeat_interleave(g, 0)[None],
+        v.repeat_interleave(g, 0)[None],
+        attn_mask=(diff >= 0) & (diff < window))[0]
+
+
+def flash_train_forward():
+    """flash's training form at each of ``FLASH_TRAIN_SHAPES`` in bf16 (a
+    llama3_2_3b step runs the first 56 times, a stablelm_12b step at 4
+    layers the second 8 times): against the plain version (12 heads at a
+    time) under ``PATH_TOL``, its output the cast of its float32 one, the
+    same bits twice, by name in a trace; device time in turns beside
+    SDPA's forward (``_sdpa``), its bound (2 products over the live pairs,
+    or the bytes) and its design's floor (P V twice, with P's remainder:
+    3 products).  Returns their ``at`` records for the ``flash_attention``
+    kernel."""
+    import torch
 
     from repro_torch.kernels import cost, ref
     from repro_torch.kernels.flash_attention import (ROUTE_NAMES,
@@ -3590,70 +3681,76 @@ def flash_train_forward() -> dict:
 
     bf = torch.bfloat16
     _, T = TRAIN_SHAPE
-    H, Hkv, d = 96, 32, 128
-    g, step = H // Hkv, PLAIN_FLASH_HEADS
-    q = _randn((H, T, d), bf, 66)
-    k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
-    label = f"({H},{T},{d}) causal kv_group {g} training form"
-    kern = lambda: flash_attention_cuda(q, k, v, kv_group=g,  # noqa: E731
-                                        train=True)
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0]
+    ats = []
+    for H, Hkv, d, w in FLASH_TRAIN_SHAPES:
+        g, step = H // Hkv, PLAIN_FLASH_HEADS
+        q = _randn((H, T, d), bf, 66)
+        k, v = (_randn((Hkv, T, d), bf, i) for i in (67, 68))
+        label = (f"({H},{T},{d}) causal{f' window {w}' if w else ''} "
+                 f"kv_group {g} training form")
+        kern = lambda: flash_attention_cuda(  # noqa: E731
+            q, k, v, kv_group=g, window=w, train=True)
+        lib = lambda: _sdpa(q, k, v, g, w)  # noqa: E731
 
-    def plain():
-        return torch.cat([ref.flash_attention(
-            q[h0:h0 + step], k[h0 // g:(h0 + step) // g],
-            v[h0 // g:(h0 + step) // g], kv_group=g)
-            for h0 in range(0, H, step)])
+        def plain():
+            return torch.cat([ref.flash_attention(
+                q[h0:h0 + step], k[h0 // g:(h0 + step) // g],
+                v[h0 // g:(h0 + step) // g], kv_group=g, window=w)
+                for h0 in range(0, H, step)])
 
-    out, lse, out32 = kern()
-    again = kern()
-    torch.cuda.synchronize()
-    require(all(torch.equal(u, w) for u, w in zip((out, lse, out32), again)),
-            f"flash_attention's training form is not deterministic at "
-            f"{label}")
-    require(torch.equal(out, out32.to(bf)),
-            "flash's training output is not its float32 one cast")
-    err, share = _close(f"flash_attention bf16 {label}", out, plain(),
-                        PATH_TOL)
-    del out, lse, out32, again
-    wanted = (flash_kernel_name(d, True),)
-    names = _traced_names(kern, wanted)
-    seen = [w for w in wanted if any(w in n for n in names)]
-    reps = max(3, min(200, int(20.0 / max(cuda_ms(kern, 1), 1e-3))))
-    k_turns, k_devs, l_turns, l_devs = [], [], [], []
-    for _ in range(2):
-        k_turns.append(cuda_ms(kern, reps))
-        k_devs.append(device_ms(kern, reps, wanted))
-        l_turns.append(cuda_ms(lib, reps))
-        l_devs.append(device_ms(lib, reps))
-    k_ms, k_dev, l_ms = _mean(k_turns), _mean(k_devs), _mean(l_turns)
-    p_ms = cuda_ms(plain, 1)
-    n_bytes, ops, rate = cost.flash_attention(H, Hkv, T, d, 2, train=True)
-    bound, by = _bound(n_bytes, ops, rate)
-    floor, _ = _bound(n_bytes, ops * FLASH_FWD_TRAIN_DESIGN_PRODUCTS / 2,
-                      rate)
-    share_txt = "" if k_dev is None else (
-        f", {100 * bound / k_dev:.2f}% of the bound and "
-        f"{100 * floor / k_dev:.2f}% of the design floor in device time")
-    route = ROUTE_NAMES[fwd_route(bf, d)]
-    print(f"train kernel flash_attention {label} bf16 route {route}: "
-          f"{k_ms:.6f} ms (turns {_turns_txt(k_turns)}; "
-          f"{_device_txt(k_dev)}, turns {_turns_txt(k_devs)}), plain "
-          f"{p_ms:.6f} ms, bound {bound:.6f} ms ({by}), design floor "
-          f"{floor:.6f} ms ({FLASH_FWD_TRAIN_DESIGN_PRODUCTS} products with "
-          f"the remainder){share_txt}, library (SDPA's forward) "
-          f"{l_ms:.6f} ms (turns {_turns_txt(l_turns)}; device "
-          f"{_turns_txt(l_devs)}; runs "
-          f"{', '.join(sorted(n[:60] for n in _traced_names(lib, ())))}); "
-          f"deterministic (twice bitwise); max abs err {err:.6g}, "
-          f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
-          f"{PATH_TOL['atol']}); kernels seen in its trace: "
-          f"{', '.join(seen) or 'none (trace empty)'}")
-    return {"shape": label, "route": route, "ms": k_ms, "device_ms": k_dev,
-            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": l_ms, "library_device_ms": _mean(l_devs),
-            "max_abs_err": err}
+        out, lse, out32 = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip((out, lse, out32),
+                                                      again)),
+                f"flash_attention's training form is not deterministic at "
+                f"{label}")
+        require(torch.equal(out, out32.to(bf)),
+                "flash's training output is not its float32 one cast")
+        err, share = _close(f"flash_attention bf16 {label}", out, plain(),
+                            PATH_TOL)
+        del out, lse, out32, again
+        wanted = (flash_kernel_name(d, True),)
+        names = _traced_names(kern, wanted)
+        seen = [n for n in wanted if any(n in m for m in names)]
+        reps = max(3, min(200, int(20.0 / max(cuda_ms(kern, 1), 1e-3))))
+        k_turns, k_devs, l_turns, l_devs = [], [], [], []
+        for _ in range(2):
+            k_turns.append(cuda_ms(kern, reps))
+            k_devs.append(device_ms(kern, reps, wanted))
+            l_turns.append(cuda_ms(lib, reps))
+            l_devs.append(device_ms(lib, reps))
+        k_ms, k_dev, l_ms = _mean(k_turns), _mean(k_devs), _mean(l_turns)
+        p_ms = cuda_ms(plain, 1)
+        n_bytes, ops, rate = cost.flash_attention(H, Hkv, T, d, 2, window=w,
+                                                  train=True)
+        bound, by = _bound(n_bytes, ops, rate)
+        floor, _ = _bound(n_bytes,
+                          ops * FLASH_FWD_TRAIN_DESIGN_PRODUCTS / 2, rate)
+        share_txt = "" if k_dev is None else (
+            f", {100 * bound / k_dev:.2f}% of the bound and "
+            f"{100 * floor / k_dev:.2f}% of the design floor in device time")
+        route = ROUTE_NAMES[fwd_route(bf, d)]
+        print(f"train kernel flash_attention {label} bf16 route {route}: "
+              f"{k_ms:.6f} ms (turns {_turns_txt(k_turns)}; "
+              f"{_device_txt(k_dev)}, turns {_turns_txt(k_devs)}), plain "
+              f"{p_ms:.6f} ms, bound {bound:.6f} ms ({by}), design floor "
+              f"{floor:.6f} ms ({FLASH_FWD_TRAIN_DESIGN_PRODUCTS} products "
+              f"with the remainder){share_txt}, library (SDPA's forward) "
+              f"{l_ms:.6f} ms (turns {_turns_txt(l_turns)}; device "
+              f"{_turns_txt(l_devs)}; runs "
+              f"{', '.join(sorted(n[:60] for n in _traced_names(lib, ())))}"
+              f"); deterministic (twice bitwise); max abs err {err:.6g}, "
+              f"{share:.3f} of the tolerance (rtol {PATH_TOL['rtol']} atol "
+              f"{PATH_TOL['atol']}); kernels seen in its trace: "
+              f"{', '.join(seen) or 'none (trace empty)'}")
+        ats.append({"shape": label, "route": route, "ms": k_ms,
+                    "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": l_ms,
+                    "library_device_ms": _mean(l_devs), "max_abs_err": err})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return ats
 
 
 def bwd_kernel_phase():
@@ -3663,14 +3760,14 @@ def bwd_kernel_phase():
     turns: kernel, library, kernel, library); and flash's training forward
     (:func:`flash_train_forward`).  Returns each backward kernel's JSON
     record minus ``launches`` (a wider shape of a kernel under its
-    ``at``), and the training forward's ``at`` record."""
+    ``at``), and the training forward's ``at`` records."""
     import torch
 
     bwd_small_checks()
     flash_train = flash_train_forward()
     records = {}
-    for name, label, kern, plain, lib, n_bytes, ops, rate, wanted in \
-            bwd_kernel_cases():
+    for (name, label, kern, plain, lib, n_bytes, ops, rate, wanted,
+         lib_wanted, products) in bwd_kernel_cases():
         got = kern()
         again = kern()
         torch.cuda.synchronize()
@@ -3694,7 +3791,7 @@ def bwd_kernel_phase():
             k_devs.append(device_ms(kern, reps, wanted))
             if lib is not None:
                 l_turns.append(cuda_ms(lib, reps))
-                l_devs.append(device_ms(lib, reps, LIB_KERNEL_NAMES[name]))
+                l_devs.append(device_ms(lib, reps, lib_wanted))
         k_ms, k_dev = _mean(k_turns), _mean(k_devs)
         l_ms = _mean(l_turns) if lib is not None else None
         p_ms = cuda_ms(plain, 1)
@@ -3706,14 +3803,14 @@ def bwd_kernel_phase():
                                  f"{', '.join(sorted(n[:60] for n in _traced_names(lib, ())))})")
         share_txt = "" if k_dev is None else \
             f", {100 * bound / k_dev:.2f}% of the bound in device time"
-        if name == "flash_attention_bwd":
+        if products is not None:
             # the design's own floor: its products at the bf16 peak (the
             # bound counts the function's 5)
-            floor = bound * FLASH_BWD_DESIGN_PRODUCTS / 5
-            share_txt += (f"; design floor {floor:.6f} ms "
-                          f"({FLASH_BWD_DESIGN_PRODUCTS} products with the "
-                          f"split)" + ("" if k_dev is None else
-                                       f", {100 * floor / k_dev:.2f}% of it"))
+            floor = bound * products / 5
+            share_txt += (f"; design floor {floor:.6f} ms ({products} "
+                          f"products with the split)" + (
+                              "" if k_dev is None else
+                              f", {100 * floor / k_dev:.2f}% of it"))
         print(f"train kernel {name} {label} bf16: {k_ms:.6f} ms (turns "
               f"{_turns_txt(k_turns)}; {_device_txt(k_dev)}, turns "
               f"{_turns_txt(k_devs)}), plain {p_ms:.6f} ms, bound "
@@ -3745,20 +3842,23 @@ def bwd_kernel_phase():
 
 def _history_state(params, seed: int):
     """An optimizer state with history (step 7, moments of the scale past
-    gradients leave) shaped like ``params``: from a zero state AdamW's
-    first update is the sign of each gradient entry, which float32 noise
-    can flip at entries near zero."""
+    gradients leave) shaped like ``params``, drawn from ``seed`` on their
+    device: from a zero state AdamW's first update is the sign of each
+    gradient entry, which float32 noise can flip at entries near zero.  A
+    parity slice draws it once, on the card, and copies it to the CPU
+    side (``train_parity_phase``): drawn on the host for each side, it
+    took most of qwen2_vl's slice."""
     import torch
 
     from repro_torch.train.tree import tree_map
 
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    draw = lambda p: torch.randn(p.shape, generator=gen)  # noqa: E731
-    return {"m": tree_map(lambda p: (draw(p) * 1e-2).to(p.device), params),
-            "v": tree_map(lambda p: ((draw(p) * 1e-2) ** 2 + 1e-6).to(
-                p.device), params),
-            "step": torch.tensor(7, dtype=torch.int32, device=params[
-                "emb"].device)}
+    dev = params["emb"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda p: torch.randn(p.shape, generator=gen,  # noqa: E731
+                                 device=dev)
+    return {"m": tree_map(lambda p: draw(p) * 1e-2, params),
+            "v": tree_map(lambda p: (draw(p) * 1e-2) ** 2 + 1e-6, params),
+            "step": torch.tensor(7, dtype=torch.int32, device=dev)}
 
 
 def train_path_phase(arch: str):
@@ -3926,10 +4026,14 @@ def _run_config(cfg, B: int, T: int):
 #: qwen2_vl_72b one layer: the float32 CPU half of its 2 x 256 slice at 2
 #: layers took about 238 s of the script's limit)
 TRAIN_PARITY_LAYERS = {"zamba2_1_2b": 7, "whisper_tiny": 4,
-                       "qwen2_vl_72b": 1}
+                       "qwen2_vl_72b": 1, "stablelm_12b": 1}
 #: the train parity slice's batch of 256-token sequences where not 2
-#: (qwen2_vl_72b: its 152064-word head is most of its CPU half's work)
-TRAIN_PARITY_BATCH = {"qwen2_vl_72b": 1}
+#: (qwen2_vl_72b: its 152064-word head is most of its CPU half's work;
+#: stablelm_12b at 1 layer and batch 1 for the same reason, its tied
+#: 100352 x 5120 embedding, 0.51 B of the slice's 0.79 B parameters: its
+#: float32 head on the CPU and the AdamW step over the slice are paid by
+#: the script's time limit)
+TRAIN_PARITY_BATCH = {"qwen2_vl_72b": 1, "stablelm_12b": 1}
 #: the train parity slices drawn at the fan-in scale (``fan_in_scaled``):
 #: whisper_tiny's full depth is 4, so each stacked weight of its full draw
 #: has std 1 / 2 on 384-wide rows, and the CPU's own float32 gradients miss
@@ -4018,15 +4122,19 @@ def replayed_moe(dispatch, swaps):
         moe.moe_block, moe.route = real_block, real_route
 
 
-def train_parity_phase(arch: str) -> None:
+def train_parity_phase(arch: str) -> dict:
     """The card (kernels) against the CPU (plain versions) in float32 at
     full width, batch 2 x 256 (``TRAIN_PARITY_BATCH``), on
     ``train_parity_model``: the loss within
     ``PARITY_TOL``, each gradient leaf within ``GRAD_REL_TOL`` relative L2
-    error, the params after one AdamW step within ``PARITY_TOL``.  For an
-    MoE model the card's dispatch of each layer, recorded in the forward,
-    must equal its recompute's in the backward, and the CPU replays it
-    (``replayed_moe``)."""
+    error, the params after one AdamW step within ``PARITY_TOL``, from one
+    optimizer state with history on both sides (``_history_state``, drawn
+    on the card and copied).  For an MoE model the card's dispatch of each
+    layer, recorded in the forward, must equal its recompute's in the
+    backward, and the CPU replays it (``replayed_moe``).  Returns the
+    seconds of its parts (``card``, ``cpu``: each side's step;
+    ``history``: the state's draw and copy; ``compare``: the losses,
+    gradients and params held against each other)."""
     import torch
 
     from repro_torch.configs.base import ShapeSpec
@@ -4045,8 +4153,16 @@ def train_parity_phase(arch: str) -> None:
     batch = batch_for_step(cfg, ShapeSpec("parity", 256, B, "train"), SEED, 0)
     ocfg = steps_lib.adamw_config(cfg, _run_config(cfg, B, 256))
 
+    # the state with history, drawn once; the CPU side's copy is taken
+    # before the card's AdamW step updates the card's in place
+    t0 = time.perf_counter()
+    states = {"cuda": _history_state(card.params, SEED)}
+    states["cpu"] = tree_map(lambda t: t.cpu(), states["cuda"])
+    torch.cuda.synchronize()
+    secs = {"history": time.perf_counter() - t0}
     results, swaps, dispatch, note = {}, {}, {}, ""
     for where, model in (("cuda", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
         if where == "cuda":
             ctx = recorded_moe()
         elif dispatch:  # the CPU model's router of each layer
@@ -4072,21 +4188,27 @@ def train_parity_phase(arch: str) -> None:
         # AdamW reads the gradient tree and leaves it as it is; no copy
         # (qwen2_vl's 2 layers hold 12 GB of float32 params, as much
         # gradient and twice that in moments on each side)
-        state = _history_state(model.params, SEED)
-        opt_lib.apply_updates(model.params, grads, state, ocfg)
+        opt_lib.apply_updates(model.params, grads, states.pop(where), ocfg)
         results[where] = (loss, grads, model.params)
-        del state
+        if where == "cuda":
+            torch.cuda.synchronize()
+        secs[where] = time.perf_counter() - t0
     if swaps:
         note = (f"; the CPU replays the card's dispatch (recomputed in the "
                 f"backward as routed in the forward), its own float32 "
                 f"routes differ in {sum(swaps.values())} token(s) over "
                 f"{len(swaps)} layers (not held)")
     (lc, gc, pc), (lh, gh, ph) = results["cuda"], results["cpu"]
+    # held on the card, each CPU leaf copied over in its turn: the same
+    # float32 differences, without the host's passes over every leaf
+    t0 = time.perf_counter()
     err = _close(f"{arch} train parity loss (f32, {n} layers)", lc.cpu(), lh,
                  PARITY_TOL)[0]
-    rels = {key: (torch.linalg.vector_norm(a.cpu() - b)
-                  / torch.linalg.vector_norm(b)).item()
-            for (key, a), (_, b) in zip(items(gc), items(gh))}
+    rels = {}
+    for (key, a), (_, b) in zip(items(gc), items(gh)):
+        b = b.to(a.device)
+        rels[key] = (torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b)).item()
     print(f"parity: {arch} gradient relative L2 error, card vs CPU: "
           + ", ".join(f"{key} {rel:.3g}" for key, rel in rels.items()))
     worst_key = max(rels, key=rels.get)
@@ -4095,8 +4217,9 @@ def train_parity_phase(arch: str) -> None:
             f"{worst_key}: relative L2 error {worst_rel:.3g} > "
             f"{GRAD_REL_TOL}")
     p_err = max(_close(f"{arch} train parity params/{key} after one AdamW "
-                       f"step", a.cpu(), b, PARITY_TOL)[0]
+                       f"step", a, b.to(a.device), PARITY_TOL)[0]
                 for (key, a), (_, b) in zip(items(pc), items(ph)))
+    secs["compare"] = time.perf_counter() - t0
     depth = f"{n} layers" if cfg.family != "encdec" else \
         f"{cfg.n_enc_layers} + {n} layers, {cfg.enc_seq} audio frames"
     print(f"parity: {arch} train step full width, {depth}, f32, batch {B} x "
@@ -4107,6 +4230,7 @@ def train_parity_phase(arch: str) -> None:
           f"abs diff {p_err:.3g}{note}")
     del card, cpu, results
     torch.cuda.empty_cache()
+    return secs
 
 
 def train_smoke_phase() -> None:
@@ -4501,14 +4625,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     bwd, flash_train = bwd_kernel_phase()
-    records["flash_attention"]["at"].append(flash_train)
+    records["flash_attention"]["at"].extend(flash_train)
     print(f"phase: train kernels {time.perf_counter() - t0:.3f} s")
     for arch in TRAIN_RUNS:
         t0 = time.perf_counter()
         counts[f"train {arch}"] = train_path_phase(arch)
-        train_parity_phase(arch)
-        print(f"phase: train path and parity {arch} "
-              f"{time.perf_counter() - t0:.3f} s")
+        t1 = time.perf_counter()
+        secs = train_parity_phase(arch)
+        t2 = time.perf_counter()
+        print(f"phase: train path and parity {arch} {t2 - t0:.3f} s (path "
+              f"{t1 - t0:.3f}, parity {t2 - t1:.3f}: history state "
+              f"{secs['history']:.3f}, card step {secs['cuda']:.3f}, CPU "
+              f"step {secs['cpu']:.3f}, comparisons {secs['compare']:.3f}, "
+              f"the rest building the slices)")
     t0 = time.perf_counter()
     train_smoke_phase()
     print(f"phase: train smoke-width runs {time.perf_counter() - t0:.3f} s")

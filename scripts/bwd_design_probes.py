@@ -15,7 +15,18 @@ registers printed too; its gradients are held bitwise against this
 build's at the train shape, at each trained model's flash shape and at
 ``chip_smoke.BWD_SKIP_CASES``; and the two are timed in turns (other,
 this, this, other; CUDA events and the profiler's device time, in all
-and by kernel).
+and by kernel).  Each build runs on its own checkout's route rule
+(``bwd_route`` of its ``flash_attention.py``); a shape the two rules send
+to different routes is held against the plain gradient instead of
+bitwise.  ``--shape H,S,d,kv_group[,window=W]`` (repeatable, causal)
+takes the place of the train shape in the timed turns, and each such
+shape is also printed with both builds' largest difference from the plain
+gradient (autograd of ``ref.flash_attention``, ``PLAIN_FLASH_HEADS`` query
+heads at a time), the plain version's time, the bound and the design
+floor (``chip_smoke.flash_bwd_products``) and the device time of SDPA's
+backward on the same inputs (k and v repeated to the query heads, a
+boolean mask where a window is set; the kernels it runs are named), and
+the ``rmsnorm_bwd`` probes below are left out.
 
 ``rmsnorm_bwd`` at (16384, 3072) in bf16 (``chip_smoke``'s rows, RMS 0.1
 to 10, and seeds) with ``BWD_MAX_BLOCKS`` 132 (the port's), 264 and 528:
@@ -68,8 +79,8 @@ def build_other(root: str) -> str:
 
 
 def wgmma_registers(log_path: str):
-    """(kernel, registers, spill text) for the d-128 wgmma kernels in a
-    build's ptxas output (``fwd``: the forward's two forms)."""
+    """(kernel, registers, spill text) for the wgmma kernels in a build's
+    ptxas output, by head dim (``fwd``: the forward's two forms)."""
     out, entry, spill = [], None, ""
     with open(log_path) as f:
         for line in f:
@@ -77,23 +88,52 @@ def wgmma_registers(log_path: str):
             if m:
                 entry = m.group(1)
                 continue
-            if entry is None or "wgmma_kernel" not in entry \
-                    or "ILi128E" not in entry:
+            if entry is None or "wgmma_kernel" not in entry:
                 continue
             if "spill" in line:
                 spill = line.strip()
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                name = next(k for k in ("dkdv", "dq", "fwd") if k in entry)
-                out.append((name, int(m.group(1)), spill))
+                name = next(k for k in ("dkdv_split", "dkdv", "dq", "fwd")
+                            if k in entry)
+                dp = re.search(r"ILi(\d+)E", entry).group(1)
+                out.append((f"{name} d {dp}", int(m.group(1)), spill))
                 entry = None
     return out
+
+
+@contextlib.contextmanager
+def routed_rule(rule):
+    """``flash_attention_bwd_cuda`` on the route rule ``rule`` (another
+    checkout's ``bwd_route``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = fa.bwd_route
+    fa.bwd_route = rule
+    try:
+        yield
+    finally:
+        fa.bwd_route = saved
+
+
+def parse_shape(text: str):
+    """``H,S,d,kv_group[,window=W]`` as (H, S, d, kv_group, mask)."""
+    parts = text.split(",")
+    H, S, d, g = (int(p) for p in parts[:4])
+    kw = dict(causal=True)
+    for p in parts[4:]:
+        if not p.startswith("window="):
+            raise argparse.ArgumentTypeError(f"unknown shape field {p!r}")
+        kw["window"] = int(p.split("=", 1)[1])
+    return H, S, d, g, kw
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="another checkout whose flash backward "
                     "is held bitwise against this one's and timed in turns")
+    ap.add_argument("--shape", action="append", type=parse_shape,
+                    help="H,S,d,kv_group[,window=W] (repeatable)")
     a = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -106,7 +146,9 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke as cs
     import flash_bwd_rounding as fr
-    from repro_torch.kernels import _build
+    import fwd_design_probes as fp
+    from repro_torch.kernels import _build, cost
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
@@ -127,12 +169,14 @@ def main(argv=None) -> int:
     print(f"probes on {name} ({smi})")
     for tag, lib in libs.items():
         for kern, regs, spill in wgmma_registers(f"{lib}.log"):
-            print(f"probe: flash {tag}: {kern} wgmma d 128: {regs} "
-                  f"registers; {spill}")
+            print(f"probe: flash {tag}: {kern} wgmma: {regs} registers; "
+                  f"{spill}")
 
     bf = torch.bfloat16
     B, T = cs.TRAIN_SHAPE
     other = fr.bwd_entry(libs["other"]) if a.other else None
+    other_rule = fp.route_rules(os.path.abspath(a.other)).bwd_route \
+        if a.other else fa.bwd_route
 
     def case(H, S, d, g, kw, seed):
         q = cs._randn((H, S, d), bf, seed)
@@ -143,22 +187,31 @@ def main(argv=None) -> int:
 
         def flash(tag):
             def call():
-                with fr.routed(other) if tag == "other" \
-                        else contextlib.nullcontext():
+                if tag != "other":
+                    return flash_attention_bwd_cuda(q, k, v, out32, dout,
+                                                    lse, kv_group=g, **kw)
+                with fr.routed(other), routed_rule(other_rule):
                     return flash_attention_bwd_cuda(q, k, v, out32, dout,
                                                     lse, kv_group=g, **kw)
             return call
+        flash.inputs = (q, k, v, dout)
         return flash
 
     ok = True
     H, Hkv, d = 96, 32, 128
     g = H // Hkv
-    train = case(H, T, d, g, dict(causal=True), 66)
     if a.other:
         shapes = [(H, T, d, g, dict(causal=True), 66)] + [
             (*sh, dict(causal=True), 70) for sh in MODEL_SHAPES] + [
             (*sh, 84) for sh in cs.BWD_SKIP_CASES]
         for sh in shapes:
+            routes = (other_rule(bf, sh[2]), fa.bwd_route(bf, sh[2]))
+            if routes[0] != routes[1]:
+                print(f"probe: flash backward {sh[:4]} {sh[4]}: routes "
+                      f"{fa.ROUTE_NAMES[routes[0]]} (other) and "
+                      f"{fa.ROUTE_NAMES[routes[1]]} (this) differ: held "
+                      f"against plain, not bitwise")
+                continue
             flash = case(*sh)
             same = all(torch.equal(u, w) for u, w in
                        zip(flash("other")(), flash("this")()))
@@ -166,29 +219,70 @@ def main(argv=None) -> int:
                   f"gradients {'equal to' if same else 'DIFFER from'} the "
                   f"other's, bitwise")
             ok &= same
+            del flash
+    timed = a.shape or [(H, T, d, g, dict(causal=True))]
     order = ["other", "this", "this", "other"] * 2 if a.other else \
         ["this"] * 2
-    turns = {tag: [] for tag in libs}
-    devs = {tag: [] for tag in libs}
-    for tag in order:
-        turns[tag].append(cs.cuda_ms(train(tag), 5))
-        devs[tag].append(cs.device_ms(train(tag), 5, by_kernel=True))
-    for tag in libs:
-        total = [None if p is None else sum(p.values()) for p in devs[tag]]
-        split = {}  # the turns' mean device ms of each kernel
-        for p in devs[tag]:
-            for key, ms in (p or {}).items():
-                name = re.search(r"flash_bwd_\w+", key)
-                name = name.group(0) if name else key[:40]
-                split[name] = split.get(name, 0.0) + ms / len(devs[tag])
-        print(f"probe: flash ({H},{T},{d}) causal kv_group {g} bf16, {tag}: "
-              f"{sum(turns[tag]) / len(turns[tag]):.6f} ms (turns "
-              f"{cs._turns_txt(turns[tag])}); device "
-              f"{cs._device_txt(cs._mean(total))} (turns "
-              f"{cs._turns_txt(total)})" + ("" if None in total else
-                                            "; by kernel " + ", ".join(
-                                                f"{k} {v:.6f} ms"
-                                                for k, v in split.items())))
+    for H, S, d, g, kw in timed:
+        flash = case(H, S, d, g, kw, 66)
+        label = (f"({H},{S},{d}) causal"
+                 f"{' window ' + str(kw['window']) if 'window' in kw else ''}"
+                 f" kv_group {g} bf16")
+        if a.shape:
+            q, k, v, dout = flash.inputs
+            want = cs._flash_plain_grads(q, k, v, dout, g, kw)
+            for tag in libs:
+                errs = [(u.float() - w.float()).abs().max().item()
+                        for u, w in zip(flash(tag)(), want)]
+                print(f"probe: flash backward {label}, {tag} build (route "
+                      f"{fa.ROUTE_NAMES[(other_rule if tag == 'other' else fa.bwd_route)(bf, d)]}"
+                      f"): max abs err vs plain dq {errs[0]:.6g}, dk "
+                      f"{errs[1]:.6g}, dv {errs[2]:.6g}")
+            del want
+            p_ms = cs.cuda_ms(lambda: cs._flash_plain_grads(
+                q, k, v, dout, g, kw), 1)
+            ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+            y = fp.sdpa_call(ql, kl, vl, g, kw.get("window", 0))()
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                y, (ql, kl, vl), dout, retain_graph=True)
+            l_dev = [cs.device_ms(lib, 3) for _ in range(2)]
+            names = sorted(n[:60] for n in cs._traced_names(lib, ()))
+            bound, by = cs._bound(*cost.flash_attention_bwd(
+                H, H // g, S, d, 2, **kw))
+            print(f"probe: flash backward {label}: plain {p_ms:.6f} ms; "
+                  f"bound {bound:.6f} ms ({by}); design floor "
+                  f"{bound * cs.flash_bwd_products(d) / 5:.6f} ms "
+                  f"({cs.flash_bwd_products(d)} products); SDPA backward "
+                  f"device {cs._turns_txt(l_dev)} ms, runs "
+                  f"{', '.join(names)}")
+            del ql, kl, vl, y
+        turns = {tag: [] for tag in libs}
+        devs = {tag: [] for tag in libs}
+        reps = max(2, min(5, int(200.0 / max(cs.cuda_ms(flash("this"), 1),
+                                             1e-3))))
+        for tag in order:
+            turns[tag].append(cs.cuda_ms(flash(tag), reps))
+            devs[tag].append(cs.device_ms(flash(tag), reps, by_kernel=True))
+        for tag in libs:
+            total = [None if p is None else sum(p.values())
+                     for p in devs[tag]]
+            split = {}  # the turns' mean device ms of each kernel
+            for p in devs[tag]:
+                for key, ms in (p or {}).items():
+                    name = re.search(r"flash_bwd_\w+", key)
+                    name = name.group(0) if name else key[:40]
+                    split[name] = split.get(name, 0.0) + ms / len(devs[tag])
+            print(f"probe: flash {label}, {tag}: "
+                  f"{sum(turns[tag]) / len(turns[tag]):.6f} ms (turns "
+                  f"{cs._turns_txt(turns[tag])}); device "
+                  f"{cs._device_txt(cs._mean(total))} (turns "
+                  f"{cs._turns_txt(total)})" + (
+                      "" if None in total else "; by kernel " + ", ".join(
+                          f"{k} {v:.6f} ms" for k, v in split.items())))
+        del flash
+        torch.cuda.empty_cache()
+    if a.shape:  # flash's shapes alone
+        return 0 if ok else 1
 
     M, D = B * T, 3072
     x = cs._randn((M, D), bf, 60, np.geomspace(0.1, 10.0, M)[:, None])

@@ -27,15 +27,18 @@
 // fwd_route; a route the call cannot take is refused with
 // cudaErrorInvalidValue, never replaced by another):
 //
-// 0. wgmma + TMA: bfloat16 at d 64 and 128, q, k, v and out on 16-byte
-//    boundaries (flash_fwd_wgmma_kernel<DP, TRAIN>, "forward on wgmma +
-//    TMA" below).  What it does about each difficulty:
+// 0. wgmma + TMA: bfloat16 with d % 8 == 0 up to 160, q, k, v and out on
+//    16-byte boundaries (flash_fwd_wgmma_kernel<DP, TRAIN>, "forward on
+//    wgmma + TMA" below), instantiated at DP 64, 128 and 160, the next at
+//    or above d.  What it does about each difficulty:
 //    * Blocks of 128 queries in two warpgroups of 64, 256 threads; thread
 //      0 issues the TMA loads (no producer warp: the backward's first
 //      build with one was sized for 384 threads, spilled and lost).
 //    * Ragged S and head boundaries: q, k, v are read through 3-D tensor
 //      maps (d, S, heads) in 64 x 64 boxes under the 128-byte swizzle, so
-//      a tile at a head's tail reads zeros, not the next head's rows; the
+//      a tile at a head's tail reads zeros, not the next head's rows, and
+//      a head dim below DP (danube's 120 at DP 128) reads zero columns
+//      up to DP, which add nothing to S or O; the
 //      kv head is h / kv_group in the map's coordinate; keys past S take
 //      -inf, the rest of the mask is the mma.sync kernel's (NEG), and
 //      tiles wholly inside the band and the window skip it.
@@ -54,9 +57,21 @@
 //      tile j's softmax runs while P V is on the tensor cores; the output
 //      is rescaled once P V is done.
 //    * The output is staged in the warpgroup's q tile under the box's
-//      swizzle and stored by TMA, which clips rows past S.
+//      swizzle and stored by TMA, which clips rows past S and columns past
+//      d.
+//    * d 160 (stablelm_12b): a row is three 64-column slabs at the
+//      128-byte swizzle, the third holding columns 128..159 and 32 zeros
+//      from the map.  Chosen over a 32-column slab at the 64-byte swizzle:
+//      one tensor map, one descriptor form and one set of box loops serve
+//      every DP, and no product pays for the zeros: Q K^T steps over 160
+//      columns (10 k16 steps, each 32 bytes of a 128-byte row), P V runs
+//      m64n160 with V's third slab read for its first 32 columns.  The
+//      cost is shared memory: 24 KB a 64-row tile where 20 would do, so 3
+//      K/V stages in place of 4.  O is 80 floats a thread, one block an
+//      SM, as at DP 128.
 //    * No atomics: the same bits on every run.
-// 1. mma.sync: the other bfloat16 head dims and misaligned bfloat16 views
+// 1. mma.sync: bfloat16 head dims the wgmma route does not take (d % 8 !=
+//    0, d past 160) and misaligned bfloat16 views
 //    (flash_attention_tc_kernel<DP, TRAIN>).  One block of 4 warps per
 //    (head, 64-row q tile); each warp owns 16 query rows.  The head dim is
 //    padded in shared memory to DP in {32, 64, 128, 160, 256} with zero
@@ -128,9 +143,11 @@
 // bwd_route; a route the call cannot take is refused with
 // cudaErrorInvalidValue, never replaced by another):
 //
-// 0. wgmma + TMA: bf16 at d 64 and 128, q, k, v, dout and the gradients on
-//    16-byte boundaries ("backward on wgmma + TMA" below).  Design and
-//    what it does about each difficulty:
+// 0. wgmma + TMA: bf16 with d % 8 == 0 up to 160, q, k, v, dout and the
+//    gradients on 16-byte boundaries ("backward on wgmma + TMA" below), at
+//    DP 64, 128 and 160 as the forward (head dims below DP read zero
+//    columns from the tensor maps; dq, dk and dv are stored d wide).
+//    Design and what it does about each difficulty:
 //    * Blocks of 128 rows in two warpgroups of 64, 256 threads, and no
 //      producer warp.  dk/dv holds 64 + 64 accumulators and the 32 + 32
 //      of S^T and dP^T a thread.  A first build of this kernel with a
@@ -171,9 +188,22 @@
 //      ahead and share them through a double buffer behind one named
 //      barrier a tile; dq keeps its two rows' in registers.
 //    * dq overlaps the next tile's S and dP with this tile's dS.
-// 1. mma.sync: the other bf16 head dims up to 128 and misaligned bf16
-//    ("backward on mma.sync" below).
-// 2. SIMT: float32, and bf16 past d 128: float32 from bf16 or float32
+//    * DP 160 (flash_bwd_dkdv_split_wgmma_kernel): a warpgroup holding
+//      dK and dV for its 64 keys would need 160 accumulator floats beside
+//      S^T and dP^T (64), past the 255 registers the d-128 build already
+//      nearly fills.  So the block's two warpgroups share one 64-key
+//      tile: warpgroup 0 forms S^T and P^T and accumulates dV, warpgroup
+//      1 forms S^T, dP^T and dS^T and accumulates dK, each one 80-float
+//      accumulator.  S^T is formed twice: 7 products a tile pair where
+//      the d-128 partition does 6, 11 in the whole backward with dq's 4
+//      where the function needs 5 (the design floor).  Splitting dK's and
+//      dV's columns between the warpgroups instead would form S^T and
+//      dP^T twice each, 8 products.  dq keeps its structure (80 + 32 + 32
+//      floats) with 2 K/V stages, which is what 227 KB hold beside its
+//      128 rows of Q and dO at 24 KB a tile.
+// 1. mma.sync: bf16 up to d 160 that the wgmma route does not take (d %
+//    8 != 0, misaligned views; "backward on mma.sync" below).
+// 2. SIMT: float32, and bf16 past d 160: float32 from bf16 or float32
 //    loads, all tiles in shared memory as float32 with rows padded to
 //    16 DJ + 1 floats; a thread owns 4 query rows x RI keys of a score
 //    tile and RI (dk/dv) or 4 (dq) rows x DJ columns of an accumulator
@@ -1022,7 +1052,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
-// ---- backward on mma.sync (bf16, head dims up to 128) ----
+// ---- backward on mma.sync (bf16, head dims up to 160) ----
 //
 // The same three passes as the SIMT backward (delta, then dk/dv, then dq;
 // no atomics), with the five products as mma.sync.m16n8k16 bf16 products
@@ -1384,7 +1414,7 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// ---- backward on wgmma + TMA (bf16, head dims 64 and 128) ----
+// ---- backward on wgmma + TMA (bf16, head dims to 160) ----
 //
 // The same three passes (delta, dk/dv, dq; no atomics), with blocks of two
 // warpgroups.  A block holds 128 rows of its own operands (keys for dk/dv,
@@ -1403,20 +1433,39 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
 constexpr int kWgThreads = 256;  // two warpgroups; thread 0 also loads
 constexpr int kWgRows = 128;      // keys (dk/dv) or queries (dq) a block
 constexpr int kWgStep = 64;       // queries (dk/dv) or keys (dq) a stage
-constexpr int kWgStages = 4;
+constexpr int kWgStages = 4;      // stages at most
 constexpr uint32_t kWgBox = 64 * 128;  // a TMA box: 64 rows x 128 bytes
+constexpr uint32_t kWgStats = 2 * 2 * 2 * kWgStep * 4;  // lse / delta rows
 
-// a 64-row tile, DP wide: DP / 64 boxes
+// the 64-column slabs (TMA boxes) of a DP-wide row: 1, 2, or 3 at DP 160,
+// whose third slab holds columns 128..159 and 32 zeros
+__host__ __device__ constexpr int wg_slabs(int dp) { return (dp + 63) / 64; }
+
+// a 64-row tile, DP wide
 template <int DP>
-__host__ __device__ constexpr uint32_t wg_tile() { return DP / 64 * kWgBox; }
+__host__ __device__ constexpr uint32_t wg_tile() {
+  return wg_slabs(DP) * kWgBox;
+}
 
-// the block's 2 x 2 tiles, the stages' 2 tiles, each warpgroup's two
-// lse / delta rows, the mbarriers and the slack that puts the tiles on a
+// the stages of a backward kernel that holds FIXED tiles of its own rows:
+// kWgStages, or as many as the block's 227 KB hold beside them (2 for dq
+// and 3 for dk/dv at DP 160)
+template <int DP, int FIXED>
+__host__ __device__ constexpr int wg_stages() {
+  return (int)((232448 - 1024 - kWgStats - 128 - FIXED * wg_tile<DP>()) /
+               (2 * wg_tile<DP>())) < kWgStages
+             ? (int)((232448 - 1024 - kWgStats - 128 - FIXED * wg_tile<DP>()) /
+                     (2 * wg_tile<DP>()))
+             : kWgStages;
+}
+
+// the block's FIXED tiles, the stages' 2 tiles, each warpgroup's two lse /
+// delta rows, the mbarriers and the slack that puts the tiles on a
 // 1024-byte boundary
-template <int DP>
+template <int DP, int FIXED>
 __host__ __device__ constexpr size_t wg_smem_bytes() {
-  return 4 * wg_tile<DP>() + kWgStages * 2 * wg_tile<DP>() +
-         2 * 2 * 2 * kWgStep * 4 + (2 * kWgStages + 1) * 8 + 1024;
+  return FIXED * wg_tile<DP>() + wg_stages<DP, FIXED>() * 2 * wg_tile<DP>() +
+         kWgStats + (2 * wg_stages<DP, FIXED>() + 1) * 8 + 1024;
 }
 
 // A warpgroup is done with tile j of a block's run, which streams through
@@ -1570,14 +1619,63 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 160 float32 a warpgroup) += A (64 x 16, bf16 pairs in registers)
+// B (16 x 160, MN-major in shared memory: three 64-column slabs, the last
+// read for its first 32 columns)
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int DP>
 __device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (DP == 64)
     wgmma_rs_n64(d, a, db);
-  else
+  else if constexpr (DP == 128)
     wgmma_rs_n128(d, a, db);
+  else
+    wgmma_rs_n160(d, a, db);
 }
 
 // whether every (query, key) pair of [qa, qa + 64) x [ka, ka + 64) is live
@@ -1610,6 +1708,26 @@ __device__ __forceinline__ void p_ds_t(float (&st)[32], float (&dpt)[32],
           p = expf(st[e] * scale - ls[col]);
         st[e] = p;
         dpt[e] = p * (dpt[e] - dl[col]);
+      }
+}
+
+// P^T alone into st (the split dk/dv kernel's dV warpgroup), as p_ds_t
+template <bool MASK>
+__device__ __forceinline__ void p_t(float (&st)[32], const float* ls, int q0,
+                                    int kp0, int S, int causal, int window,
+                                    float scale) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * i + 2 * tq + c, e = 4 * i + 2 * r + c;
+        float p = 0.0f;
+        if (!MASK || live(q0 + col, kp0 + 8 * r, S, causal, window))
+          p = expf(st[e] * scale - ls[col]);
+        st[e] = p;
       }
 }
 
@@ -1685,13 +1803,14 @@ __device__ __forceinline__ void wgmma_split_b(float (&acc)[DP / 2],
   }
 }
 
-// a warpgroup's 64 x DP accumulator rows into a row-major (S, DP) bf16
-// matrix from row `row0`, times mul: warp w holds rows 16 w + lane / 4
-// (+ 8), register 4 i + {0, 1} (+ {2, 3}) columns 8 i + 2 (lane % 4) + {0, 1}
+// a warpgroup's 64 x DP accumulator rows into a row-major (S, d) bf16
+// matrix from row `row0`, times mul, columns past d (zero padding) left
+// out: warp w holds rows 16 w + lane / 4 (+ 8), register 4 i + {0, 1}
+// (+ {2, 3}) columns 8 i + 2 (lane % 4) + {0, 1}; d % 8 == 0
 template <int DP>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* g,
                                           const float (&acc)[DP / 2],
-                                          int row0, int S, float mul) {
+                                          int row0, int S, int d, float mul) {
   const int t = threadIdx.x % 128, lane = t % 32;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1699,10 +1818,11 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* g,
     if (row >= S) continue;
 #pragma unroll
     for (int i = 0; i < DP / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(g + (long long)row * DP + 8 * i +
-                                         2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[4 * i + 2 * r] * mul,
-                                acc[4 * i + 2 * r + 1] * mul);
+      if (8 * i < d)
+        *reinterpret_cast<__nv_bfloat162*>(g + (long long)row * d + 8 * i +
+                                           2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * mul,
+                                  acc[4 * i + 2 * r + 1] * mul);
   }
 }
 
@@ -1719,19 +1839,21 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int S, int causal,
-                            int window, int kv_group, float scale) {
+                            __nv_bfloat16* __restrict__ dv, int S, int d,
+                            int causal, int window, int kv_group,
+                            float scale) {
   constexpr uint32_t TILE = wg_tile<DP>();
+  constexpr int ST = wg_stages<DP, 4>();
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t raw = smem_addr(wg_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sk = base, sv = base + 2 * TILE;  // the block's keys
   const uint32_t stages = base + 4 * TILE;  // [stage] Q tile, dO tile
   // [wg][2][lse, delta] rows
-  const uint32_t stats = stages + kWgStages * 2 * TILE;
-  const uint32_t full = stats + 2 * 2 * 2 * kWgStep * 4;
-  const uint32_t empty = full + kWgStages * 8;
-  const uint32_t fixed = empty + kWgStages * 8;
+  const uint32_t stats = stages + ST * 2 * TILE;
+  const uint32_t full = stats + kWgStats;
+  const uint32_t empty = full + ST * 8;
+  const uint32_t fixed = empty + ST * 8;
   const int kvh = blockIdx.x, k0 = blockIdx.y * kWgRows;
   int qlo, qhi;
   meeting_tiles((S + kWgStep - 1) / kWgStep, kWgStep, k0, kWgRows, true,
@@ -1739,7 +1861,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int per = qhi - qlo, tiles = per * kv_group;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + 8 * s, 1);   // the issuer's expect_tx + the bytes
       mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
     }
@@ -1750,11 +1872,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // tile j's Q and dO into its stage
   auto issue = [&](int j) {
-    const int s = j % kWgStages;
+    const int s = j % ST;
     const uint32_t bar = full + 8 * s, tile = stages + s * 2 * TILE;
     const int h = kvh * kv_group + j / per, q0 = (qlo + j % per) * kWgStep;
     mbar_expect_tx(bar, 2 * TILE);
-    for (int b = 0; b < DP / 64; ++b) {
+    for (int b = 0; b < wg_slabs(DP); ++b) {
       tma_load_3d(tile + b * kWgBox, &map_q, bar, 64 * b, q0, h);
       tma_load_3d(tile + TILE + b * kWgBox, &map_do, bar, 64 * b, q0, h);
     }
@@ -1763,13 +1885,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (issuer) {
     mbar_expect_tx(fixed, 4 * TILE);
     for (int t = 0; t < 2; ++t)
-      for (int b = 0; b < DP / 64; ++b) {
+      for (int b = 0; b < wg_slabs(DP); ++b) {
         tma_load_3d(sk + t * TILE + b * kWgBox, &map_k, fixed, 64 * b,
                     k0 + 64 * t, kvh);
         tma_load_3d(sv + t * TILE + b * kWgBox, &map_v, fixed, 64 * b,
                     k0 + 64 * t, kvh);
       }
-    for (int j = 0; j < tiles && j < kWgStages; ++j) issue(j);
+    for (int j = 0; j < tiles && j < ST; ++j) issue(j);
   }
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
@@ -1792,17 +1914,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   mbar_wait(fixed, 0);
   int done = 0;  // tiles this warpgroup computed: its stat buffer's parity
   for (int it = 0; it < tiles; ++it) {
-    const int s = it % kWgStages, q0 = (qlo + it % per) * kWgStep;
+    const int s = it % ST, q0 = (qlo + it % per) * kWgStep;
     // the stats are loaded a tile ahead, so their latency hides
     const float mine = next;
     if (it + 1 < tiles) next = stat(it + 1);
     // every tile is released, computed or skipped (a skipped tile's stage
     // is waited on by thread 0 alone)
     if (!tiles_meet(q0, kWgStep, kw0, 64, causal, window)) {
-      release_stage<kWgStages>(it, tiles, full, empty, t == 0, issuer, issue);
+      release_stage<ST>(it, tiles, full, empty, t == 0, issuer, issue);
       continue;
     }
-    stage_landed<kWgStages>(full, it);
+    stage_landed<ST>(full, it);
     const uint32_t qs = stages + s * 2 * TILE, gs = qs + TILE;
     // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
     float st[32], dpt[32];
@@ -1844,11 +1966,168 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_frags(pl);
     fence_frags(dh);
     fence_frags(dlo);
-    release_stage<kWgStages>(it, tiles, full, empty, t == 0, issuer, issue);
+    release_stage<ST>(it, tiles, full, empty, t == 0, issuer, issue);
   }
-  const long long kbase = (long long)kvh * S * DP;
-  store_acc<DP>(dk + kbase, dka, kw0, S, scale);
-  store_acc<DP>(dv + kbase, dva, kw0, S, 1.0f);
+  const long long kbase = (long long)kvh * S * d;
+  store_acc<DP>(dk + kbase, dka, kw0, S, d, scale);
+  store_acc<DP>(dv + kbase, dva, kw0, S, d, 1.0f);
+}
+
+// dk, dv past DP 128 (the split partition): one block per (kv head, 64
+// keys), both warpgroups on the block's keys over every 64-query tile of
+// its kv_group query heads that meets them (tile j: query tile qlo + j %
+// per of query head kvh * kv_group + j / per).  Warpgroup 0 forms S^T and
+// P^T and accumulates dV += P^T dO; warpgroup 1 forms S^T, dP^T and dS^T
+// and accumulates dK += dS^T Q.  Each holds one 64 x DP accumulator (80
+// floats a thread at DP 160) where a warpgroup holding both would need
+// 160 and spill; S^T is formed twice, 7 products a tile pair where the
+// d-128 partition does 6.  ROLE: the warpgroup's (0 dV, 1 dK).
+template <int DP, int ST, int ROLE, typename Issue>
+__device__ __forceinline__ void dkdv_split_role(
+    uint32_t sk, uint32_t sv, uint32_t stages, float* stat_rows,
+    uint32_t full, uint32_t empty, uint32_t fixed, const float* lse,
+    const float* delta, __nv_bfloat16* out, int kvh, int k0, int qlo,
+    int per, int tiles, int S, int d, int causal, int window, int kv_group,
+    float scale, bool issuer, const Issue& issue) {
+  constexpr uint32_t TILE = wg_tile<DP>();
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int kp0 = k0 + (t / 32) * 16 + lane / 4;  // this thread's keys
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  // this thread's lse (t < 64) or delta row of tile j, 0 past S
+  auto stat = [&](int j) {
+    const int r = (qlo + j % per) * kWgStep + t % 64;
+    return r < S ? (t < 64 ? lse : delta)[(long long)(kvh * kv_group +
+                                                      j / per) * S + r]
+                 : 0.0f;
+  };
+  float next = tiles > 0 ? stat(0) : 0.0f;
+  mbar_wait(fixed, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = (qlo + it % per) * kWgStep;
+    const float mine = next;
+    if (it + 1 < tiles) next = stat(it + 1);
+    stage_landed<ST>(full, it);
+    const uint32_t qs = stages + (it % ST) * 2 * TILE, gs = qs + TILE;
+    // S^T = K Q^T (and dP^T = V dO^T): 64 keys x 64 queries
+    float st[32], dpt[32];
+    wgmma_fence();
+    wgmma_abt<DP>(st, sk, qs);
+    if constexpr (ROLE == 1) wgmma_abt<DP>(dpt, sv, gs);
+    wgmma_commit();
+    // the tile's lse and delta rows, double-buffered by the tile's parity
+    float* ls = stat_rows + (it & 1) * 2 * kWgStep;
+    ls[t] = mine;
+    named_barrier(1 + ROLE, 128);
+    wgmma_wait<0>();
+    fence_regs(st);
+    if constexpr (ROLE == 1) fence_regs(dpt);
+    const bool whole = tile_live(q0, k0, S, causal, window);
+    uint32_t hi[4][4], lo[4][4];
+    if constexpr (ROLE == 0) {
+      if (whole)
+        p_t<false>(st, ls, q0, kp0, S, causal, window, scale);
+      else
+        p_t<true>(st, ls, q0, kp0, S, causal, window, scale);
+      split_a(st, hi, lo);
+    } else {
+      if (whole)
+        p_ds_t<false>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
+                      scale);
+      else
+        p_ds_t<true>(st, dpt, ls, ls + kWgStep, q0, kp0, S, causal, window,
+                     scale);
+      split_a(dpt, hi, lo);
+    }
+    // dV += P^T dO, or dK += dS^T Q, over the 64 queries
+    fence_regs(acc);
+    wgmma_fence();
+    wgmma_split_b<DP>(acc, hi, lo, ROLE == 0 ? gs : qs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(hi);
+    fence_frags(lo);
+    release_stage<ST>(it, tiles, full, empty, t == 0, issuer, issue);
+  }
+  store_acc<DP>(out + (long long)kvh * S * d, acc, k0, S, d,
+                ROLE == 0 ? 1.0f : scale);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_split_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                                  const __grid_constant__ CUtensorMap map_k,
+                                  const __grid_constant__ CUtensorMap map_v,
+                                  const __grid_constant__ CUtensorMap map_do,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  __nv_bfloat16* __restrict__ dk,
+                                  __nv_bfloat16* __restrict__ dv, int S,
+                                  int d, int causal, int window, int kv_group,
+                                  float scale) {
+  constexpr uint32_t TILE = wg_tile<DP>();
+  constexpr int ST = wg_stages<DP, 2>();
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base, sv = base + TILE;  // the block's 64 keys
+  const uint32_t stages = base + 2 * TILE;     // [stage] Q tile, dO tile
+  const uint32_t stats = stages + ST * 2 * TILE;  // [wg][2][lse, delta]
+  const uint32_t full = stats + kWgStats;
+  const uint32_t empty = full + ST * 8;
+  const uint32_t fixed = empty + ST * 8;
+  const int kvh = blockIdx.x, k0 = blockIdx.y * kWgStep;
+  int qlo, qhi;
+  meeting_tiles((S + kWgStep - 1) / kWgStep, kWgStep, k0, kWgStep, true,
+                causal, window, &qlo, &qhi);
+  const int per = qhi - qlo, tiles = per * kv_group;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);   // the issuer's expect_tx + the bytes
+      mbar_init(empty + 8 * s, 2);  // one arrival per warpgroup
+    }
+    mbar_init(fixed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile j's Q and dO into its stage
+  auto issue = [&](int j) {
+    const int s = j % ST;
+    const uint32_t bar = full + 8 * s, tile = stages + s * 2 * TILE;
+    const int h = kvh * kv_group + j / per, q0 = (qlo + j % per) * kWgStep;
+    mbar_expect_tx(bar, 2 * TILE);
+    for (int b = 0; b < wg_slabs(DP); ++b) {
+      tma_load_3d(tile + b * kWgBox, &map_q, bar, 64 * b, q0, h);
+      tma_load_3d(tile + TILE + b * kWgBox, &map_do, bar, 64 * b, q0, h);
+    }
+  };
+  const bool issuer = threadIdx.x == 0;
+  if (issuer) {
+    mbar_expect_tx(fixed, 2 * TILE);
+    for (int b = 0; b < wg_slabs(DP); ++b) {
+      tma_load_3d(sk + b * kWgBox, &map_k, fixed, 64 * b, k0, kvh);
+      tma_load_3d(sv + b * kWgBox, &map_v, fixed, 64 * b, k0, kvh);
+    }
+    for (int j = 0; j < tiles && j < ST; ++j) issue(j);
+  }
+
+  const int wg = threadIdx.x / 128;
+  float* stat_rows = reinterpret_cast<float*>(wg_smem + (stats - raw)) +
+                     wg * 2 * 2 * kWgStep;
+  if (wg == 0)
+    dkdv_split_role<DP, ST, 0>(sk, sv, stages, stat_rows, full, empty, fixed,
+                               lse, delta, dv, kvh, k0, qlo, per, tiles, S, d,
+                               causal, window, kv_group, scale, issuer,
+                               issue);
+  else
+    dkdv_split_role<DP, ST, 1>(sk, sv, stages, stat_rows, full, empty, fixed,
+                               lse, delta, dk, kvh, k0, qlo, per, tiles, S, d,
+                               causal, window, kv_group, scale, issuer,
+                               issue);
 }
 
 // dq: one block per (query head, 128 queries), causal tails first;
@@ -1862,17 +2141,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_do,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int S, int causal,
-                          int window, int kv_group, float scale) {
+                          __nv_bfloat16* __restrict__ dq, int S, int d,
+                          int causal, int window, int kv_group, float scale) {
   constexpr uint32_t TILE = wg_tile<DP>();
+  constexpr int ST = wg_stages<DP, 4>();
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t base = (smem_addr(wg_smem) + 1023u) & ~1023u;
   const uint32_t sq = base, sg = base + 2 * TILE;  // the block's queries
   const uint32_t stages = base + 4 * TILE;  // [stage] K tile, V tile
-  const uint32_t full =
-      stages + kWgStages * 2 * TILE + 2 * 2 * 2 * kWgStep * 4;
-  const uint32_t empty = full + kWgStages * 8;
-  const uint32_t fixed = empty + kWgStages * 8;
+  const uint32_t full = stages + ST * 2 * TILE + kWgStats;
+  const uint32_t empty = full + ST * 8;
+  const uint32_t fixed = empty + ST * 8;
   const int h = blockIdx.x, kvh = h / kv_group;
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kWgRows;
   int klo, khi;
@@ -1881,7 +2160,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tiles = khi - klo;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 2);
     }
@@ -1891,10 +2170,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   auto issue = [&](int j) {
-    const int s = j % kWgStages, k0 = (klo + j) * kWgStep;
+    const int s = j % ST, k0 = (klo + j) * kWgStep;
     const uint32_t bar = full + 8 * s, tile = stages + s * 2 * TILE;
     mbar_expect_tx(bar, 2 * TILE);
-    for (int b = 0; b < DP / 64; ++b) {
+    for (int b = 0; b < wg_slabs(DP); ++b) {
       tma_load_3d(tile + b * kWgBox, &map_k, bar, 64 * b, k0, kvh);
       tma_load_3d(tile + TILE + b * kWgBox, &map_v, bar, 64 * b, k0, kvh);
     }
@@ -1903,13 +2182,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (issuer) {
     mbar_expect_tx(fixed, 4 * TILE);
     for (int t = 0; t < 2; ++t)
-      for (int b = 0; b < DP / 64; ++b) {
+      for (int b = 0; b < wg_slabs(DP); ++b) {
         tma_load_3d(sq + t * TILE + b * kWgBox, &map_q, fixed, 64 * b,
                     q0 + 64 * t, h);
         tma_load_3d(sg + t * TILE + b * kWgBox, &map_do, fixed, 64 * b,
                     q0 + 64 * t, h);
       }
-    for (int j = 0; j < tiles && j < kWgStages; ++j) issue(j);
+    for (int j = 0; j < tiles && j < ST; ++j) issue(j);
   }
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
@@ -1939,7 +2218,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // sc and dp, asynchronously
   float sc[32], dp[32];
   auto products = [&](int it) {
-    const uint32_t ks = stages + (it % kWgStages) * 2 * TILE;
+    const uint32_t ks = stages + (it % ST) * 2 * TILE;
     wgmma_fence();
     wgmma_abt<DP>(sc, qa, ks);
     wgmma_abt<DP>(dp, ga, ks + TILE);
@@ -1948,10 +2227,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   mbar_wait(fixed, 0);
   // every tile of the block's run, computed ([a, b)) or skipped, in order
   for (int it = 0; it < tiles; ++it) {
-    const int s = it % kWgStages, k0 = (klo + it) * kWgStep;
+    const int s = it % ST, k0 = (klo + it) * kWgStep;
     if (it >= a && it < b) {
       if (it == a) {
-        stage_landed<kWgStages>(full, it);
+        stage_landed<ST>(full, it);
         products(it);
         wgmma_wait<0>();
         fence_regs(sc);
@@ -1966,7 +2245,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         cd[e] = dp[e];
       }
       if (it + 1 < b) {
-        stage_landed<kWgStages>(full, it + 1);
+        stage_landed<ST>(full, it + 1);
         products(it + 1);
       }
       if (tile_live(qw0, k0, S, causal, window))
@@ -1988,62 +2267,81 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_frags(hi);
       fence_frags(lo);
     }
-    release_stage<kWgStages>(it, tiles, full, empty, t == 0, issuer, issue);
+    release_stage<ST>(it, tiles, full, empty, t == 0, issuer, issue);
   }
-  store_acc<DP>(dq + (long long)h * S * DP, dqa, qw0, S, scale);
+  store_acc<DP>(dq + (long long)h * S * d, dqa, qw0, S, d, scale);
 }
 
-// a contiguous (heads, S, DP) bf16 tensor as a 3-D map (DP, S, heads) read
-// in 64 x 64 boxes: rows past S read zeros, not the next head's
-template <int DP>
-bool head_map(CUtensorMap* map, const void* ptr, int heads, int S) {
-  const cuuint64_t dims[3] = {(cuuint64_t)DP, (cuuint64_t)S,
+// a contiguous (heads, S, d) bf16 tensor as a 3-D map (d, S, heads) read
+// in 64 x 64 boxes: rows past S read zeros, not the next head's, and so do
+// the columns d .. DP - 1 of a kernel instantiated at DP > d (d % 8 == 0:
+// a row is a multiple of 16 bytes, as the map's stride must be)
+bool head_map(CUtensorMap* map, const void* ptr, int heads, int S, int d) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)DP * 2, (cuuint64_t)S * DP * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
   const cuuint32_t box[3] = {64, 64, 1};
   return bf16_tensor_map(map, ptr, 3, dims, strides, box);
 }
 
+// DP 64 and 128: dk/dv in blocks of 128 keys, a warpgroup's 64 holding
+// both accumulators; DP 160: the split partition, 64 keys a block
 template <int DP>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      const void* out32, const void* dout, const void* lse,
                      void* dq, void* dk, void* dv, void* delta, int H, int S,
-                     int causal, int window, int kv_group, float scale,
+                     int d, int causal, int window, int kv_group, float scale,
                      cudaStream_t s) {
+  constexpr bool split = DP > 128;
   CUtensorMap mq, mk, mv, mg;
-  if (!head_map<DP>(&mq, q, H, S) || !head_map<DP>(&mk, k, H / kv_group, S) ||
-      !head_map<DP>(&mv, v, H / kv_group, S) || !head_map<DP>(&mg, dout, H, S))
+  if (!head_map(&mq, q, H, S, d) || !head_map(&mk, k, H / kv_group, S, d) ||
+      !head_map(&mv, v, H / kv_group, S, d) ||
+      !head_map(&mg, dout, H, S, d))
     return (int)cudaErrorInvalidValue;
-  constexpr size_t bytes = wg_smem_bytes<DP>();
+  const void* dkdv;  // only the partition of this DP is instantiated
+  if constexpr (split)
+    dkdv = (const void*)flash_bwd_dkdv_split_wgmma_kernel<DP>;
+  else
+    dkdv = (const void*)flash_bwd_dkdv_wgmma_kernel<DP>;
+  constexpr size_t dkdv_bytes = wg_smem_bytes<DP, split ? 2 : 4>();
+  constexpr size_t dq_bytes = wg_smem_bytes<DP, 4>();
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)flash_bwd_dkdv_wgmma_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_bytes);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute((const void*)flash_bwd_dq_wgmma_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+                             (int)dq_bytes);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)H * S;
   const long long blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
   flash_bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kBwdThreads, 0,
                                           s>>>(
       (const float*)out32, (const __nv_bfloat16*)dout, (float*)delta, rows,
-      DP);
+      d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int tiles = (S + kWgRows - 1) / kWgRows;
-  flash_bwd_dkdv_wgmma_kernel<DP><<<dim3(H / kv_group, tiles), kWgThreads,
-                                    bytes, s>>>(
-      mq, mk, mv, mg, (const float*)lse, (const float*)delta,
-      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, causal, window, kv_group,
-      scale);
+  if constexpr (split)
+    flash_bwd_dkdv_split_wgmma_kernel<DP><<<
+        dim3(H / kv_group, (S + kWgStep - 1) / kWgStep), kWgThreads,
+        dkdv_bytes, s>>>(mq, mk, mv, mg, (const float*)lse,
+                         (const float*)delta, (__nv_bfloat16*)dk,
+                         (__nv_bfloat16*)dv, S, d, causal, window, kv_group,
+                         scale);
+  else
+    flash_bwd_dkdv_wgmma_kernel<DP><<<
+        dim3(H / kv_group, (S + kWgRows - 1) / kWgRows), kWgThreads,
+        dkdv_bytes, s>>>(mq, mk, mv, mg, (const float*)lse,
+                         (const float*)delta, (__nv_bfloat16*)dk,
+                         (__nv_bfloat16*)dv, S, d, causal, window, kv_group,
+                         scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  flash_bwd_dq_wgmma_kernel<DP><<<dim3(H, tiles), kWgThreads, bytes, s>>>(
+  flash_bwd_dq_wgmma_kernel<DP><<<dim3(H, (S + kWgRows - 1) / kWgRows),
+                                  kWgThreads, dq_bytes, s>>>(
       mq, mk, mv, mg, (const float*)lse, (const float*)delta,
-      (__nv_bfloat16*)dq, S, causal, window, kv_group, scale);
+      (__nv_bfloat16*)dq, S, d, causal, window, kv_group, scale);
   return (int)cudaGetLastError();
 }
 
-// ---- forward on wgmma + TMA (bf16, head dims 64 and 128) ----
+// ---- forward on wgmma + TMA (bf16, head dims to 160) ----
 //
 // One block per (query head, 128 queries), causal tails first, 256 threads
 // in two warpgroups of 64 queries; thread 0 issues every TMA load (no
@@ -2060,14 +2358,19 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
 // before tile j - 1's P V, and tile j's softmax runs while P V is on the
 // tensor cores; the output takes its rescale once P V is done.  The
 // output is staged in the warpgroup's q tile under the TMA box's swizzle
-// and stored by TMA, which clips rows past S.
+// and stored by TMA, which clips rows past S and columns past d.  Head
+// dims below DP read zero columns from the tensor maps (head_map); at DP
+// 160 a row is three 64-column slabs (the third holding 32 zeros), Q K^T
+// takes 10 k16 steps (the zeros are never multiplied) and P V runs
+// m64n160, the last slab read for its first 32 columns.
 
 // K and V tiles in flight at most (fewer where a block's 227 KB would not
 // hold them); 2 and 3 lost to 4 on the card (PERF.md)
 constexpr int kFwdStages = 4;
-// blocks an SM: at DP 128 the O accumulator (64 floats a thread), S (32)
-// and P's fragments need more than half of the 255 registers, so one; DP
-// 64 is built for two (128 registers a thread), which beat one
+// blocks an SM: at DP 128 the O accumulator (64 floats a thread; 80 at
+// DP 160), S (32) and P's fragments need more than half of the 255
+// registers, so one; DP 64 is built for two (128 registers a thread),
+// which beat one
 constexpr int fwd_min_blocks(int dp) { return dp <= 64 ? 2 : 1; }
 // the softmax's exponentials run in base 2 (exp2f of the scores scaled by
 // log2(e)); lse is converted back to natural units
@@ -2080,13 +2383,13 @@ __host__ __device__ constexpr int fwd_keys() {
   return TRAIN && DP == 128 ? 128 : 64;
 }
 // a key tile's 64-column slab (its keys' rows of 128 bytes) and the whole
-// tile, DP / 64 slabs
+// tile, wg_slabs(DP) slabs
 template <int DP, bool TRAIN>
 __host__ __device__ constexpr uint32_t fwd_ktile() {
-  return DP / 64 * fwd_keys<DP, TRAIN>() * 128;
+  return wg_slabs(DP) * fwd_keys<DP, TRAIN>() * 128;
 }
 // kFwdStages, or as many as the block's shared memory holds (3 for
-// 128-key tiles at DP 128)
+// 128-key tiles at DP 128 and for DP 160)
 template <int DP, bool TRAIN>
 __host__ __device__ constexpr int fwd_stages() {
   return (int)((232448 - 2048 - 2 * wg_tile<DP>()) /
@@ -2264,7 +2567,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_v,
                        const __grid_constant__ CUtensorMap map_o,
                        float* __restrict__ lse, float* __restrict__ out32,
-                       int S, int causal, int window, int kv_group,
+                       int S, int d, int causal, int window, int kv_group,
                        float scale) {
   constexpr int ST = fwd_stages<DP, TRAIN>(), BK = fwd_keys<DP, TRAIN>();
   constexpr uint32_t TILE = wg_tile<DP>(), KT = fwd_ktile<DP, TRAIN>();
@@ -2298,7 +2601,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int s = j % ST, k0 = (klo + j) * BK;
     const uint32_t bar = full + 8 * s, tile = stages + s * 2 * KT;
     mbar_expect_tx(bar, 2 * KT);
-    for (int b = 0; b < DP / 64; ++b)
+    for (int b = 0; b < wg_slabs(DP); ++b)
       for (int r = 0; r < BK / 64; ++r) {
         const uint32_t at = tile + b * SLAB + r * kWgBox;
         tma_load_3d(at, &map_k, bar, 64 * b, k0 + 64 * r, kvh);
@@ -2309,7 +2612,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (issuer) {
     mbar_expect_tx(fixed, 2 * TILE);
     for (int t = 0; t < 2; ++t)
-      for (int b = 0; b < DP / 64; ++b)
+      for (int b = 0; b < wg_slabs(DP); ++b)
         tma_load_3d(sq + t * TILE + b * kWgBox, &map_q, fixed, 64 * b,
                     q0 + 64 * t, h);
     for (int j = 0; j < tiles && j < ST; ++j) issue(j);
@@ -2419,11 +2722,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         // m is in base 2
         if (tq == 0)
           lse[(long long)h * S + qp] = m[r] / kFwdLog2e + logf(den);
-        float* orow = out32 + ((long long)h * S + qp) * DP + 2 * tq;
+        float* orow = out32 + ((long long)h * S + qp) * d + 2 * tq;
 #pragma unroll
         for (int i = 0; i < DP / 8; ++i)
-          *reinterpret_cast<float2*>(orow + 8 * i) =
-              make_float2(val[2 * i], val[2 * i + 1]);
+          if (8 * i < d)
+            *reinterpret_cast<float2*>(orow + 8 * i) =
+                make_float2(val[2 * i], val[2 * i + 1]);
       }
     }
 #pragma unroll
@@ -2435,7 +2739,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   fence_proxy_async();
   named_barrier(1 + wg, 128);
   if (t == 0) {
-    for (int bx = 0; bx < DP / 64; ++bx)
+    for (int bx = 0; bx < wg_slabs(DP); ++bx)
       tma_store_3d(&map_o, qa + bx * kWgBox, 64 * bx, qw0, h);
     tma_store_drain();
   }
@@ -2444,11 +2748,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int DP, bool TRAIN>
 int launch_fwd_wgmma_as(const void* q, const void* k, const void* v,
                         void* out, void* lse, void* out32, int H, int S,
-                        int causal, int window, int kv_group, float scale,
-                        cudaStream_t s) {
+                        int d, int causal, int window, int kv_group,
+                        float scale, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mo;
-  if (!head_map<DP>(&mq, q, H, S) || !head_map<DP>(&mk, k, H / kv_group, S) ||
-      !head_map<DP>(&mv, v, H / kv_group, S) || !head_map<DP>(&mo, out, H, S))
+  if (!head_map(&mq, q, H, S, d) || !head_map(&mk, k, H / kv_group, S, d) ||
+      !head_map(&mv, v, H / kv_group, S, d) || !head_map(&mo, out, H, S, d))
     return (int)cudaErrorInvalidValue;
   constexpr size_t bytes = fwd_smem_bytes<DP, TRAIN>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -2457,7 +2761,7 @@ int launch_fwd_wgmma_as(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, (S + kWgRows - 1) / kWgRows);
   flash_fwd_wgmma_kernel<DP, TRAIN><<<grid, kWgThreads, bytes, s>>>(
-      mq, mk, mv, mo, (float*)lse, (float*)out32, S, causal, window,
+      mq, mk, mv, mo, (float*)lse, (float*)out32, S, d, causal, window,
       kv_group, scale);
   return (int)cudaGetLastError();
 }
@@ -2465,26 +2769,29 @@ int launch_fwd_wgmma_as(const void* q, const void* k, const void* v,
 // serving (lse null) or training (lse and out32 given)
 template <int DP>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
-                     void* lse, void* out32, int H, int S, int causal,
+                     void* lse, void* out32, int H, int S, int d, int causal,
                      int window, int kv_group, float scale, cudaStream_t s) {
   return lse == nullptr
              ? launch_fwd_wgmma_as<DP, false>(q, k, v, out, lse, out32, H, S,
-                                              causal, window, kv_group, scale,
-                                              s)
+                                              d, causal, window, kv_group,
+                                              scale, s)
              : launch_fwd_wgmma_as<DP, true>(q, k, v, out, lse, out32, H, S,
-                                             causal, window, kv_group, scale,
-                                             s);
+                                             d, causal, window, kv_group,
+                                             scale, s);
 }
 
+// the wgmma kernels' padded head dim for d: 64, 128 or 160
+constexpr int wgmma_dp(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 160; }
+
 // Whether forward route `route` takes this call (see the note at the top):
-// 0 wgmma + TMA (its tensor maps need q, k, v and out on 16-byte
-// boundaries, and out32's rows are written 8 bytes at a time), 1 mma.sync,
-// 2 SIMT
+// 0 wgmma + TMA (d % 8 == 0 up to 160; its tensor maps need q, k, v and
+// out on 16-byte boundaries and rows of a multiple of 16 bytes, and
+// out32's rows are written 8 bytes at a time), 1 mma.sync, 2 SIMT
 bool fwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
                     const void* v, const void* out, const void* out32) {
   switch (route) {
     case 0:
-      return dtype == 1 && (d == 64 || d == 128) &&
+      return dtype == 1 && d % 8 == 0 && d <= 160 &&
              (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
                (uintptr_t)out32) & 15) == 0;
     case 1:
@@ -2497,19 +2804,20 @@ bool fwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
 }
 
 // Whether backward route `route` takes this call (see the note at the top):
-// 0 wgmma + TMA, 1 mma.sync, 2 SIMT
+// 0 wgmma + TMA (bf16, d % 8 == 0 up to 160, 16-byte boundaries), 1
+// mma.sync (bf16 to 160), 2 SIMT (float32, bf16 past 160)
 bool bwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
                     const void* v, const void* dout, const void* dq,
                     const void* dk, const void* dv) {
   switch (route) {
     case 0:
-      return dtype == 1 && (d == 64 || d == 128) &&
+      return dtype == 1 && d % 8 == 0 && d <= 160 &&
              (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
                (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15) == 0;
     case 1:
-      return dtype == 1 && d <= 128;
+      return dtype == 1 && d <= 160;
     case 2:
-      return dtype == 0 || d > 128;
+      return dtype == 0 || d > 160;
     default:
       return false;
   }
@@ -2524,8 +2832,9 @@ bool bwd_route_fits(int route, int dtype, int d, const void* q, const void* k,
 // [1, 256], a kv_group that does not divide H, a grid the card cannot take
 // or a route this call cannot take (fwd_route_fits; never replaced by
 // another).  float32 runs the SIMT kernel (8 or 16 output columns a
-// thread); bfloat16 the wgmma kernel at d 64 and 128, or the mma.sync one
-// with the head dim padded to 32, 64, 128, 160 or 256.  `lse` (float32, H
+// thread); bfloat16 the wgmma kernel (DP 64, 128 or 160, the next at or
+// above d), or the mma.sync one with the head dim padded to 32, 64, 128,
+// 160 or 256.  `lse` (float32, H
 // x S) is written when not null; in bfloat16 it comes with `out32`
 // (float32, H x S x d, the output before its cast; null in float32) and
 // the training instantiation (see flash_attention_tc_kernel).
@@ -2543,13 +2852,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return on_device(device, [&] {
-    if (route == 0)
-      return d == 64 ? launch_fwd_wgmma<64>(q, k, v, out, lse, out32, H, S,
-                                            causal, window, kv_group, scale,
-                                            s)
-                     : launch_fwd_wgmma<128>(q, k, v, out, lse, out32, H, S,
-                                             causal, window, kv_group, scale,
-                                             s);
+    if (route == 0) {
+      if (wgmma_dp(d) == 64)
+        return launch_fwd_wgmma<64>(q, k, v, out, lse, out32, H, S, d, causal,
+                                    window, kv_group, scale, s);
+      if (wgmma_dp(d) == 128)
+        return launch_fwd_wgmma<128>(q, k, v, out, lse, out32, H, S, d,
+                                     causal, window, kv_group, scale, s);
+      return launch_fwd_wgmma<160>(q, k, v, out, lse, out32, H, S, d, causal,
+                                   window, kv_group, scale, s);
+    }
     if (dtype == 0)
       return d <= 128 ? launch_simt<float, 8>(q, k, v, out, lse, H, S, d,
                                               causal, window, kv_group, scale,
@@ -2595,14 +2907,19 @@ extern "C" int flash_attention_bwd_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return on_device(device, [&] {
-    if (route == 0)
-      return d == 64
-                 ? launch_bwd_wgmma<64>(q, k, v, out32, dout, lse, dq, dk, dv,
-                                        delta, H, S, causal, window, kv_group,
-                                        scale, s)
-                 : launch_bwd_wgmma<128>(q, k, v, out32, dout, lse, dq, dk,
-                                         dv, delta, H, S, causal, window,
-                                         kv_group, scale, s);
+    if (route == 0) {
+      if (wgmma_dp(d) == 64)
+        return launch_bwd_wgmma<64>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                    delta, H, S, d, causal, window, kv_group,
+                                    scale, s);
+      if (wgmma_dp(d) == 128)
+        return launch_bwd_wgmma<128>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                     delta, H, S, d, causal, window, kv_group,
+                                     scale, s);
+      return launch_bwd_wgmma<160>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                   delta, H, S, d, causal, window, kv_group,
+                                   scale, s);
+    }
     if (route == 1) {
       if (d <= 32)
         return launch_bwd_tc<32>(q, k, v, out32, dout, lse, dq, dk, dv,
@@ -2612,7 +2929,11 @@ extern "C" int flash_attention_bwd_launch(
         return launch_bwd_tc<64>(q, k, v, out32, dout, lse, dq, dk, dv,
                                  delta, H, S, d, causal, window, kv_group,
                                  scale, s);
-      return launch_bwd_tc<128>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
+      if (d <= 128)
+        return launch_bwd_tc<128>(q, k, v, out32, dout, lse, dq, dk, dv,
+                                  delta, H, S, d, causal, window, kv_group,
+                                  scale, s);
+      return launch_bwd_tc<160>(q, k, v, out32, dout, lse, dq, dk, dv, delta,
                                 H, S, d, causal, window, kv_group, scale, s);
     }
     if (dtype == 1)

@@ -9,10 +9,12 @@ v hold ``H // kv_group`` heads and query head h reads kv head
 (``kv_group=1`` is the TPU kernel's function).  The source is
 ``csrc/flash_attention.cu`` (design and bound are documented there), on
 one of three routes that :func:`fwd_route` picks from the dtype, the head
-dim and the operands' alignment: bfloat16 at d 64 and 128 on ``wgmma`` +
-TMA, the other bfloat16 head dims (padded to 32, 64, 128, 160 or 256 on
-chip) and misaligned bfloat16 views on ``mma.sync``, float32 on a SIMT
-kernel without tensor cores.  Head dims run up to 256.
+dim and the operands' alignment: bfloat16 with ``d % 8 == 0`` up to 160
+on ``wgmma`` + TMA (instantiated at 64, 128 and 160, the next at or above
+d: danube's 120 runs the 128 kernels, reading zero columns past d),
+misaligned bfloat16 views, ``d % 8 != 0`` and d past 160 on ``mma.sync``
+(the head dim padded to 32, 64, 128, 160 or 256 on chip), float32 on a
+SIMT kernel without tensor cores.  Head dims run up to 256.
 
 :func:`flash_attention` is the wrapper the attention layer calls: a CPU
 tensor takes the plain version (:func:`repro_torch.kernels.ref.
@@ -26,8 +28,10 @@ serving's P V rounds P to bf16), its backward is the kernel
 ``flash_attention_bwd`` (:func:`flash_attention_bwd_cuda`, in the same
 source; no atomics, so the same bits on every run) on one of three routes
 that :func:`bwd_route` picks from the dtype, the head dim and the
-operands' alignment: ``wgmma`` + TMA for bf16 at d 64 and 128,
-``mma.sync`` for the other bf16 head dims up to 128, SIMT for the rest.
+operands' alignment: ``wgmma`` + TMA for bf16 with ``d % 8 == 0`` up to
+160 (at d 160 its dk/dv kernel splits dK and dV between the block's two
+warpgroups), ``mma.sync`` for the other bf16 calls up to 160 (``d % 8 !=
+0``, misaligned views), SIMT for float32 and bf16 past 160.
 Importing this module needs no ``nvcc`` and no card.
 """
 from __future__ import annotations
@@ -57,34 +61,44 @@ _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float,
 #: tally
 WGMMA, MMA_SYNC, SIMT = 0, 1, 2
 ROUTE_NAMES = ("wgmma", "mma.sync", "SIMT")
+#: the largest head dim on ``wgmma`` + TMA (its kernels are built at 64,
+#: 128 and 160)
+WGMMA_MAX_HEAD_DIM = 160
+
+
+def _on_wgmma(d: int, aligned: bool) -> bool:
+    """Whether a bfloat16 call at head dim ``d`` takes ``wgmma`` + TMA:
+    operands on 16-byte boundaries and rows of a multiple of 16 bytes, as
+    its tensor maps need, up to ``WGMMA_MAX_HEAD_DIM``."""
+    return aligned and d % 8 == 0 and d <= WGMMA_MAX_HEAD_DIM
 
 
 def fwd_route(dtype: torch.dtype, d: int, aligned: bool = True) -> int:
     """The forward's route for head dim ``d`` in ``dtype``: ``WGMMA``
-    (``wgmma`` + TMA) for bfloat16 at d 64 or 128 when ``aligned``,
-    ``MMA_SYNC`` (``mma.sync``, the head dim padded on chip) for the other
-    bfloat16 head dims up to 256 and for bfloat16 operands TMA cannot
-    take, ``SIMT`` for float32 (whose products on tensor cores would round
-    to TF32).  ``aligned``: whether q, k and v all start on 16-byte
-    boundaries, as TMA needs (out, lse and out32, which the wrapper
-    allocates, always do)."""
+    (``wgmma`` + TMA) for bfloat16 with ``d % 8 == 0`` up to 160 when
+    ``aligned``, ``MMA_SYNC`` (``mma.sync``, the head dim padded on chip)
+    for the other bfloat16 calls up to d 256 (misaligned views, ``d % 8 !=
+    0``, d past 160), ``SIMT`` for float32 (whose products on tensor cores
+    would round to TF32).  ``aligned``: whether q, k and v all start on
+    16-byte boundaries, as TMA needs (out, lse and out32, which the
+    wrapper allocates, always do)."""
     if dtype == torch.bfloat16:
-        return WGMMA if d in (64, 128) and aligned else MMA_SYNC
+        return WGMMA if _on_wgmma(d, aligned) else MMA_SYNC
     return SIMT
 
 
 def bwd_route(dtype: torch.dtype, d: int, aligned: bool = True) -> int:
     """The backward's route for head dim ``d`` in ``dtype``: ``WGMMA``
-    (``wgmma`` + TMA) for bfloat16 at d 64 or 128 when ``aligned``,
-    ``MMA_SYNC`` (``mma.sync``, the head dim padded to 32, 64 or 128 on
-    chip) for the other bfloat16 head dims up to 128 and for bfloat16
-    operands TMA cannot take, ``SIMT`` for float32 (whose products on
-    tensor cores would round to TF32) and for bfloat16 past d 128.
-    ``aligned``: whether q, k, v and dout all start on 16-byte boundaries,
-    as TMA needs (dq, dk and dv, which the wrapper allocates, always
-    do)."""
-    if dtype == torch.bfloat16 and d <= 128:
-        return WGMMA if d in (64, 128) and aligned else MMA_SYNC
+    (``wgmma`` + TMA) for bfloat16 with ``d % 8 == 0`` up to 160 when
+    ``aligned``, ``MMA_SYNC`` (``mma.sync``, the head dim padded to 32,
+    64, 128 or 160 on chip) for the other bfloat16 calls up to d 160
+    (misaligned views, ``d % 8 != 0``), ``SIMT`` for float32 (whose
+    products on tensor cores would round to TF32) and for bfloat16 past d
+    160.  ``aligned``: whether q, k, v and dout all start on 16-byte
+    boundaries, as TMA needs (dq, dk and dv, which the wrapper allocates,
+    always do)."""
+    if dtype == torch.bfloat16 and d <= WGMMA_MAX_HEAD_DIM:
+        return WGMMA if _on_wgmma(d, aligned) else MMA_SYNC
     return SIMT
 
 

@@ -4,9 +4,10 @@ state in shared memory or, for a bucket too large for it, in global
 memory) against the CPU run and the eager loop on the card, bit for bit; the
 language-model kernels (``rmsnorm``, ``fused_swiglu`` on each of its three
 routes, misaligned bf16 included; ``flash_attention`` in float32 and in
-bfloat16 on tensor cores, head dims up to 256: ``wgmma`` + TMA at d 64
-and 128 in both forms, ``mma.sync`` for the other head dims and
-misaligned views, a route the call cannot take refused) against their
+bfloat16 on tensor cores, head dims up to 256: ``wgmma`` + TMA for d %
+8 == 0 up to 160 in both forms (danube's 120 and stablelm's 160 too),
+``mma.sync`` for the other head dims and misaligned views, a route the
+call cannot take refused) against their
 plain versions, on the caller's stream, and smoke-width
 serving on ``cuda`` against the CPU run (one layer each of the MoE and
 Mamba-1 families too, and the MoE dispatch route for route); the PCU
@@ -15,10 +16,11 @@ against its plain version, bit for bit in float32, and the ``ops``
 dispatchers through the kernels; the training kernels (``rmsnorm_bwd``
 a row over 1, 2 or 4 warps and the loop kernel past them, by name,
 ``swiglu_gate_bwd``,
-``flash_attention_bwd`` on each of its routes: ``wgmma`` + TMA in bf16 at
-head dims 64 and 128 (also 200 launches in a row where its warpgroups
-skip leading tiles), ``mma.sync`` for the other bf16 head dims up to 128
-and misaligned views, SIMT past it and in float32, a route the call
+``flash_attention_bwd`` on each of its routes: ``wgmma`` + TMA in bf16
+for d % 8 == 0 up to 160 (also 200 launches in a row where its
+warpgroups skip leading tiles), ``mma.sync`` for the other bf16 head dims
+up to 160 and misaligned views, SIMT past it and in float32, a route the
+call
 cannot take refused; and flash's training forward with its row
 log-sum-exp and float32 output) against autograd of the plain versions,
 twice bit for bit, each by name; a store round trip verified on
@@ -467,7 +469,7 @@ def _kernel_names(fn):
 
 
 @pytest.mark.parametrize("dtype,d,kernel", [
-    (torch.bfloat16, 160, "flash_attention_tc_kernel<160>"),
+    (torch.bfloat16, 160, "flash_fwd_wgmma_kernel<160, false>"),
     (torch.bfloat16, 192, "flash_attention_tc_kernel<256>"),
     (torch.bfloat16, 256, "flash_attention_tc_kernel<256>"),
     (torch.float32, 160, "flash_attention_kernel<float, 16>"),
@@ -480,11 +482,11 @@ def _kernel_names(fn):
                          ids=["causal", "window64", "full"])
 @pytest.mark.parametrize("S,g", [(100, 1), (500, 4)])
 def test_flash_attention_head_dims_to_256(cuda, dtype, d, kernel, kw, S, g):
-    """Head dims past 128 (stablelm_12b's 160; 192 pads to 256): bf16 on
-    the tensor-core kernel at its padded width (serving's instantiation,
-    ``<DP, false>``; the training form is ``<DP, true>``), float32 on the
-    SIMT kernel with 16 output columns a thread, each asserted by the
-    kernel's name."""
+    """Head dims past 128: bf16 at stablelm_12b's 160 on wgmma + TMA, at
+    192 (padded to 256) and 256 on the mma.sync kernel at its padded width
+    (serving's instantiation, ``<DP, false>``; the training form is ``<DP,
+    true>``), float32 on the SIMT kernel with 16 output columns a thread,
+    each asserted by the kernel's name."""
     H = 2 * g
     q = _randn((H, S, d), dtype, cuda, d + S)
     k, v = (_randn((H // g, S, d), dtype, cuda, d + S + i) for i in (1, 2))
@@ -1024,9 +1026,9 @@ def _flash_grads(q, k, v, dout, g, kw):
                                      (4, 1000, 64, 4), (2, 4095, 128, 1),
                                      (4, 4095, 64, 4), (3, 200, 128, 3)])
 def test_flash_attention_backward_matches_plain(cuda, dtype, kw, H, S, d, g):
-    """Every route (bf16 at d 64 and 128 on wgmma + TMA, with S ragged
-    against its 64- and 128-row tiles; other bf16 head dims on mma.sync;
-    bf16 past 128 and float32 on SIMT) in every mask mode."""
+    """Every route (bf16 with d % 8 == 0 up to 160 on wgmma + TMA, with S
+    ragged against its 64- and 128-row tiles; bf16 past 160 and float32
+    on SIMT) in every mask mode."""
     q = _randn((H, S, d), dtype, cuda, 16)
     k, v = (_randn((H // g, S, d), dtype, cuda, i) for i in (17, 18))
     dout = _randn((H, S, d), dtype, cuda, 19)
@@ -1078,8 +1080,10 @@ def test_backward_kernels_are_deterministic_and_named(cuda):
 
 
 @pytest.mark.parametrize("dtype,d,offset,kernels", [
-    (torch.bfloat16, 32, False, ("flash_bwd_dkdv_tc_kernel<32>",
-                                 "flash_bwd_dq_tc_kernel<32>")),
+    (torch.bfloat16, 32, False, ("flash_bwd_dkdv_wgmma_kernel<64>",
+                                 "flash_bwd_dq_wgmma_kernel<64>")),
+    (torch.bfloat16, 32, True, ("flash_bwd_dkdv_tc_kernel<32>",
+                                "flash_bwd_dq_tc_kernel<32>")),
     (torch.bfloat16, 64, False, ("flash_bwd_dkdv_wgmma_kernel<64>",
                                  "flash_bwd_dq_wgmma_kernel<64>")),
     (torch.bfloat16, 128, False, ("flash_bwd_dkdv_wgmma_kernel<128>",
@@ -1088,9 +1092,18 @@ def test_backward_kernels_are_deterministic_and_named(cuda):
                                 "flash_bwd_dq_tc_kernel<64>")),
     (torch.bfloat16, 128, True, ("flash_bwd_dkdv_tc_kernel<128>",
                                  "flash_bwd_dq_tc_kernel<128>")),
-    (torch.bfloat16, 80, False, ("flash_bwd_dkdv_tc_kernel<128>",
-                                 "flash_bwd_dq_tc_kernel<128>")),
+    (torch.bfloat16, 80, False, ("flash_bwd_dkdv_wgmma_kernel<128>",
+                                 "flash_bwd_dq_wgmma_kernel<128>")),
+    (torch.bfloat16, 100, False, ("flash_bwd_dkdv_tc_kernel<128>",
+                                  "flash_bwd_dq_tc_kernel<128>")),
+    (torch.bfloat16, 120, False, ("flash_bwd_dkdv_wgmma_kernel<128>",
+                                  "flash_bwd_dq_wgmma_kernel<128>")),
     (torch.bfloat16, 160, False,
+     ("flash_bwd_dkdv_split_wgmma_kernel<160>",
+      "flash_bwd_dq_wgmma_kernel<160>")),
+    (torch.bfloat16, 160, True, ("flash_bwd_dkdv_tc_kernel<160>",
+                                 "flash_bwd_dq_tc_kernel<160>")),
+    (torch.bfloat16, 168, False,
      ("flash_bwd_dkdv_kernel<__nv_bfloat16, 2, 16>",
       "flash_bwd_dq_kernel<__nv_bfloat16, 2, 16>")),
     (torch.float32, 128, False, ("flash_bwd_dkdv_kernel<float, 4, 8>",
@@ -1098,11 +1111,12 @@ def test_backward_kernels_are_deterministic_and_named(cuda):
 ])
 def test_flash_backward_route_by_dtype_and_head_dim(cuda, dtype, d, offset,
                                                     kernels):
-    """The route rule on the card: bf16 at d 64 and 128 on wgmma + TMA, a
-    misaligned bf16 view (q one element into its storage) and the other
-    bf16 head dims up to 128 on mma.sync (the head dim padded to 32, 64 or
-    128), past it and in float32 on SIMT, each asserted by name; the
-    gradients within ``TOL`` of the plain ones."""
+    """The route rule on the card: bf16 with d % 8 == 0 up to 160 on
+    wgmma + TMA (at 64, 128 and 160; the split dk/dv partition at 160), a
+    misaligned bf16 view (q one element into its storage) and d % 8 != 0
+    up to 160 on mma.sync (the head dim padded to 32, 64, 128 or 160),
+    past 160 and in float32 on SIMT, each asserted by name; the gradients
+    within ``TOL`` of the plain ones."""
     H, S, g = 4, 200, 2
     q = (_flat_offset(H * S * d, dtype, cuda, 30).view(H, S, d) if offset
          else _randn((H, S, d), dtype, cuda, 30))
@@ -1126,16 +1140,19 @@ def test_flash_backward_route_by_dtype_and_head_dim(cuda, dtype, d, offset,
 def test_flash_backward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
     """A route the call cannot take is refused by the C entry
     (cudaErrorInvalidValue), never replaced by another: wgmma at head dim
-    80, in float32 or on a q off a 16-byte boundary (no tensor map on it),
-    mma.sync in float32 or past d 128, SIMT for bf16 at d 128."""
+    100 (rows not a multiple of 16 bytes) or 168 (past 160), in float32 or
+    on a q off a 16-byte boundary (no tensor map on it), mma.sync in
+    float32 or past d 160, SIMT for bf16 at d 128 and 160."""
     from repro_torch.kernels import flash_attention as fa
 
-    for dtype, d, offset, route in [(torch.bfloat16, 80, False, fa.WGMMA),
+    for dtype, d, offset, route in [(torch.bfloat16, 100, False, fa.WGMMA),
+                                    (torch.bfloat16, 168, False, fa.WGMMA),
                                     (torch.float32, 128, False, fa.WGMMA),
                                     (torch.bfloat16, 128, True, fa.WGMMA),
                                     (torch.float32, 64, False, fa.MMA_SYNC),
-                                    (torch.bfloat16, 160, False, fa.MMA_SYNC),
-                                    (torch.bfloat16, 128, False, fa.SIMT)]:
+                                    (torch.bfloat16, 168, False, fa.MMA_SYNC),
+                                    (torch.bfloat16, 128, False, fa.SIMT),
+                                    (torch.bfloat16, 160, False, fa.SIMT)]:
         q = (_flat_offset(2 * 64 * d, dtype, cuda, 34).view(2, 64, d)
              if offset else _randn((2, 64, d), dtype, cuda, 34))
         _, lse, out32 = flash_attention_cuda(q, q, q, train=True)
@@ -1147,10 +1164,13 @@ def test_flash_backward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
 #: bf16 flash backward cases (H, S, d, kv_group, mask) on wgmma whose
 #: warpgroups skip leading tiles of a block's run: causal dk/dv (the second
 #: warpgroup skips each head's leading query tile) and windowed dq (leading
-#: key tiles miss a warpgroup's queries)
-SKIP_CASES = [(6, 4096, d, 3, dict(causal=True)) for d in (64, 128)] + [
+#: key tiles miss a warpgroup's queries); at d 120 and 160 too (danube's
+#: and stablelm's; at 160 dk/dv's warpgroups share their keys and skip
+#: nothing, dq skips as at the others)
+SKIP_CASES = [(6, 4096, d, 3, dict(causal=True))
+              for d in (64, 128, 120, 160)] + [
     (6, S, d, 3, dict(causal=True, window=w)) for w in (64, 256)
-    for S in (1024, 4096) for d in (64, 128)]
+    for S in (1024, 4096) for d in (64, 128, 120, 160)]
 
 
 @pytest.mark.parametrize(
@@ -1191,11 +1211,11 @@ def test_flash_backward_skipped_tiles_back_to_back(cuda, H, S, d, g, kw):
 @pytest.mark.parametrize("kw", FLASH_KW, ids=FLASH_KW_IDS)
 @pytest.mark.parametrize("g", [1, 3])
 @pytest.mark.parametrize("S", [1, 63, 128, 500, 1000])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 120, 160])
 def test_flash_forward_wgmma_matches_plain(cuda, d, S, g, kw, train):
-    """The bf16 forward on wgmma + TMA (d 64 and 128, aligned operands) in
-    both forms, S ragged against its 64- or 128-key and 128-query tiles,
-    grouped
+    """The bf16 forward on wgmma + TMA (d 64 and 128, danube's 120 on the
+    128 kernel, stablelm's 160; aligned operands) in both forms, S ragged
+    against its 64- or 128-key and 128-query tiles, grouped
     kv heads, every mask mode: the output within ``TOL`` of plain; the
     training form's row log-sum-exp and float32 output within float32's
     ``TOL`` of the plain ones in float32, the output its cast."""
@@ -1231,13 +1251,20 @@ def test_flash_forward_wgmma_matches_plain(cuda, d, S, g, kw, train):
     (64, False, True, "flash_fwd_wgmma_kernel<64, true>"),
     (128, True, False, "flash_attention_tc_kernel<128, false>"),
     (64, True, True, "flash_attention_tc_kernel<64, true>"),
+    (120, False, False, "flash_fwd_wgmma_kernel<128, false>"),
+    (120, False, True, "flash_fwd_wgmma_kernel<128, true>"),
+    (160, False, False, "flash_fwd_wgmma_kernel<160, false>"),
+    (160, False, True, "flash_fwd_wgmma_kernel<160, true>"),
+    (160, True, False, "flash_attention_tc_kernel<160, false>"),
+    (168, False, True, "flash_attention_tc_kernel<256, true>"),
 ])
 def test_flash_forward_route_by_alignment_named_and_deterministic(
         cuda, d, offset, train, kernel):
-    """The forward's route on the card, by kernel name: bf16 at d 64 and
-    128 on wgmma + TMA, a q one element into its storage (no tensor map
-    on it) on mma.sync; twice on the same inputs, the same bits (no
-    atomics); the output within ``TOL`` of plain."""
+    """The forward's route on the card, by kernel name: bf16 with d % 8
+    == 0 up to 160 on wgmma + TMA (120 on the 128 kernel), a q one element
+    into its storage (no tensor map on it) and d past 160 on mma.sync;
+    twice on the same inputs, the same bits (no atomics); the output
+    within ``TOL`` of plain."""
     H, S, g = 6, 700, 3
     q = (_flat_offset(H * S * d, torch.bfloat16, cuda, 95).view(H, S, d)
          if offset else _randn((H, S, d), torch.bfloat16, cuda, 95))
@@ -1261,12 +1288,13 @@ def test_flash_forward_route_by_alignment_named_and_deterministic(
 def test_flash_forward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
     """A forward route the call cannot take is refused by the C entry
     (cudaErrorInvalidValue), never replaced by another: wgmma at head dim
-    80 or 160, in float32 or on a q off a 16-byte boundary, mma.sync in
-    float32, SIMT for bf16; in both forms."""
+    100 (rows not a multiple of 16 bytes) or 168 (past 160), in float32 or
+    on a q off a 16-byte boundary, mma.sync in float32, SIMT for bf16; in
+    both forms."""
     from repro_torch.kernels import flash_attention as fa
 
-    for dtype, d, offset, route in [(torch.bfloat16, 80, False, fa.WGMMA),
-                                    (torch.bfloat16, 160, False, fa.WGMMA),
+    for dtype, d, offset, route in [(torch.bfloat16, 100, False, fa.WGMMA),
+                                    (torch.bfloat16, 168, False, fa.WGMMA),
                                     (torch.float32, 128, False, fa.WGMMA),
                                     (torch.bfloat16, 128, True, fa.WGMMA),
                                     (torch.float32, 64, False, fa.MMA_SYNC),
@@ -1279,6 +1307,52 @@ def test_flash_forward_refuses_a_route_it_cannot_take(cuda, monkeypatch):
             with pytest.raises(RuntimeError, match="launch failed"):
                 flash_attention_cuda(q, q, q, train=train)
             assert flash_attention_cuda.launches == before
+
+
+#: danube's and stablelm's head dims on wgmma + TMA: (d, kv_group, S, mask),
+#: S not a multiple of 64, windows shorter and longer than a tile run
+WIDE_HEADS = [(d, g, S, kw) for d in (120, 160) for g in (1, 4)
+              for S in (200, 1000)
+              for kw in (dict(causal=True), dict(causal=True, window=64),
+                         dict(causal=True, window=256))]
+
+
+@pytest.mark.parametrize(
+    "d,g,S,kw", WIDE_HEADS,
+    ids=[f"d{d}-g{g}-S{S}-" + (f"window{kw['window']}" if "window" in kw
+                               else "causal") for d, g, S, kw in WIDE_HEADS])
+def test_flash_wide_heads_forward_and_gradients_match_plain(cuda, d, g, S,
+                                                            kw):
+    """bf16 at d 120 (the DP-128 kernels, 8 zero columns from the tensor
+    maps) and 160 (three slabs; dk/dv split between the warpgroups) on
+    wgmma + TMA: serving's output, the training form's output and the
+    gradients within ``TOL`` of plain, the training form and the gradients
+    the same bits on two runs."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bf = torch.bfloat16
+    assert fa.fwd_route(bf, d) == fa.bwd_route(bf, d) == fa.WGMMA
+    H = 2 * g
+    q = _randn((H, S, d), bf, cuda, 120 + d)
+    k, v = (_randn((H // g, S, d), bf, cuda, 121 + d + i) for i in (0, 1))
+    dout = _randn((H, S, d), bf, cuda, 123 + d)
+    want = ref.flash_attention(q, k, v, kv_group=g, **kw)
+    _assert_close(flash_attention_cuda(q, k, v, kv_group=g, **kw), want, bf)
+    train = [flash_attention_cuda(q, k, v, kv_group=g, train=True, **kw)
+             for _ in range(2)]
+    grads = [flash_attention_bwd_cuda(q, k, v, train[0][2], dout,
+                                      train[0][1], kv_group=g, **kw)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for u, w in zip(*train):
+        assert torch.equal(u, w)
+    for u, w in zip(*grads):
+        assert torch.equal(u, w)
+    _assert_close(train[0][0], want, bf)
+    plain = _plain_grads(lambda a, b, c: ref.flash_attention(
+        a, b, c, kv_group=g, **kw), (q, k, v), dout)
+    for got, w in zip(grads[0], plain):
+        _assert_close(got, w, bf)
 
 
 #: rmsnorm_bwd's widths past one warp's registers and around the routes'

@@ -546,7 +546,8 @@ def test_fake_cuda_tensors_take_the_rule_without_a_card():
 
 def test_fake_routes_read_alignment_from_the_storage_offset():
     """A bf16 view 2 bytes past a 16-byte boundary takes fused_swiglu's
-    SIMT route and flash's backward ``mma.sync``, as an address would."""
+    SIMT route and flash's backward ``mma.sync``, as an address would; at
+    d 64 and at stablelm's 160."""
     with FakeTensorMode(), fake.tally("cuda") as t:
         w = torch.empty(64, 128, dtype=torch.bfloat16)
         x = torch.empty(32 * 64 + 1, dtype=torch.bfloat16)
@@ -555,20 +556,22 @@ def test_fake_routes_read_alignment_from_the_storage_offset():
         from repro_torch.kernels.flash_attention import \
             flash_attention_bwd_cuda
 
-        q = torch.empty(2 * 64 * 64 + 1, dtype=torch.bfloat16)
-        lse, o32 = torch.empty(2, 64), torch.empty(2, 64, 64)
-        for view in (q[:-1], q[1:]):
-            v = view.view(2, 64, 64)
-            flash_attention_bwd_cuda(v, v, v, o32, v, lse)
+        for d in (64, 160):
+            q = torch.empty(2 * 64 * d + 1, dtype=torch.bfloat16)
+            lse, o32 = torch.empty(2, 64), torch.empty(2, 64, d)
+            for view in (q[:-1], q[1:]):
+                v = view.view(2, 64, d)
+                flash_attention_bwd_cuda(v, v, v, o32, v, lse)
     assert t.routes == {"fused_swiglu": {"tensor cores": 1, "SIMT": 1},
-                        "flash_attention_bwd": {"wgmma": 1, "mma.sync": 1}}
+                        "flash_attention_bwd": {"wgmma": 2, "mma.sync": 2}}
 
 
 def test_fake_forward_records_its_route():
     """The flash forward's fake rule records :func:`fwd_route`'s route:
     bf16 at d 64 on ``wgmma``, the same q 2 bytes past a 16-byte boundary
-    on ``mma.sync``, bf16 at d 160 on ``mma.sync``, float32 on ``SIMT``;
-    in both forms, and no launch counted."""
+    on ``mma.sync``, bf16 at d 160 on ``wgmma``, at d 192 on
+    ``mma.sync``, float32 on ``SIMT``; in both forms, and no launch
+    counted."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     before = _counts()
@@ -578,14 +581,34 @@ def test_fake_forward_records_its_route():
             for view in (q[:-1], q[1:]):
                 v = view.view(2, 64, 64)
                 flash_attention_cuda(v, v, v, train=train)
-            w = torch.empty(2, 64, 160, dtype=torch.bfloat16)
-            flash_attention_cuda(w, w, w, train=train)
+            for d in (160, 192):
+                w = torch.empty(2, 64, d, dtype=torch.bfloat16)
+                flash_attention_cuda(w, w, w, train=train)
             f = torch.empty(2, 64, 64)
             flash_attention_cuda(f, f, f, train=train)
-    assert t.calls == {"flash_attention": 8}
-    assert t.routes == {"flash_attention": {"wgmma": 2, "mma.sync": 4,
+    assert t.calls == {"flash_attention": 10}
+    assert t.routes == {"flash_attention": {"wgmma": 4, "mma.sync": 4,
                                             "SIMT": 2}}
     assert _counts() == before
+
+
+def test_stablelm_train_step_runs_flash_on_wgmma():
+    """stablelm_12b's train path as ``chip_smoke.py`` cuts it
+    (``TRAIN_RUNS``: 4 layers, batch x sequence ``TRAIN_SHAPE``) at world 1
+    on fake tensors: flash's training forward and its backward at head dim
+    160 take ``wgmma``, and the kernel calls are ``train_launches``'."""
+    layers = CS.TRAIN_RUNS["stablelm_12b"]
+    B, T = CS.TRAIN_SHAPE
+    shape = ShapeSpec("train_4k", T, B, "train")
+    with host_mesh(device="cpu") as mesh:
+        rec = dryrun.run_cell("stablelm_12b", shape.name, False, shape=shape,
+                              mesh=mesh, cfg_overrides={"n_layers": layers})
+    assert rec["status"] == "ok", rec
+    cfg = get_config("stablelm_12b").replace(n_layers=layers)
+    assert cfg.resolved_head_dim == 160
+    assert rec["kernels"] == CS.train_launches(cfg, 1)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert rec["kernel_routes"][name] == {"wgmma": rec["kernels"][name]}
 
 
 # ---------------------------------------------------------------------------

@@ -244,18 +244,25 @@ def test_fused_swiglu_wrapper_routes_offset_views_to_simt(monkeypatch,
 
 #: (dtype, head dim, 16-byte aligned operands, the backward's route)
 BWD_ROUTES = [
-    # bf16 at d 64 and 128 with operands TMA can take: wgmma + TMA
+    # bf16 with d % 8 == 0 up to 160 and operands TMA can take: wgmma +
+    # TMA (built at 64, 128 and 160; danube's 120 and stablelm's 160)
     ("bfloat16", 128, True, fa.WGMMA),
     ("bfloat16", 64, True, fa.WGMMA),
-    # the other bf16 head dims up to 128, and misaligned bf16: mma.sync
+    ("bfloat16", 32, True, fa.WGMMA),
+    ("bfloat16", 80, True, fa.WGMMA),
+    ("bfloat16", 96, True, fa.WGMMA),
+    ("bfloat16", 120, True, fa.WGMMA),
+    ("bfloat16", 160, True, fa.WGMMA),
+    # misaligned bf16 and d % 8 != 0 up to 160: mma.sync
     ("bfloat16", 128, False, fa.MMA_SYNC),
     ("bfloat16", 64, False, fa.MMA_SYNC),
-    ("bfloat16", 32, True, fa.MMA_SYNC),
-    ("bfloat16", 80, True, fa.MMA_SYNC),
-    ("bfloat16", 96, True, fa.MMA_SYNC),
+    ("bfloat16", 120, False, fa.MMA_SYNC),
+    ("bfloat16", 160, False, fa.MMA_SYNC),
+    ("bfloat16", 100, True, fa.MMA_SYNC),
     ("bfloat16", 1, True, fa.MMA_SYNC),
-    # float32 (TF32 products would miss its tolerance) and bf16 past 128
-    ("bfloat16", 160, True, fa.SIMT),
+    # float32 (TF32 products would miss its tolerance) and bf16 past 160
+    ("bfloat16", 168, True, fa.SIMT),
+    ("bfloat16", 192, True, fa.SIMT),
     ("bfloat16", 256, True, fa.SIMT),
     ("bfloat16", 256, False, fa.SIMT),
     ("float32", 64, True, fa.SIMT),
@@ -329,7 +336,7 @@ def test_flash_bwd_wrapper_passes_its_route(monkeypatch, dtype, d, aligned,
 
 
 @pytest.mark.parametrize("offset", ["q", "k", "v", "dout", None])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 120, 160])
 def test_flash_bwd_wrapper_routes_offset_views_to_mma_sync(monkeypatch,
                                                            offset, d):
     """A contiguous bf16 operand one element into its storage (2 bytes past
@@ -354,16 +361,22 @@ def test_flash_bwd_wrapper_routes_offset_views_to_mma_sync(monkeypatch,
 
 #: (dtype, head dim, 16-byte aligned q, k and v, the forward's route)
 FWD_ROUTES = [
-    # bf16 at d 64 and 128 with operands TMA can take: wgmma + TMA
+    # bf16 with d % 8 == 0 up to 160 and operands TMA can take: wgmma +
+    # TMA (built at 64, 128 and 160; danube's 120 and stablelm's 160)
     ("bfloat16", 128, True, fa.WGMMA),
     ("bfloat16", 64, True, fa.WGMMA),
-    # the other bf16 head dims up to 256, and misaligned bf16: mma.sync
+    ("bfloat16", 32, True, fa.WGMMA),
+    ("bfloat16", 80, True, fa.WGMMA),
+    ("bfloat16", 120, True, fa.WGMMA),
+    ("bfloat16", 160, True, fa.WGMMA),
+    # misaligned bf16, d % 8 != 0 and d past 160 up to 256: mma.sync
     ("bfloat16", 128, False, fa.MMA_SYNC),
     ("bfloat16", 64, False, fa.MMA_SYNC),
-    ("bfloat16", 32, True, fa.MMA_SYNC),
-    ("bfloat16", 80, True, fa.MMA_SYNC),
-    ("bfloat16", 120, True, fa.MMA_SYNC),
-    ("bfloat16", 160, True, fa.MMA_SYNC),
+    ("bfloat16", 120, False, fa.MMA_SYNC),
+    ("bfloat16", 160, False, fa.MMA_SYNC),
+    ("bfloat16", 100, True, fa.MMA_SYNC),
+    ("bfloat16", 168, True, fa.MMA_SYNC),
+    ("bfloat16", 192, True, fa.MMA_SYNC),
     ("bfloat16", 256, True, fa.MMA_SYNC),
     ("bfloat16", 256, False, fa.MMA_SYNC),
     ("bfloat16", 1, True, fa.MMA_SYNC),
@@ -439,7 +452,7 @@ def test_flash_fwd_wrapper_passes_its_route(monkeypatch, dtype, d, aligned,
 
 
 @pytest.mark.parametrize("offset", ["q", "k", "v", None])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 120, 160])
 def test_flash_fwd_wrapper_routes_offset_views_to_mma_sync(monkeypatch,
                                                            offset, d):
     """A contiguous bf16 q, k or v one element into its storage (2 bytes
