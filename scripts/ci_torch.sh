@@ -38,7 +38,8 @@ CI_BENCH_OUT="${CI_BENCH_OUT:-build/ci_torch/BENCH_mapper_torch.json}"
 #: the port's test files that import neither jax nor repro, the tier-1
 #: tests on a card (tests/test_torch_ci.py holds the list to that rule)
 CUDA_TESTS="tests/test_torch_cuda.py tests/test_torch_examples.py
-            tests/test_torch_imports.py tests/test_torch_launch.py"
+            tests/test_torch_imports.py tests/test_torch_launch.py
+            tests/test_torch_tracing.py"
 
 WORK=$(mktemp -d)
 trap 'rm -rf "$WORK"' EXIT

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch import tracing
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_swiglu import fused_swiglu
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -269,8 +270,8 @@ def attention_param_spec(cfg) -> Dict[str, Spec]:
 
 
 def attention_qkv(cfg, w, x, positions):
-    """Projections + qk-norm + RoPE.  Returns q (B,T,Hq,hd), k, v
-    (B,T,Hkv,hd)."""
+    """Projections + qk-norm + RoPE (span ``model.rope``).  Returns q
+    (B,T,Hq,hd), k, v (B,T,Hkv,hd)."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ w["wq"]).reshape(B, T, cfg.n_heads, hd)
@@ -280,8 +281,9 @@ def attention_qkv(cfg, w, x, positions):
         q = rms_norm(q, w["q_norm"])
         k = rms_norm(k, w["k_norm"])
     sections = cfg.m_rope_sections if cfg.m_rope else None
-    q = apply_rope(q, positions, cfg.rope_theta, sections)
-    k = apply_rope(k, positions, cfg.rope_theta, sections)
+    with tracing.span("model.rope"):
+        q = apply_rope(q, positions, cfg.rope_theta, sections)
+        k = apply_rope(k, positions, cfg.rope_theta, sections)
     return q, k, v
 
 
@@ -305,8 +307,9 @@ def attention_layer(cfg, w, x, positions, *, causal=True,
         q = (x @ w["wq"]).reshape(B, T, cfg.n_heads, hd)
         if cfg.qk_norm:
             q = rms_norm(q, w["q_norm"])
-        q = apply_rope(q, positions, cfg.rope_theta,
-                       cfg.m_rope_sections if cfg.m_rope else None)
+        with tracing.span("model.rope"):
+            q = apply_rope(q, positions, cfg.rope_theta,
+                           cfg.m_rope_sections if cfg.m_rope else None)
         S = cross_x.shape[1]
         k = (cross_x @ w["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
         v = (cross_x @ w["wv"]).reshape(B, S, cfg.n_kv_heads, hd)

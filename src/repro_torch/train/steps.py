@@ -16,6 +16,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import zoo
 from repro_torch.parallel.compression import compress_tree_int8
@@ -48,26 +49,32 @@ def value_and_grad(cfg: ModelConfig, model: torch.nn.Module,
                    batch: Dict):
     """(loss, metrics, grads): the loss of ``batch`` and, in the model's
     gradient tree (zeroed first), its gradient with respect to
-    every parameter: ``jax.value_and_grad`` of ``zoo.loss_fn``."""
+    every parameter: ``jax.value_and_grad`` of ``zoo.loss_fn``.  Spans
+    ``train.forward`` and ``train.backward`` (``repro_torch.tracing``)."""
     grads = grads_of(model)
     for g in leaves(grads):
         g.zero_()
-    loss, metrics = zoo.loss_fn(cfg, model, batch)
-    loss.backward()
+    with tracing.span("train.forward"):
+        loss, metrics = zoo.loss_fn(cfg, model, batch)
+    with tracing.span("train.backward"):
+        loss.backward()
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig):
     """One optimizer step: forward, backward, the optional int8 gradient
-    compression, AdamW."""
+    compression, AdamW; spans ``train.step`` and, inside it,
+    ``train.optimizer``."""
     ocfg = adamw_config(cfg, run)
 
     def train_step(model, opt_state, batch):
-        _, metrics, grads = value_and_grad(cfg, model, batch)
-        if run.grad_compression == "int8":
-            grads = compress_tree_int8(grads)
-        _, opt_state, om = opt_lib.apply_updates(model.params, grads,
-                                                 opt_state, ocfg)
+        with tracing.span("train.step"):
+            _, metrics, grads = value_and_grad(cfg, model, batch)
+            if run.grad_compression == "int8":
+                grads = compress_tree_int8(grads)
+            with tracing.span("train.optimizer"):
+                _, opt_state, om = opt_lib.apply_updates(model.params, grads,
+                                                         opt_state, ocfg)
         return model, opt_state, dict(metrics, **om)
 
     return train_step
@@ -76,24 +83,28 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
 def make_grad_accum_step(cfg: ModelConfig, run: RunConfig):
     """Micro-batched gradient accumulation: the batch's leaves are (accum,
     micro_batch, ...); each micro-batch's gradient is added into a float32
-    tree, whose mean over the micro-batches the optimizer takes."""
+    tree, whose mean over the micro-batches the optimizer takes.  Spans
+    as :func:`make_train_step`'s (a forward and a backward a
+    micro-batch)."""
     assert run.grad_accum > 1
     ocfg = adamw_config(cfg, run)
 
     def step(model, opt_state, batch):
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), model.params)
-        losses = []
-        for i in range(run.grad_accum):
-            mb = {k: v[i] for k, v in batch.items()}
-            loss, _, grads = value_and_grad(cfg, model, mb)
-            for a, g in zip(leaves(acc), leaves(grads)):
-                for sa, sg in zip(slices(a), slices(g)):
-                    sa.add_(sg.float())
-            losses.append(loss)
-        grads = tree_map(lambda a: a / run.grad_accum, acc)
-        _, opt_state, om = opt_lib.apply_updates(model.params, grads,
-                                                 opt_state, ocfg)
+        with tracing.span("train.step"):
+            acc = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), model.params)
+            losses = []
+            for i in range(run.grad_accum):
+                mb = {k: v[i] for k, v in batch.items()}
+                loss, _, grads = value_and_grad(cfg, model, mb)
+                for a, g in zip(leaves(acc), leaves(grads)):
+                    for sa, sg in zip(slices(a), slices(g)):
+                        sa.add_(sg.float())
+                losses.append(loss)
+            grads = tree_map(lambda a: a / run.grad_accum, acc)
+            with tracing.span("train.optimizer"):
+                _, opt_state, om = opt_lib.apply_updates(model.params, grads,
+                                                         opt_state, ocfg)
         return model, opt_state, dict(loss=torch.stack(losses).mean(), **om)
 
     return step

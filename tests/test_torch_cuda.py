@@ -1554,3 +1554,85 @@ def test_rope_frequencies_are_the_cpus_bits(cuda, head_dim, theta):
     got = L.apply_rope(x.cuda(), pos.cuda(), theta).cpu()
     want = L.apply_rope(x, pos, theta)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_spans_of_a_train_step_and_generate_on_the_card(cuda):
+    """``repro_torch.tracing`` on the card: a smoke-width train step under
+    the profiler gives ``train.step`` as a host range with its three
+    phases inside it, each timed with device time; the remat recompute's
+    ``model.rope`` spans, opened on autograd's device thread, lie inside
+    ``train.backward``; no span is drawn on the device's timeline; and a
+    one-token ``generate`` gives ``serve.prefill`` inside
+    ``serve.generate``, over the interval ``prefill_s`` times.  Without the
+    profiler nothing is kept."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.loop import batch_to
+
+    def ranges(prof, name):
+        return [(e.time_range.start, e.time_range.end)
+                for e in prof.events() if e.name == name
+                and e.device_type == torch.autograd.DeviceType.CPU]
+
+    def inside(prof, name, outer):
+        outs = ranges(prof, outer)
+        return sum(any(s <= a and b <= t for s, t in outs)
+                   for a, b in ranges(prof, name))
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = smoke_config("llama3_2_3b").replace(n_layers=2, remat="dots")
+    shape = ShapeSpec("s", 64, 2, "train")
+    run = RunConfig(model=cfg, shape=shape)
+    model = zoo.build(cfg, _tree_to(zoo.init_model(
+        cfg, torch.Generator().manual_seed(0), "cpu", torch.float32).params,
+        cuda))
+    state = opt_lib.init_opt_state(model.params, steps.adamw_config(cfg, run))
+    batch = batch_to(batch_for_step(cfg, shape, 0, 0), cuda, torch.float32)
+    step = steps.make_train_step(cfg, run)
+    tracing.reset()
+    step(model, state, batch)
+    assert tracing.totals() == {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(model, state, batch)
+        torch.cuda.synchronize()
+    # a span is a host range only: nothing of it on the device's timeline
+    assert not [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name.startswith(("train.", "model.", "serve."))]
+    assert len(ranges(prof, "train.step")) == 1
+    for name in ("train.forward", "train.backward", "train.optimizer"):
+        assert inside(prof, name, "train.step") == 1, (name, ranges(
+            prof, name), ranges(prof, "train.step"))
+    spans = {n: ranges(prof, n) for n in (
+        "train.step", "train.forward", "train.backward", "model.rope")}
+    assert inside(prof, "model.rope", "train.forward") == 2, spans
+    assert inside(prof, "model.rope", "train.backward") == 2, spans
+    t = tracing.totals()
+    assert {n: v.count for n, v in t.items()} == {
+        "train.forward": 1, "train.backward": 1, "train.optimizer": 1,
+        "model.rope": 4}
+    assert all(v.device_s and v.device_s > 0 for v in t.values()), t
+    tracing.reset()
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                            device=cuda)
+    generate(cfg, model, prompts, max_new_tokens=1)  # first call unprofiled
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, info = generate(cfg, model, prompts, max_new_tokens=1)
+    assert inside(prof, "serve.prefill", "serve.generate") == 1
+    [(s, e)] = ranges(prof, "serve.prefill")
+    assert 1e-6 * (e - s) == pytest.approx(info["prefill_s"], abs=2e-3), \
+        (s, e, info)
+    t = tracing.totals()
+    assert set(t) == {"model.rope"} and t["model.rope"].count == 2
+    assert t["model.rope"].device_s > 0
+    tracing.reset()
