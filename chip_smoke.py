@@ -173,7 +173,14 @@ Phases, in order; any failure exits non-zero before the last line:
    atomics), each kernel by name in a trace, timed beside its plain
    version, its bound (flash's also beside its design's floor) and its
    yardstick (the backward of ``F.rms_norm`` and of SDPA, in turns,
-   device times from traces that name their kernels);
+   device times from traces that name their kernels); AdamW's two kernels
+   (``global_norm_cuda`` + ``adamw_update_cuda``) at ``ADAMW_TREE``, the
+   benchmark's training tree (bf16 params and grads, float32 moments with
+   history): p, m and v bit for bit the loop's (``plain_update``) given
+   the kernels' clip scale, the norm within ``ADAMW_NORM_RTOL`` of the
+   loop's and the same bits twice, by name in a trace, timed beside the
+   loop, the byte bound and the yardstick (``clip_grad_norm_`` +
+   ``AdamW(fused=True)``, bf16 moments: another function), in turns;
 11. train path: ``python -m repro_torch.launch.train --arch A --batch 4
    --seq 4096 --steps 4`` on ``cuda`` at full width (the fourth main
    path, the launch counters read just around each run) for A =
@@ -188,10 +195,11 @@ Phases, in order; any failure exits non-zero before the last line:
    4``) and qwen2_vl_72b (vlm: M-RoPE and ``embeds`` in training;
    ``--layers 2``) (``TRAIN_RUNS``): finite losses, the first (moe: its
    nll) within 0.1 of ln V, finite gradient norms, exactly the launches
-   of ``train_launches`` (llama 4 x 113 / 57 / 56 / 28 / 56 / 28:
-   rmsnorm, its backward, fused_swiglu, the gate's backward,
-   flash_attention, its backward; one formula a family, written out
-   there), its ``time:`` line, and one more step traced, with every
+   of ``train_launches`` (llama 4 x 113 / 57 / 56 / 28 / 56 / 28 / 1 /
+   1: rmsnorm, its backward, fused_swiglu, the gate's backward,
+   flash_attention, its backward, AdamW's norm and its update; one
+   formula a family, written out there), its ``time:`` line, and one more
+   step traced, with every
    kernel of ``train_kernel_names`` by name and its device time by kind;
    then the card against the CPU in float32 at full width, batch 2 x 256
    (2 layers, the first of the full draw or the depth cut; zamba2 7,
@@ -256,7 +264,7 @@ LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
                "flash_attention": "src/repro/kernels/flash_attention.py:70"}
 MOTIF_SOURCE = "src/repro_torch/kernels/csrc/motif_pcu.cu"
 MOTIF_REPLACES = "src/repro/kernels/motif_pcu.py:38"
-KERNELS = ["sim_alu", "sim_loop", *LM_REPLACES, "motif_pcu"]
+KERNELS = ["sim_alu", "sim_loop", *LM_REPLACES, "motif_pcu", "adamw"]
 #: the head dims the bf16 tensor-core flash kernel is held at: each padded
 #: width (32, 64, 128, 160, 256) and two that pad (80, 192)
 FLASH_TC_DIMS = (32, 64, 80, 120, 128, 160, 192, 256)
@@ -2442,6 +2450,7 @@ def dispatch_breakdown() -> None:
 
 def kernel_entries():
     """Each kernel's launching entry, which carries its ``launches``."""
+    from repro_torch.kernels.adamw import adamw_update_cuda, global_norm_cuda
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     from repro_torch.kernels.fused_swiglu import (fused_swiglu_cuda,
@@ -2458,7 +2467,8 @@ def kernel_entries():
             "motif_pcu": motif_pcu_cuda,
             "rmsnorm_bwd": rmsnorm_bwd_cuda,
             "swiglu_gate_bwd": swiglu_gate_bwd_cuda,
-            "flash_attention_bwd": flash_attention_bwd_cuda}
+            "flash_attention_bwd": flash_attention_bwd_cuda,
+            "adamw_norm": global_norm_cuda, "adamw": adamw_update_cuda}
 
 
 def read_counts():
@@ -3180,6 +3190,7 @@ TRACE_GROUPS = (
     ("cuBLAS products", ("nvjet", "gemm", "xmma", "cutlass")),
     ("Mamba-1 scan steps (one in-place addcmul_ a step, both ways)",
      ("addcmul",)),
+    ("AdamW (the global norm and the fused update)", ("adamw_",)),
 )
 #: the dense model of the train kernel phase's shapes and of the smoke-width
 #: train runs
@@ -3257,7 +3268,16 @@ def train_launches(cfg, steps: int):
       attention is the plain non-causal one, no kernel), ln_enc once; a
       decoder layer's ln1, ln_x, ln2, gate and causal self-attention,
       recomputed (cross-attention is plain), ln_f once: whisper's 4 + 4
-      layers 42 / 22 / 16 / 8 / 8 / 4."""
+      layers 42 / 22 / 16 / 8 / 8 / 4;
+
+    and AdamW's norm (``adamw_norm``) once a step, its update (``adamw``)
+    once a step for each dtype its parameters come in (their gradients
+    share it, the state has one): one where every parameter is bf16, two
+    where some are float32 (the MoE routers, the Mamba layers' float32
+    leaves)."""
+    from repro_torch.models import zoo
+    from repro_torch.train.tree import leaves
+
     L = cfg.n_layers
     rec = 2 if cfg.remat in ("dots", "nothing") else 1  # forward + recompute
     fam = cfg.family
@@ -3281,6 +3301,8 @@ def train_launches(cfg, steps: int):
         per = {"rmsnorm": rec * norms * L + 1, "rmsnorm_bwd": norms * L + 1,
                "fused_swiglu": gate * rec * L, "swiglu_gate_bwd": gate * L,
                "flash_attention": rec * L, "flash_attention_bwd": L}
+    per["adamw_norm"] = 1
+    per["adamw"] = len({s.dtype for s in leaves(zoo.param_spec(cfg))})
     return {k: v * steps for k, v in per.items() if v}
 
 
@@ -3335,7 +3357,8 @@ def train_kernel_names(cfg):
     zamba2's gated norm over 4096 and qwen2_vl's 8192 a row over 2 or 4
     warps) and its dscale sum; the gate on tensor cores and its backward;
     flash's training form and its backward on ``wgmma`` at the head dim
-    (stablelm_12b's 160: the split dk/dv kernel)."""
+    (stablelm_12b's 160: the split dk/dv kernel); AdamW's norm, its
+    finishing sum and its update."""
     widths = {cfg.d_model}
     if cfg.family == "hybrid":
         widths.add(cfg.d_inner)
@@ -3350,6 +3373,7 @@ def train_kernel_names(cfg):
     if "flash_attention" in launches:
         d = cfg.resolved_head_dim
         names += [flash_kernel_name(d, True), *flash_bwd_kernel_names(d)]
+    names += ADAMW_KERNEL_NAMES
     return tuple(names)
 
 
@@ -3840,6 +3864,158 @@ def bwd_kernel_phase():
     return records, flash_train
 
 
+#: AdamW's tree in the train kernel phase: the benchmark's training cell's
+#: (stablelm_12b at 4 layers: 11 leaves, 1.625 B parameters)
+ADAMW_TREE = ("stablelm_12b", 4)
+#: the kernels' norm against the loop's, relative: the two differ only in
+#: the order of a float32 sum
+ADAMW_NORM_RTOL = 1e-6
+#: AdamW's kernels in a trace
+ADAMW_KERNEL_NAMES = ("adamw_norm_kernel", "adamw_norm_finish_kernel",
+                      "adamw_update_kernel")
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def adamw_kernel_case():
+    """AdamW's two kernels against the loop on the card at
+    ``ADAMW_TREE``, as the train step calls them: bf16 params and grads,
+    float32 moments with history (drawn as ``_history_state`` draws
+    them), clipping at 1 (the norm is about 40), step 8.  One step of each from the same state: the kernels' p, m and v
+    bit for bit the loop's (``optimizer.plain_update``) given the kernels'
+    clip scale, the norm and the scale within ``ADAMW_NORM_RTOL`` of the
+    loop's (``optimizer.global_norm``) and the same bits on a second
+    call; then both kernels by name in a trace and timed in turns (kernels,
+    yardstick, kernels, yardstick) beside the loop, the byte bound
+    (``cost.adamw`` + ``cost.adamw_norm``) and the yardstick:
+    ``clip_grad_norm_(foreach)`` + ``AdamW(fused=True)``, which keeps
+    bf16 moments for bf16 params (14 bytes a parameter), so computes
+    another function.  Returns the kernel record minus ``launches``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.adamw import adamw_update_cuda, global_norm_cuda
+    from repro_torch.models import zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.tree import leaves
+
+    arch, layers = ADAMW_TREE
+    shapes = [s.shape for s in leaves(zoo.param_spec(
+        get_config(arch).replace(n_layers=layers)))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    draw = lambda sh, scale: torch.randn(  # noqa: E731
+        sh, generator=gen, device="cuda") * scale
+    ps = [draw(sh, 0.02).bfloat16() for sh in shapes]
+    gs = [draw(sh, 1e-3).bfloat16() for sh in shapes]
+    # moments with history, as _history_state draws them
+    ms = [draw(sh, 1e-2) for sh in shapes]
+    vs = [draw(sh, 1e-2) ** 2 + 1e-6 for sh in shapes]
+    n = sum(p.numel() for p in ps)
+    label = (f"{arch} at {layers} layers: {len(ps)} leaves, {n} "
+             f"parameters, bf16 params and grads, float32 moments")
+    # an lr at which most bf16 params move in one step
+    cfg = opt.AdamWConfig(learning_rate=1e-3, warmup_steps=4)
+    step = torch.full((), 8, dtype=torch.int32, device="cuda")
+    lr = opt.schedule(cfg, step)
+    bc1 = 1.0 - cfg.b1 ** step.float()
+    bc2 = 1.0 - cfg.b2 ** step.float()
+
+    def kern(p=ps, m=ms, v=vs):
+        norm, scale = global_norm_cuda(gs, cfg.grad_clip)
+        adamw_update_cuda(p, gs, m, v, lr, bc1, bc2, scale, cfg)
+        return norm, scale
+
+    def loop_norm():
+        norm = opt.global_norm({str(i): g for i, g in enumerate(gs)})
+        return norm, torch.clamp(cfg.grad_clip / torch.clamp(norm, min=1e-9),
+                                 max=1.0)
+
+    def plain():
+        _, scale = loop_norm()
+        opt.plain_update(ps, gs, ms, vs, lr, bc1, bc2, scale, cfg)
+
+    kp, km, kv = ([t.clone() for t in role] for role in (ps, ms, vs))
+    norm, scale = kern(kp, km, kv)
+    norm2, _ = global_norm_cuda(gs, cfg.grad_clip)
+    moved = sum(int((a != b).sum()) for a, b in zip(kp, ps))
+    # the loop in place, given the kernels' scale
+    opt.plain_update(ps, gs, ms, vs, lr, bc1, bc2, scale, cfg)
+    lnorm, lscale = loop_norm()
+    torch.cuda.synchronize()
+    require(torch.equal(_bits(norm), _bits(norm2)),
+            f"adamw_norm is not deterministic: {norm.item()!r}, "
+            f"{norm2.item()!r}")
+    rel = [abs(a.item() - b.item()) / b.item()
+           for a, b in ((norm, lnorm), (scale, lscale))]
+    require(max(rel) <= ADAMW_NORM_RTOL,
+            f"adamw_norm {norm.item()!r} scale {scale.item()!r}, the loop's "
+            f"{lnorm.item()!r} {lscale.item()!r}")
+    for role, got, want in zip(("p", "m", "v"), (kp, km, kv), (ps, ms, vs)):
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not torch.equal(_bits(a), _bits(b))]
+        require(not bad, f"adamw {role} differs from the loop's in leaves "
+                f"{bad} at {label}")
+    del kp, km, kv
+    torch.cuda.empty_cache()
+    names = _traced_names(kern, ADAMW_KERNEL_NAMES)
+    seen = [w for w in ADAMW_KERNEL_NAMES if any(w in n for n in names)]
+
+    # clip_grad_norm_ scales the grads in place: the yardstick's own
+    params = [torch.nn.Parameter(p.clone()) for p in ps]
+    for p, g in zip(params, gs):
+        p.grad = g.clone()
+    fused = torch.optim.AdamW(params, lr=cfg.learning_rate,
+                              betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+                              weight_decay=cfg.weight_decay, fused=True)
+
+    def lib():
+        torch.nn.utils.clip_grad_norm_(params, cfg.grad_clip, foreach=True)
+        fused.step()
+
+    reps = 5
+    k_turns, k_devs, l_turns, l_devs = [], [], [], []
+    for _ in range(2):
+        k_turns.append(cuda_ms(kern, reps))
+        k_devs.append(device_ms(kern, reps, ADAMW_KERNEL_NAMES))
+        l_turns.append(cuda_ms(lib, reps))
+        l_devs.append(device_ms(lib, reps))
+    k_ms, k_dev, l_ms = _mean(k_turns), _mean(k_devs), _mean(l_turns)
+    del params, fused
+    torch.cuda.empty_cache()
+    p_ms = cuda_ms(plain, 1)
+    update, norm_cost = cost.adamw(n, 2, 2, 4), cost.adamw_norm(n, 2 * n)
+    bound, by = _bound(update[0] + norm_cost[0], update[1] + norm_cost[1],
+                       update[2])
+    share_txt = "" if k_dev is None else \
+        f", {100 * bound / k_dev:.2f}% of the bound in device time"
+    print(f"train kernel adamw {label}: {k_ms:.6f} ms a step, norm and "
+          f"update (turns {_turns_txt(k_turns)}; {_device_txt(k_dev)}, "
+          f"turns {_turns_txt(k_devs)}), plain {p_ms:.6f} ms (the loop), "
+          f"bound {bound:.6f} ms ({by}){share_txt}, library (yardstick: "
+          f"clip_grad_norm_(foreach) + AdamW(fused=True), bf16 moments) "
+          f"{l_ms:.6f} ms (turns {_turns_txt(l_turns)}; device "
+          f"{_turns_txt(l_devs)}); p, m and v bit for bit the loop's given "
+          f"the kernels' scale ({moved} of {n} params moved); norm "
+          f"{norm.item()!r} against the loop's {lnorm.item()!r} (relative "
+          f"{rel[0]:.3g}, scale {rel[1]:.3g}; ADAMW_NORM_RTOL "
+          f"{ADAMW_NORM_RTOL}), the same bits twice; kernels seen in its "
+          f"trace: {', '.join(seen) or 'none (trace empty)'}")
+    del ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": None, "max_abs_err": 0.0, "norm_rel_err": rel[0],
+            "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": l_ms,
+            "library_device_ms": _mean(l_devs), "shape": label,
+            "kernels": seen}
+
+
 def _history_state(params, seed: int):
     """An optimizer state with history (step 7, moments of the scale past
     gradients leave) shaped like ``params``, drawn from ``seed`` on their
@@ -3982,7 +4158,9 @@ STEP_KERNEL_KEYS = {"rmsnorm": ("rmsnorm_kernel",),
                     "swiglu_gate_bwd": ("swiglu_gate_bwd",),
                     "flash_attention": ("flash_fwd_wgmma",
                                         "flash_attention_tc"),
-                    "flash_attention_bwd": ("flash_bwd_",)}
+                    "flash_attention_bwd": ("flash_bwd_",),
+                    "adamw_norm": ("adamw_norm",),
+                    "adamw": ("adamw_update",)}
 
 
 def kernel_step_times(arch, cfg, prof) -> None:
@@ -4626,6 +4804,7 @@ def main() -> int:
     t0 = time.perf_counter()
     bwd, flash_train = bwd_kernel_phase()
     records["flash_attention"]["at"].extend(flash_train)
+    bwd["adamw"] = adamw_kernel_case()
     print(f"phase: train kernels {time.perf_counter() - t0:.3f} s")
     for arch in TRAIN_RUNS:
         t0 = time.perf_counter()
@@ -4652,6 +4831,8 @@ def main() -> int:
     for name, rec in bwd.items():
         rec["launches"] = counts[f"train {TRAINED}"][name]
         rec["launches_by_path"] = {path: c[name] for path, c in counts.items()}
+    # the update's record carries its norm's launches too
+    bwd["adamw"]["norm_launches"] = counts[f"train {TRAINED}"]["adamw_norm"]
 
     print(json.dumps({"kernels": [alu, loop, *records.values(), motif,
                                   *bwd.values()]}))

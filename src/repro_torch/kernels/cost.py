@@ -76,3 +76,17 @@ def flash_attention_bwd(H: int, Hkv: int, S: int, d: int, itemsize: int, *,
     pairs = H * attention_pairs(S, causal, window)
     return ((4 * H + 4 * Hkv) * S * d * itemsize + H * S * 4, 10 * d * pairs,
             _product_rate(itemsize))
+
+
+def adamw(n: int, p_size: int, g_size: int, s_size: int) -> Cost:
+    """AdamW's fused update over ``n`` parameters (params, grads and state
+    of the given item sizes): reads p, g, m and v and writes p, m and v
+    once; about 17 operations a parameter."""
+    return n * (2 * p_size + g_size + 4 * s_size), 17 * n, FP32_OPS_PER_S
+
+
+def adamw_norm(n: int, n_bytes: int) -> Cost:
+    """The global norm over ``n`` gradient entries, ``n_bytes`` in all
+    (leaves of either dtype): each read once, a square and an add each
+    (the finishing sum of the partials is negligible)."""
+    return n_bytes, 2 * n, FP32_OPS_PER_S

@@ -5,10 +5,16 @@ The arithmetic is the JAX package's: each update in float32, then one cast
 to the parameter's and the state's dtypes (so with bf16 parameters, lr
 3e-4 and a 100-step warmup, the first updates mostly round away, as they
 do there).  Unlike the JAX package, which returns new arrays,
-:func:`apply_updates` writes parameters and state in place, and walks a
-leaf stacked over layers one layer slice at a time, so the float32
-temporaries are one slice's (``mlp.w1`` of llama3_2_3b whole would be a 2.8
-GB float32 temporary).
+:func:`apply_updates` writes parameters and state in place.
+
+The device decides, as for the other kernels: on CUDA (or on fake tensors
+standing for the card's) the norm and the update are the two CUDA kernels
+of :mod:`repro_torch.kernels.adamw`, which take every leaf whole with no
+float32 temporaries, the update the loop's bit for bit given the same clip
+scale, and raise for a leaf they cannot take.  On the CPU they are the
+plain loop, which walks a leaf stacked over layers one layer slice at a
+time, so the float32 temporaries are one slice's (``mlp.w1`` of
+llama3_2_3b whole would be a 2.8 GB float32 temporary).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw, fake
 from repro_torch.models.layers import Spec, spec_map
 from repro_torch.train.tree import leaves, slices, tree_map
 
@@ -79,32 +86,48 @@ def global_norm(tree: Dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def plain_update(params, grads, ms, vs, lr, bc1, bc2, scale,
+                 cfg: AdamWConfig) -> None:
+    """The loop: AdamW in place over the leaves ``params``, ``grads``,
+    ``ms`` and ``vs`` with clip scale ``scale``, slice by slice, in float32
+    aten ops, each result cast once to its leaf's dtype."""
+    for p, g, m, v in zip(params, grads, ms, vs):
+        for ps, gs, ms_, vs_ in zip(slices(p), slices(g), slices(m),
+                                    slices(v)):
+            g32 = gs.float() * scale
+            m1 = cfg.b1 * ms_.float() + (1 - cfg.b1) * g32
+            v1 = cfg.b2 * vs_.float() + (1 - cfg.b2) * g32 * g32
+            delta = (m1 / bc1) / (torch.sqrt(v1 / bc2) + cfg.eps) \
+                + cfg.weight_decay * ps.float()
+            ps.copy_(ps.float() - lr * delta)
+            ms_.copy_(m1)
+            vs_.copy_(v1)
+
+
 @torch.no_grad()
 def apply_updates(params: Dict, grads: Dict, opt_state: Dict,
                   cfg: AdamWConfig) -> Tuple[Dict, Dict, Dict[str, Any]]:
     """One AdamW step of ``params`` with ``grads``: clipped to
     ``grad_clip`` global norm, moments in ``state_dtype``, decoupled
     weight decay.  Updates ``params`` and ``opt_state`` in place and
-    returns them with ``{"grad_norm", "lr"}`` (float32 scalars)."""
+    returns them with ``{"grad_norm", "lr"}`` (float32 scalars).  On the
+    card the two kernels of :mod:`repro_torch.kernels.adamw` (``ValueError``
+    for a leaf they cannot take), on the CPU the loop
+    (:func:`plain_update`)."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0) if cfg.grad_clip else 1.0
     stepf = step.to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** stepf
     bc2 = 1.0 - cfg.b2 ** stepf
-    for p, g, m, v in zip(leaves(params), leaves(grads),
-                          leaves(opt_state["m"]), leaves(opt_state["v"])):
-        for ps, gs, ms, vs in zip(slices(p), slices(g), slices(m),
-                                  slices(v)):
-            g32 = gs.float() * scale
-            m1 = cfg.b1 * ms.float() + (1 - cfg.b1) * g32
-            v1 = cfg.b2 * vs.float() + (1 - cfg.b2) * g32 * g32
-            delta = (m1 / bc1) / (torch.sqrt(v1 / bc2) + cfg.eps) \
-                + cfg.weight_decay * ps.float()
-            ps.copy_(ps.float() - lr * delta)
-            ms.copy_(m1)
-            vs.copy_(v1)
+    ps, gs = leaves(params), leaves(grads)
+    ms, vs = leaves(opt_state["m"]), leaves(opt_state["v"])
+    if ps[0].is_cpu and not fake.modelled(ps[0]):
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0) if cfg.grad_clip else 1.0
+        plain_update(ps, gs, ms, vs, lr, bc1, bc2, scale, cfg)
+    else:
+        gnorm, scale = adamw.global_norm_cuda(gs, cfg.grad_clip)
+        adamw.adamw_update_cuda(ps, gs, ms, vs, lr, bc1, bc2, scale, cfg)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

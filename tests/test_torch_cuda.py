@@ -24,8 +24,13 @@ call
 cannot take refused; and flash's training forward with its row
 log-sum-exp and float32 output) against autograd of the plain versions,
 twice bit for bit, each by name; a store round trip verified on
-the card (one ``sim_loop`` launch a verifying get); and a compile verified
-on the card (one ``sim_loop`` launch, the CPU compile's artifact).
+the card (one ``sim_loop`` launch a verifying get); a compile verified
+on the card (one ``sim_loop`` launch, the CPU compile's artifact); and
+AdamW's two kernels (``adamw``): the fused update bit for bit against the
+plain loop given the same clip scale in every (param, grad, state) dtype
+combination, the norm within 1e-6 of the loop's and the same bits twice,
+one norm and one update entry call an ``apply_updates`` of
+stablelm_12b's 11-leaf tree, and a leaf the kernels cannot take refused.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -1636,3 +1641,183 @@ def test_spans_of_a_train_step_and_generate_on_the_card(cuda):
     assert set(t) == {"model.rope"} and t["model.rope"].count == 2
     assert t["model.rope"].device_s > 0
     tracing.reset()
+
+
+# ---------------------------------------------------------------------------
+# AdamW: the global norm and the fused update against the plain loop
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import adamw
+from repro_torch.train import optimizer as adamw_opt
+from repro_torch.train.tree import leaves as tree_leaves
+
+ADAMW_DTYPES = [torch.float32, torch.bfloat16]
+#: leaf shapes: stacked (sliced by the loop), ragged ends past the 8-wide
+#: vectors, a 0-d leaf, a leaf of several chunks, and more leaves than one
+#: launch's table holds
+ADAMW_SHAPES = [(3, 5, 1003), (4099,), (), (64, 64), (2 * adamw.CHUNK + 5,)] \
+    + [(17 * i + 1,) for i in range(adamw.MAX_LEAVES)]
+#: the leaves (by index) given as views 1 element into their storage, so
+#: not on 16-byte boundaries: the kernels' one-element-a-thread path
+ADAMW_OFFSET = (1, 4)
+
+
+def _adamw_leaf(shape, dtype, cuda, gen, scale, offset, positive=False):
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=gen, device=cuda)
+    if positive:
+        x = x.abs()
+    return (x * scale).to(dtype)[offset:].view(shape)
+
+
+def _adamw_tree(cuda, P, G, S, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ps, gs, ms, vs = [], [], [], []
+    for i, shape in enumerate(ADAMW_SHAPES):
+        off = int(i in ADAMW_OFFSET)
+        ps.append(_adamw_leaf(shape, P, cuda, gen, 1.0, off))
+        gs.append(_adamw_leaf(shape, G, cuda, gen, 0.05, off))
+        ms.append(_adamw_leaf(shape, S, cuda, gen, 1e-3, off))
+        vs.append(_adamw_leaf(shape, S, cuda, gen, 1e-5, off, True))
+    return ps, gs, ms, vs
+
+
+def _adamw_scalars(cfg, cuda, step=7):
+    """lr and the bias corrections as apply_updates computes them."""
+    s = torch.full((), step, dtype=torch.int32, device=cuda)
+    stepf = s.to(torch.float32)
+    return (adamw_opt.schedule(cfg, s), 1.0 - cfg.b1 ** stepf,
+            1.0 - cfg.b2 ** stepf)
+
+
+def _same_bits(a, b):
+    ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(ints),
+                                              b.contiguous().view(ints))
+
+
+@pytest.mark.parametrize("S", ADAMW_DTYPES, ids=["s32", "s16"])
+@pytest.mark.parametrize("G", ADAMW_DTYPES, ids=["g32", "g16"])
+@pytest.mark.parametrize("P", ADAMW_DTYPES, ids=["p32", "p16"])
+def test_adamw_update_bit_identical_to_the_loop(cuda, P, G, S):
+    """The fused update against optimizer.plain_update on the card, given
+    the same clip scale: p, m and v bit for bit in every (param, grad,
+    state) dtype combination, over ragged, 0-d, offset and stacked leaves
+    and more leaves than one launch's table: one C entry call."""
+    cfg = adamw_opt.AdamWConfig(learning_rate=1e-2, warmup_steps=4)
+    ps, gs, ms, vs = _adamw_tree(cuda, P, G, S)
+    assert all(t.data_ptr() % 16 for t in (ps[1], gs[1], ms[1], vs[1]))
+    start = [p.clone() for p in ps]
+    want = [[t.clone() for t in role] for role in (ps, ms, vs)]
+    lr, bc1, bc2 = _adamw_scalars(cfg, cuda)
+    scale = torch.full((), 0.37, device=cuda)
+    adamw_opt.plain_update(want[0], gs, want[1], want[2], lr, bc1, bc2,
+                           scale, cfg)
+    before = adamw.adamw_update_cuda.launches
+    adamw.adamw_update_cuda(ps, gs, ms, vs, lr, bc1, bc2, scale, cfg)
+    torch.cuda.synchronize()
+    assert adamw.adamw_update_cuda.launches == before + 1
+    for role, wants, name in zip((ps, ms, vs), want, "pmv"):
+        for i, (got, w) in enumerate(zip(role, wants)):
+            assert _same_bits(got, w), (name, i, ADAMW_SHAPES[i])
+    # lr 1e-2 moves every leaf of some size, bf16 ones too
+    assert all(not torch.equal(p, s) for p, s in zip(ps, start)
+               if p.numel() >= 64)
+
+
+@pytest.mark.parametrize("clip", [0.0, 1.0, 1e-3])
+def test_adamw_norm_deterministic_and_close_to_the_loop(cuda, clip):
+    """The norm over mixed float32 / bf16 grads (ragged, 0-d, offset,
+    many chunks, more leaves than a table) within 1e-6 relative of the
+    loop's float32 sum, the clip scale within 1e-6 of the loop's formula
+    (exactly 1 without clipping), and the same bits on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    grads = [_adamw_leaf(s, ADAMW_DTYPES[i % 2], cuda, gen, 0.05,
+                         int(i in ADAMW_OFFSET))
+             for i, s in enumerate(ADAMW_SHAPES + [(40, adamw.CHUNK)])]
+    want = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    before = adamw.global_norm_cuda.launches
+    norm, scale = adamw.global_norm_cuda(grads, clip)
+    norm2, scale2 = adamw.global_norm_cuda(grads, clip)
+    torch.cuda.synchronize()
+    assert adamw.global_norm_cuda.launches == before + 2
+    torch.testing.assert_close(norm, want, rtol=1e-6, atol=0)
+    assert _same_bits(norm, norm2) and _same_bits(scale, scale2)
+    if clip:
+        want_scale = torch.clamp(clip / torch.clamp(norm, min=1e-9),
+                                 max=1.0)
+        torch.testing.assert_close(scale, want_scale, rtol=1e-6, atol=0)
+    else:
+        assert float(scale) == 1.0
+
+
+def test_adamw_apply_updates_on_the_cell_tree(cuda):
+    """apply_updates on stablelm_12b's 11-leaf tree (one layer; bf16
+    params and grads, float32 state, clipping on): one norm and one
+    update entry call; the result is the loop's bit for bit given the
+    kernel's scale, the norm and the scale within 1e-6 of the loop's;
+    the step made no host sync (the norm and lr stay on the card)."""
+    cfg = adamw_opt.AdamWConfig(learning_rate=1e-2, warmup_steps=4)
+    spec = zoo.param_spec(get_config("stablelm_12b").replace(n_layers=1))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    shapes = [s.shape for s in tree_leaves(spec)]
+    assert len(shapes) == 11
+    params = {f"{i:02d}": _adamw_leaf(s, torch.bfloat16, cuda, gen, 0.02, 0)
+              for i, s in enumerate(shapes)}
+    grads = {k: _adamw_leaf(p.shape, torch.bfloat16, cuda, gen, 1e-3, 0)
+             for k, p in params.items()}
+    state = adamw_opt.init_opt_state(params, cfg)
+    want_p = [p.clone() for p in tree_leaves(params)]
+    want_m = [torch.zeros_like(m) for m in tree_leaves(state["m"])]
+    want_v = [torch.zeros_like(v) for v in tree_leaves(state["v"])]
+    counts = (adamw.global_norm_cuda.launches,
+              adamw.adamw_update_cuda.launches)
+    _, state, om = adamw_opt.apply_updates(params, grads, state, cfg)
+    torch.cuda.synchronize()
+    assert (adamw.global_norm_cuda.launches,
+            adamw.adamw_update_cuda.launches) == (counts[0] + 1,
+                                                   counts[1] + 1)
+    assert om["grad_norm"].is_cuda and om["lr"].is_cuda
+    gl = tree_leaves(grads)
+    loop_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gl))
+    torch.testing.assert_close(om["grad_norm"], loop_norm, rtol=1e-6,
+                               atol=0)
+    scale = torch.clamp(1.0 / torch.clamp(om["grad_norm"], min=1e-9),
+                        max=1.0)
+    assert float(scale) < 1.0  # clipping is on
+    lr, bc1, bc2 = _adamw_scalars(cfg, cuda, step=1)
+    _, kernel_scale = adamw.global_norm_cuda(gl, cfg.grad_clip)
+    torch.testing.assert_close(kernel_scale, scale, rtol=1e-6, atol=0)
+    adamw_opt.plain_update(want_p, gl, want_m, want_v, lr, bc1, bc2,
+                           kernel_scale, cfg)
+    for got, want in zip(tree_leaves(params) + tree_leaves(state["m"])
+                         + tree_leaves(state["v"]),
+                         want_p + want_m + want_v):
+        assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("leaf", ["transposed", "float16"])
+def test_adamw_apply_updates_refuses_what_the_kernels_cannot_take(cuda,
+                                                                  leaf):
+    """On the card the device decides: a gradient leaf the kernels cannot
+    take (not contiguous, or float16) raises ``ValueError`` with no launch
+    and nothing updated, rather than falling back to the loop."""
+    cfg = adamw_opt.AdamWConfig()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = {"a": _adamw_leaf((8, 16), torch.bfloat16, cuda, gen, 0.02, 0),
+              "b": _adamw_leaf((16, 8), torch.bfloat16, cuda, gen, 0.02, 0)}
+    grads = {"a": _adamw_leaf((8, 16), torch.bfloat16, cuda, gen, 1e-3, 0),
+             "b": (_adamw_leaf((8, 16), torch.bfloat16, cuda, gen, 1e-3,
+                               0).t() if leaf == "transposed" else
+                   _adamw_leaf((16, 8), torch.float16, cuda, gen, 1e-3, 0))}
+    state = adamw_opt.init_opt_state(params, cfg)
+    start = [p.clone() for p in tree_leaves(params)]
+    counts = (adamw.global_norm_cuda.launches,
+              adamw.adamw_update_cuda.launches)
+    with pytest.raises(ValueError, match="contiguous float32 or bfloat16"):
+        adamw_opt.apply_updates(params, grads, state, cfg)
+    assert (adamw.global_norm_cuda.launches,
+            adamw.adamw_update_cuda.launches) == counts
+    assert all(torch.equal(p, s) for p, s in zip(tree_leaves(params), start))
+    assert int(state["step"]) == 0

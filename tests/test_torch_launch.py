@@ -24,9 +24,12 @@ from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.sim_loop import STATICS, sim_loop_cuda
 
 KERNELS = ["sim_alu", "sim_loop", "rmsnorm", "fused_swiglu",
-           "flash_attention", "motif_pcu"]
+           "flash_attention", "motif_pcu", "adamw"]
 C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
-           "long long": ctypes.c_longlong, "float": ctypes.c_float}
+           "long long": ctypes.c_longlong, "float": ctypes.c_float,
+           "void**": ctypes.POINTER(ctypes.c_void_p),
+           "long long*": ctypes.POINTER(ctypes.c_longlong),
+           "int*": ctypes.POINTER(ctypes.c_int)}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -134,6 +137,20 @@ def test_backward_entry_matches_the_bound_signature(library, name, attr):
     assert [t for t, _ in params] == \
         list(getattr(module, attr)) + [ctypes.c_int, ctypes.c_void_p]
     assert [n for _, n in params[-2:]] == ["device", "stream"]
+
+
+def test_adamw_norm_entry_matches_the_bound_signature():
+    """AdamW's norm entry sits beside its update entry (``adamw_launch``)
+    and takes what its wrapper binds: the leaf table as host arrays of
+    pointers, element counts and dtype codes, device and stream last."""
+    from repro_torch.kernels import adamw
+
+    params = _c_signature("adamw_norm", "adamw")
+    assert [t for t, _ in params] == \
+        list(adamw._NORM_ARGS) + [ctypes.c_int, ctypes.c_void_p]
+    assert [n for _, n in params] == ["g", "n", "dtype", "count", "scratch",
+                                      "partials", "grad_clip", "device",
+                                      "stream"]
 
 
 def test_flash_forward_entry_takes_the_training_outputs():
